@@ -5,12 +5,18 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. print the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build the CUDA kernels K1 (csrc/scan_qp.cu) and K2 (csrc/nw.cu) from
-     the checkout and time the build;
-  3. hold each kernel against its plain PyTorch version on the card, exactly:
-     K1 on a full 2^22-base window over the pair map of a bacterial-size
-     solid set, K2 on 256 seeded pairs of 50 to 10,000 bp (also against the
-     native nw.cpp); time both sides;
+  2. build the CUDA kernels from the checkout, one nvcc per source, all
+     started together, and time the build: K1 (csrc/scan_qp.cu), K2
+     (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu) and
+     K5 (csrc/walk.cu);
+  3. hold each kernel against its plain PyTorch version on the card, exactly,
+     at the main path's shapes, and time both sides: K1 on a full 2^22-base
+     window over the pair map of a bacterial-size solid set; K2 on 256
+     seeded pairs of 50 to 10,000 bp (also against the native nw.cpp); K3
+     (+ the sort) on one default counting batch of 2^23 bases of the reads;
+     K4 merging that batch into an accumulator of the donor's distinct
+     k-mers, once at full capacity and once truncated; K5 on 4,096 lanes of
+     donor k-mers with a budget of 10,000 and 2,048 steps, both layouts;
   4. drive the main path at the size users run: a seeded genome of
      4,641,652 bp (the length of E. coli K-12 MG1655) with ~100 planted
      homozygous insertions of 20-500 bp plus SNPs and deletions, 30x of
@@ -20,8 +26,14 @@ Phases, each of which must pass (any failure exits non-zero):
      subprocess; `nwalign --device` on one filled insertion against its
      planted sequence, checked against the native engine (and K2 against
      its plain version at that pair's shape);
-  5. check the results: K1 and K2 launched on the main path, the find artifacts equal
-     a `-device cpu` rerun on the same graph, and insertion recall >= 90%.
+  5. drive the device-engine path on the same data, in-process: `find
+     -count-engine device`, then `fill -fill-engine device` and
+     `-fill-engine device-qb` (and the native fill, for its time);
+  6. check the results: every kernel launched on its path; the find
+     artifacts equal a `-device cpu` rerun on the same graph; the
+     device-count graph, breakpoints and VCF records equal the host-count
+     run's; the device fills' artifacts equal the native fill's; insertion
+     recall >= 90% on both paths.
 
 The line before the last holds the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -162,7 +174,7 @@ def _max_abs_err(pairs) -> int:
     return max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
 
 
-def check_scan_kernel(ref: np.ndarray, donor: np.ndarray, k: int, seed: int) -> dict:
+def check_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int) -> dict:
     """K1 against its plain version on one full 2^22-base window of the
     reference, over the pair map of the donor's solid set."""
     import torch
@@ -172,8 +184,6 @@ def check_scan_kernel(ref: np.ndarray, donor: np.ndarray, k: int, seed: int) -> 
     from mindthegap_tpu_torch.ops import kmers as K
 
     rng = np.random.default_rng(seed)
-    fwd, _ = K.kmers_from_codes(donor, k)
-    solid = np.unique(K.canonical_u64(fwd, k))
     rfwd, _ = K.kmers_from_codes(ref, k - 1)
     repeat = np.unique(K.canonical_u64(rfwd[::50], k - 1))  # exercise the REP class
     qp = X.build_fused_pair(solid, k, repeat)
@@ -245,6 +255,101 @@ def check_nw_kernel(seed: int) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def check_count_kernels(reads: str, solid: np.ndarray, k: int, seed: int) -> tuple[dict, dict]:
+    """K3 (+ the sort) on one default counting batch of 2^23 bases of the
+    reads, joined by separators as the device counter joins them; K4
+    merging the sorted batch into an accumulator of the donor's distinct
+    k-mers at the counter's power-of-two capacity, and once truncated."""
+    import torch
+
+    from mindthegap_tpu_torch.find.scan_device import pack_codes_host
+    from mindthegap_tpu_torch.io.bank import iter_codes
+    from mindthegap_tpu_torch.ops import counting_device as C
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    batch = 1 << 23
+    buf = np.full(batch, C.SEP, np.uint8)
+    fill = 0
+    for _h, codes in iter_codes(reads):
+        if fill + codes.size + 1 > batch:
+            break
+        buf[fill:fill + codes.size] = codes
+        fill += codes.size + 1
+    packed, bad = (torch.from_numpy(a).cuda() for a in pack_codes_host(buf))
+    got = C.kmer_keys_cuda(packed, bad, k)
+    want = C._kmer_keys_plain(packed, bad, k)
+    torch.cuda.synchronize()
+    err3 = _max_abs_err([(got, want)])
+    ms3 = _cuda_ms(lambda: C.kmer_keys_cuda(packed, bad, k), iters=20, warmup=2)
+    plain3 = _cuda_ms(lambda: C._kmer_keys_plain(packed, bad, k), iters=3)
+    sort_ms = _cuda_ms(lambda: C.sort_batch(packed, bad, k), iters=10)
+    print(f"K3 kmer_keys: batch {batch} bases ({fill} filled), k {k}, max_abs_err {err3} "
+          f"(tolerance 0: exact), kernel {ms3:.4f} ms, plain {plain3:.4f} ms; "
+          f"sort_batch (K3 + torch.sort) {sort_ms:.4f} ms")
+
+    b = C.sort_batch(packed, bad, k)
+    rng = np.random.default_rng(seed)
+    cap = 1 << (solid.size - 1).bit_length()
+    acc_k = torch.full((cap,), C.BIASED_SENTINEL, dtype=torch.int64)
+    acc_k[: solid.size] = torch.from_numpy(K.as_i64(solid) ^ K.SIGN_BIT)
+    acc_c = torch.zeros(cap, dtype=torch.int64)
+    acc_c[: solid.size] = torch.from_numpy(rng.integers(1, 60, solid.size))
+    acc_k, acc_c = acc_k.cuda(), acc_c.cuda()
+    errs = []
+    for out_cap in (cap, cap // 2):
+        got = C.merge_sorted_cuda(acc_k, acc_c, b, out_cap)
+        want = C._merge_sorted_plain(acc_k, acc_c, b, out_cap)
+        torch.cuda.synchronize()
+        errs.append(_max_abs_err(zip(got, want)))
+        nd = int(want[2])
+    if nd <= cap // 2:
+        raise AssertionError(f"the truncated merge did not truncate: {nd} distinct, out_cap {cap // 2}")
+    err4 = max(errs)
+    ms4 = _cuda_ms(lambda: C.merge_sorted_cuda(acc_k, acc_c, b, cap), iters=10, warmup=2)
+    plain4 = _cuda_ms(lambda: C._merge_sorted_plain(acc_k, acc_c, b, cap), iters=3)
+    print(f"K4 merge_sorted: accumulator {solid.size} distinct of {cap}, batch {b.numel()}, "
+          f"out_cap {cap} and {cap // 2} (truncated, {nd} distinct), max_abs_err {err4} "
+          f"(tolerance 0: exact), kernel {ms4:.4f} ms, plain {plain4:.4f} ms")
+    return ({"max_abs_err": err3, "ms": ms3, "plain_ms": plain3},
+            {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4})
+
+
+def check_walk_kernel(donor: np.ndarray, solid: np.ndarray, k: int, seed: int) -> dict:
+    """K5 on 4,096 lanes of donor k-mers with a budget of 10,000 (fill's
+    default -max-length) for the walker's largest step count, over the
+    graph map of the donor's solid set, both layouts."""
+    import torch
+
+    from mindthegap_tpu_torch.fill import walk_device as W
+    from mindthegap_tpu_torch.ops import extmap as X
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    rng = np.random.default_rng(seed)
+    fwd, _ = K.kmers_from_codes(donor, k)
+    nodes = torch.from_numpy(K.as_i64(fwd[rng.integers(0, fwd.size, 4096)])).cuda()
+    budgets = torch.full((4096,), 10_000, dtype=torch.int32).cuda()
+    out = {}
+    for layout, build in (("cuckoo", X.build_fused), ("bucket", X.build_fused_bucket)):
+        host = build(solid, k, np.zeros(0, np.uint64))
+        t = host.to("cuda")
+        log = host.log_nb if layout == "bucket" else host.log_size
+        args = (nodes, budgets, t.slots, t.stash_keys, t.stash_payload, log, k, 2048, layout)
+        got = W.walk_batch_cuda(*args)
+        t0 = time.perf_counter()
+        want = W._walk_batch_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = _max_abs_err(zip(got, want))
+        ms = _cuda_ms(lambda: W.walk_batch_cuda(*args), iters=5)
+        steps = int(got[1].sum())
+        print(f"K5 walk_batch ({layout}): 4096 lanes, 2048 steps, {steps} bases appended, "
+              f"table {host.nbytes >> 20} MB, max_abs_err {err} (tolerance 0: exact), "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call)")
+        out[layout] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max(v["max_abs_err"] for v in out.values()), **out["cuckoo"],
+            "bucket_ms": out["bucket"]["ms"], "bucket_plain_ms": out["bucket"]["plain_ms"]}
+
+
 def _run(cmd: list[str], cwd: str) -> float:
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
@@ -259,35 +364,60 @@ def _records(path: str):
         return [line for line in f if not line.startswith("#")]
 
 
-def main_path(work: str, case, seed: int) -> dict:
-    """find -> fill -> nwalign --device on the E. coli-size case (make_case's
-    output); returns the kernel launch counts of the run."""
+def _same(a: str, b: str) -> bool:
+    with open(a) as fa, open(b) as fb:
+        return fa.read() == fb.read()
+
+
+def _cli(args: list[str]) -> tuple[float, str]:
+    """One in-process CLI run (so that the launch counters are readable):
+    (wall seconds, the report it printed)."""
+    from mindthegap_tpu_torch import cli
+
+    report = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        rc = cli.main(args)
+    if rc != 0:
+        raise RuntimeError(f"{' '.join(args[:1])} exited {rc}: {report.getvalue()[-4000:]}")
+    return time.perf_counter() - t0, report.getvalue()
+
+
+def _phase(report: str, name: str) -> float:
+    """Seconds of one -profile phase in a report."""
+    return float(re.search(rf"^\s*{re.escape(name)}\s*:\s*([\d.]+) s", report, re.M).group(1))
+
+
+def _reset_launches():
+    """Set every kernel's launch count to 0; returns a reader of the counts."""
+    from mindthegap_tpu_torch.fill import walk_device as W
+    from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.ops import counting_device as C
+    from mindthegap_tpu_torch.ops import nw_device as ND
+
+    wrappers = {"scan_cls_qp": S.cls_core_cuda, "nw_matches": ND.nw_matches_cuda,
+                "kmer_keys": C.kmer_keys_cuda, "merge_sorted": C.merge_sorted_cuda,
+                "walk_batch": W.walk_batch_cuda}
+    for fn in wrappers.values():
+        fn.launches = 0
+    return lambda: {name: fn.launches for name, fn in wrappers.items()}
+
+
+def main_path(work: str, insertions, reads: str) -> dict:
+    """find -> fill -> nwalign --device on the E. coli-size case (ref.fa and
+    the reads are in `work`); returns the kernel launch counts of the run
+    and its times."""
     import torch
 
-    from mindthegap_tpu_torch import cli, nwalign
-    from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch import nwalign
     from mindthegap_tpu_torch.ops import nw as N
     from mindthegap_tpu_torch.ops import nw_device as ND
 
-    t0 = time.perf_counter()
-    ref, donor, insertions = case
-    write_fasta(os.path.join(work, "ref.fa"), CHROM, ref)
-    reads = write_reads(os.path.join(work, "reads"), donor, 30.0, seed + 1)
-    print(f"data: genome {ref.size} bp, {len(insertions)} insertions, 30x 2x150 reads "
-          f"({time.perf_counter() - t0:.1f} s to write)")
-
-    S.cls_core_cuda.launches = 0
-    ND.nw_matches_cuda.launches = 0
+    launches = _reset_launches()
     cwd = os.getcwd()
     os.chdir(work)
     try:
-        t0 = time.perf_counter()
-        report = io.StringIO()
-        with contextlib.redirect_stdout(report):
-            rc = cli.main(["find", "-in", reads, "-ref", "ref.fa", "-out", "t"])
-        if rc != 0:
-            raise RuntimeError(f"find exited {rc}: {report.getvalue()[-4000:]}")
-        find_s = time.perf_counter() - t0
+        find_s, report = _cli(["find", "-in", reads, "-ref", "ref.fa", "-out", "t", "-profile"])
         fill_s = _run([sys.executable, "-m", "mindthegap_tpu_torch", "fill", "-graph", "t.h5",
                        "-bkpt", "t.breakpoints", "-out", "tf"], work)
         filled = filled_insertions("tf.insertions.fasta")
@@ -302,7 +432,7 @@ def main_path(work: str, case, seed: int) -> dict:
         nw_s = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
-    launches = {"scan_cls_qp": S.cls_core_cuda.launches, "nw_matches": ND.nw_matches_cuda.launches}
+    counts = launches()
 
     nw_dev = float(out.getvalue().strip())
     nw_nat = N.nw_identity(got, planted_s)
@@ -313,28 +443,99 @@ def main_path(work: str, case, seed: int) -> dict:
     k2, plain = ND.nw_matches_cuda(seq.cuda(), off.cuda()), ND._nw_matches_plain(seq.cuda(), off.cuda())
     if not torch.equal(k2, plain):
         raise AssertionError(f"K2 {k2.tolist()} != plain {plain.tolist()} on the nwalign pair")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("scan_cls_qp", "nw_matches"):
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     cpu_s = _run([sys.executable, "-m", "mindthegap_tpu_torch", "find", "-graph", "t.h5",
                   "-ref", "ref.fa", "-out", "c", "-device", "cpu"], work)
-    with open(os.path.join(work, "t.breakpoints")) as a, open(os.path.join(work, "c.breakpoints")) as b:
-        if a.read() != b.read():
-            raise AssertionError("find -device cpu wrote other .breakpoints than the CUDA run")
+    if not _same(os.path.join(work, "t.breakpoints"), os.path.join(work, "c.breakpoints")):
+        raise AssertionError("find -device cpu wrote other .breakpoints than the CUDA run")
     if _records(os.path.join(work, "t.othervariants.vcf")) != _records(os.path.join(work, "c.othervariants.vcf")):
         raise AssertionError("find -device cpu wrote other VCF records than the CUDA run")
     recall = insertion_recall(insertions, filled)
     n_bkpt = sum(1 for line in open(os.path.join(work, "t.breakpoints")) if line.startswith(">")) // 2
-    print(f"find (CUDA, graph built from reads): {find_s:.1f} s, {n_bkpt} breakpoints; "
-          f"fill: {fill_s:.1f} s, {len(filled)} insertions; find -device cpu -graph: {cpu_s:.1f} s")
+    print(f"find (CUDA, graph built from reads, host counting): {find_s:.1f} s "
+          f"(graph build {_phase(report, 'graph build'):.2f} s), {n_bkpt} breakpoints; "
+          f"fill (native, subprocess): {fill_s:.1f} s, {len(filled)} insertions; "
+          f"find -device cpu -graph: {cpu_s:.1f} s")
     print(f"nwalign --device: identity {nw_dev} (native {nw_nat}; K2 equals its plain version on this "
           f"{len(got)} x {len(planted_s)} pair), {nw_s:.2f} s")
     print(f"CUDA and CPU find outputs identical; insertion recall {recall:.4f} "
           f"({round(recall * len(insertions))}/{len(insertions)})")
-    print(f"kernel launches on the main path: {launches}")
+    print(f"kernel launches on the main path: {counts}")
     if recall < 0.9:
         raise AssertionError(f"insertion recall {recall:.4f} is below 0.9")
-    return {"launches": launches}
+    return {"launches": counts}
+
+
+def device_path(work: str, insertions, reads: str) -> dict:
+    """find -count-engine device, then fill -fill-engine device and
+    device-qb (and the native fill, in-process for a comparable time), on
+    the main path's data; held against the main path's host-count and
+    native artifacts. Returns the kernel launch counts of the run."""
+    from mindthegap_tpu_torch.graph.dbg import Graph
+
+    launches = _reset_launches()
+    cwd = os.getcwd()
+    os.chdir(work)
+    times = {}
+    try:
+        times["find"] = _cli(["find", "-in", reads, "-ref", "ref.fa", "-count-engine", "device",
+                              "-out", "d", "-profile", "-verbose", "0"])
+        for out, engine in (("df", "device"), ("dq", "device-qb"), ("dn", "native")):
+            times[out] = _cli(["fill", "-graph", "d.h5", "-bkpt", "d.breakpoints", "-fill-engine", engine,
+                               "-out", out, "-profile", "-verbose", "0"])
+    finally:
+        os.chdir(cwd)
+    counts = launches()
+
+    def path(name):
+        return os.path.join(work, name)
+
+    host_g, dev_g = Graph.load(path("t.h5")), Graph.load(path("d.h5"))
+    if not (np.array_equal(host_g.solid.keys, dev_g.solid.keys)
+            and np.array_equal(host_g.solid.counts, dev_g.solid.counts) and host_g.info == dev_g.info):
+        raise AssertionError("the device-count graph differs from the host-count graph")
+    if not _same(path("t.breakpoints"), path("d.breakpoints")):
+        raise AssertionError("find -count-engine device wrote other .breakpoints than host counting")
+    if _records(path("t.othervariants.vcf")) != _records(path("d.othervariants.vcf")):
+        raise AssertionError("find -count-engine device wrote other VCF records than host counting")
+    for out in ("df", "dq", "dn"):
+        for ext in ("insertions.fasta", "info.txt"):
+            if not _same(path(f"tf.{ext}"), path(f"{out}.{ext}")):
+                raise AssertionError(f"{out}.{ext} differs from the native fill's tf.{ext}")
+        if _records(path("tf.insertions.vcf")) != _records(path(f"{out}.insertions.vcf")):
+            raise AssertionError(f"{out}.insertions.vcf records differ from the native fill's")
+    for name in ("kmer_keys", "merge_sorted", "walk_batch"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the device-engine path")
+    recall = insertion_recall(insertions, filled_insertions(path("df.insertions.fasta")))
+    find_s, report = times["find"]
+    print(f"find -count-engine device: {find_s:.1f} s (graph build {_phase(report, 'graph build'):.2f} s); "
+          "graph, breakpoints and VCF records equal the host-count run's")
+    print("fill -graph d.h5 (in-process): " + ", ".join(
+        f"{engine} {times[out][0]:.1f} s (fill jobs {_phase(times[out][1], 'fill jobs'):.2f} s)"
+        for out, engine in (("dn", "native"), ("df", "device"), ("dq", "device-qb"))))
+    print(f"device and device-qb fill artifacts equal the native fill's; insertion recall {recall:.4f}")
+    print(f"kernel launches on the device-engine path: {counts}")
+    if recall < 0.9:
+        raise AssertionError(f"insertion recall {recall:.4f} is below 0.9 on the device-engine path")
+    return {"launches": counts}
+
+
+def build_kernels():
+    """Build every kernel library at once: one nvcc per source, in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mindthegap_tpu_torch.fill import walk_device as W
+    from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.ops import counting_device as C
+    from mindthegap_tpu_torch.ops import nw_device as ND
+
+    loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for f in [pool.submit(fn) for fn in loaders]:
+            f.result()
 
 
 def main() -> int:
@@ -344,30 +545,42 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     # the port must sit beside this script; without it, fail before printing anything
-    from mindthegap_tpu_torch.find import scan_device as S
-    from mindthegap_tpu_torch.ops import nw_device as ND
+    import mindthegap_tpu_torch  # noqa: F401
+    from mindthegap_tpu_torch.ops import kmers as K
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    S._cls_lib()
-    ND._nw_lib()
-    print(f"kernel build (nvcc, sm_90a): {time.perf_counter() - t0:.1f} s")
+    build_kernels()
+    print(f"kernel build (nvcc, sm_90a, 5 sources in parallel): {time.perf_counter() - t0:.1f} s")
 
     seed = 20261016
+    k = 31
     case = make_case(ECOLI_LEN, n_ins=100, n_snp=50, n_del=50, seed=seed)
-    k1 = check_scan_kernel(case[0], case[1], 31, seed)
+    ref, donor, insertions = case
+    fwd, _ = K.kmers_from_codes(donor, k)
+    solid = np.unique(K.canonical_u64(fwd, k))  # error-free reads: the donor's k-mers
+    k1 = check_scan_kernel(ref, solid, k, seed)
     k2 = check_nw_kernel(seed)
-    if k1["max_abs_err"] or k2["max_abs_err"]:
-        raise AssertionError(f"kernel disagrees with its plain version: K1 {k1}, K2 {k2}")
 
     work = os.path.join(REPO, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        run = main_path(work, case, seed)
+        t0 = time.perf_counter()
+        write_fasta(os.path.join(work, "ref.fa"), CHROM, ref)
+        reads = write_reads(os.path.join(work, "reads"), donor, 30.0, seed + 1)
+        print(f"data: genome {ref.size} bp, {len(insertions)} insertions, 30x 2x150 reads "
+              f"({time.perf_counter() - t0:.1f} s to write)")
+        k3, k4 = check_count_kernels(reads, solid, k, seed)
+        k5 = check_walk_kernel(donor, solid, k, seed)
+        for name, r in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5)):
+            if r["max_abs_err"]:
+                raise AssertionError(f"{name} disagrees with its plain version: {r}")
+        run = main_path(work, insertions, reads)
+        run2 = device_path(work, insertions, reads)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -378,6 +591,15 @@ def main() -> int:
         {"name": "nw_matches", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/nw.cu",
          "replaces": "mindthegap_tpu/ops/nw_device.py:39",
          "launches": run["launches"]["nw_matches"], **k2},
+        {"name": "kmer_keys", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/count_kmers.cu",
+         "replaces": "mindthegap_tpu/ops/counting_device.py:225",
+         "launches": run2["launches"]["kmer_keys"], **k3},
+        {"name": "merge_sorted", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/count_merge.cu",
+         "replaces": "mindthegap_tpu/ops/counting_device.py:238",
+         "launches": run2["launches"]["merge_sorted"], **k4},
+        {"name": "walk_batch", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/walk.cu",
+         "replaces": "mindthegap_tpu/fill/walk_device.py:58",
+         "launches": run2["launches"]["walk_batch"], **k5},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

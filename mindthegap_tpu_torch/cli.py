@@ -52,7 +52,7 @@ FIND_OPTIONS = {
     "automaton": (True, "auto", "breakpoint automaton: auto | native | host", False),
     "profile": (False, None, "add per-phase wall-clock timings to the result report", False),
     "profile-trace": (True, None, "directory for a profiler trace of the run (not yet ported)", False),
-    "device": (True, "cuda", "device of the reference scan: cuda | cpu (cpu runs the kernels' plain versions, for tests)", False),
+    "device": (True, "cuda", "device of the reference scan and of -count-engine device: cuda | cpu (cpu runs the kernels' plain versions, for tests)", False),
 }
 
 FILL_OPTIONS = {
@@ -78,6 +78,7 @@ FILL_OPTIONS = {
     "verbose": (True, "1", "verbosity level", True),
     "profile": (False, None, "add per-phase wall-clock timings to the result report", False),
     "profile-trace": (True, None, "directory for a profiler trace of the run (not yet ported)", False),
+    "device": (True, "cuda", "device of the device engines (-fill-engine device|device-qb, -count-engine device): cuda | cpu (cpu runs the kernels' plain versions, for tests)", False),
 }
 
 

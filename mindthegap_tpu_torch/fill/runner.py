@@ -15,7 +15,8 @@ import time
 
 import numpy as np
 
-from .. import MTG_COMPAT_VERSION, KSIZE_STRING
+from .. import MTG_COMPAT_VERSION, KSIZE_STRING, NotYetPorted
+from ..device import resolve_device
 from ..graph import dbg
 from ..io.bank import Bank
 from ..ops import kmers as K
@@ -33,6 +34,8 @@ from .traversal import (
 from .types import FilledInsertion, InfoNode, median, remove_almost_identical_solutions
 
 U64 = (1 << 64) - 1
+
+_DEVICE_ENGINES = ("device", "device-qb")
 
 
 class FillerError(Exception):
@@ -147,6 +150,16 @@ class Filler:
         trace_ctx = maybe_trace(opts.get("profile-trace"))
         trace_ctx.__enter__()
 
+        self.fill_engine = str(opts.get("fill-engine", "auto"))
+        count_engine = str(opts.get("count-engine", "auto"))
+        # the device is resolved only for a device engine: the default fill
+        # runs on the host alone
+        self.device = None
+        if self.fill_engine in _DEVICE_ENGINES or (has_in and count_engine == "device"):
+            self.device = resolve_device(opts.get("device"))
+        if has_in:  # checked before the graph build
+            self._check_walker_k(int(opts.get("kmer-size", 31)))
+
         t0 = time.time()
         if has_in:
           with self.phases.phase("graph build"):
@@ -155,10 +168,11 @@ class Filler:
                 int(opts.get("kmer-size", 31)),
                 opts.get("abundance-min", "auto"),
                 int(opts.get("abundance-max", 2147483647)),
-                count_engine=str(opts.get("count-engine", "auto")),
+                count_engine=count_engine,
                 max_memory_mb=int(opts.get("max-memory", 2000)),
                 max_disk_mb=int(opts.get("max-disk", 0)),
                 tmp_prefix=str(opts.get("out-tmp", ".")) or None,
+                device=self.device,
             )
         else:
           with self.phases.phase("graph load"):
@@ -166,11 +180,7 @@ class Filler:
             self.graph = dbg.Graph.load(opts["graph"])
             sys.stderr.write("done\n")
         self.k = self.graph.k
-        self.fill_engine = str(opts.get("fill-engine", "auto"))
-        if self.fill_engine in ("device", "device-qb"):
-            from .. import NotYetPorted
-
-            raise NotYetPorted(f"-fill-engine {self.fill_engine}")
+        self._check_walker_k(self.k)
         with self.phases.phase("graph view (quotient map) build"):
             layout = "bucket" if self.fill_engine == "device-qb" else "cuckoo"
             self.view = GraphView(self.graph, layout=layout)
@@ -307,12 +317,32 @@ class Filler:
         progress.finish()
 
     # ------------------------------------------------------------------
-    # job dispatch: host process pool (the GATB Dispatcher analog). The JAX
-    # package's device-batched walker and multi-host sharding are not yet
-    # ported (the engine check in execute() raises for them).
+    # job dispatch: host process pool (the GATB Dispatcher analog) or the
+    # device-batched walker (jobs ride lanes; fill/walk_device.py). The JAX
+    # package's multi-host sharding is not ported: the port runs one process.
     # ------------------------------------------------------------------
+    def _check_walker_k(self, k: int):
+        """The device walker covers k <= 32; the span walker (32 < k <= 256)
+        is not yet ported. Above 256 the JAX package's own rule sends the
+        jobs to the host (_run_jobs)."""
+        if self.fill_engine in _DEVICE_ENGINES and 32 < k <= 256:
+            raise NotYetPorted(f"-fill-engine {self.fill_engine} with -kmer-size above 32")
+
     def _run_jobs(self, fn, co_fn, jobs):
-        yield from self._parallel_map(fn, jobs)
+        engine = self.fill_engine
+        if engine == "device-qb":
+            engine = "device"  # same dispatch; the view/walker carry the layout
+        if engine == "device" and self.view.qm is None and self.k > 256:
+            sys.stderr.write("Warning: -fill-engine device requires kmer-size <= 256; using host\n")
+            engine = "host"
+        if engine == "device":
+            from .walk_device import BatchWalker, run_jobs_batched
+
+            walker = BatchWalker(self.view.qm, self.k, self.device)
+            gens = [co_fn(*j) for j in jobs]
+            yield from run_jobs_batched(gens, walker)
+        else:
+            yield from self._parallel_map(fn, jobs)
 
     # ------------------------------------------------------------------
     # host-parallel dispatcher (the GATB Dispatcher equivalent, reference

@@ -90,7 +90,7 @@ class GraphView:
     Backed by the fused quotient map (ops/extmap.py QMap) over canonical
     (k-1)-mers: ONE scalar table probe yields the full successor set (ext
     bits) or predecessor set (pre bits) of a node — exact, and sharing the
-    structure the JAX package's device walker gathers from. For
+    structure the device walker (fill/walk_device.py) gathers from. For
     k > 32 spans, falls back to binary-search point queries on the sorted
     solid set (no python-set materialization at any k)."""
 
@@ -471,10 +471,9 @@ def host_walk(view: GraphView, node: int, budget: int):
     """The scalar walk engine: extend a pure simple path from `node` for at
     most `budget` bases. Stops BEFORE anything the traversal automaton has an
     opinion about — a tip, a fork, an in-branching successor, or a branching
-    next node — and hands control back. The JAX package's device engine
-    (mindthegap_tpu/fill/walk_device.py, not yet ported) implements exactly
-    this contract batched over jobs; both drive the same coroutine
-    (traverse_right_co).
+    next node — and hands control back. The device engine
+    (fill/walk_device.py walk_batch) implements exactly this contract
+    batched over jobs; both drive the same coroutine (traverse_right_co).
 
     Returns (bases: list[int], end_node, reason) with reason in
     {"tip", "event", "budget"}."""

@@ -1,6 +1,7 @@
 """`find` module orchestration (the reference Finder tool, src/Finder.cpp).
 
-Builds or loads the de Bruijn graph on the host, builds the
+Builds or loads the de Bruijn graph (counted on the host, or on the device
+with -count-engine device: kernels K3 and K4), builds the
 reference-repeat set and the pair-coalesced scan map on the host, then
 scans every reference sequence on the device (find/scan_device.py, kernel
 K1 on CUDA) and replays the class stream in the native automaton
@@ -239,6 +240,7 @@ def run_find(opts: dict, out=None) -> Properties:
                 max_memory_mb=int(opts.get("max-memory", 2000)),
                 max_disk_mb=int(opts.get("max-disk", 0)),
                 tmp_prefix=str(opts.get("out-tmp", ".")) or None,
+                device=device,
             )
             k = int(opts.get("kmer-size", 31))
             graph.save(prefix + ".h5")

@@ -12,8 +12,8 @@ with solidity "sum" over multiple banks). Behavior replicated here:
 - "-abundance-min auto" derives the threshold from the abundance histogram
   with a hard floor of 3 (STR_KMER_ABUNDANCE_MIN_THRESHOLD, Finder.cpp:255).
 
-The counting core is a sort + segmented-reduce on the host (device counting
-is not yet ported to this package).
+The counting core is a sort + segmented-reduce on the host; the device
+counter (-count-engine device) is ops/counting_device.py.
 
 Calibration note (gatb-core submodule is absent upstream): on the reference's
 own data/ the semantics above reproduce the gold numbers exactly —

@@ -17,7 +17,9 @@ which hash placed it and still identifies its key exactly.
 
 Two layouts are used here:
 - QMap (cuckoo, one u64 slot per (k-1)-mer) and QMapB (16-slot buckets):
-  the fill walk's point probes (fill/traversal.py GraphView);
+  the fill walk's probes, scalar on the host (fill/traversal.py GraphView)
+  and batched on the device (lookup_q, lookup_qb; fill/walk_device.py,
+  csrc/walk.cu);
 - QMapP (pair-coalesced): one 16-byte row per canonical (k-2)-mer r holding
   the payloads of all eight (k-1)-mers containing r, so ONE row lookup
   yields the payloads of two consecutive reference positions. The find
@@ -98,6 +100,40 @@ def _flip9(p):
     return _shuffle02(pre) | (_shuffle02(ext) << 4) | (p & 0x100)
 
 
+def _oriented(payload: torch.Tensor, is_canon: torch.Tensor):
+    """(ext, pre) bitmaps of a (k-1)-mer as read, from the payload of its
+    canonical form: ext_{rc(p)}[x] = pre_p[x^2] and pre_{rc(p)}[y] = ext_p[y^2]."""
+    ext_c = payload & 0x0F
+    pre_c = (payload >> 4) & 0x0F
+    ext = torch.where(is_canon, ext_c, _shuffle02(pre_c))
+    pre = torch.where(is_canon, pre_c, _shuffle02(ext_c))
+    return ext, pre
+
+
+def _popcount4(bits: torch.Tensor) -> torch.Tensor:
+    return ((bits >> 0) & 1) + ((bits >> 1) & 1) + ((bits >> 2) & 1) + ((bits >> 3) & 1)
+
+
+def _mix(keys: torch.Tensor, const) -> torch.Tensor:
+    """The bijective cuckoo hash on u64 words held in int64 (the multiply
+    wraps mod 2^64 like u64)."""
+    h = (keys ^ K.shr(keys, 33)) * K.i64(const)
+    return h ^ K.shr(h, 29)
+
+
+def _stash_payload(keys: torch.Tensor, stash_keys: torch.Tensor, stash_payload: torch.Tensor):
+    """Payload of each key in the <= 64-entry stash, 0 when absent: one
+    broadcast compare. Stash keys are unique and the EMPTY padding (-1)
+    never equals a canonical (k-1)-mer, so at most one entry matches."""
+    eq = keys[..., None] == stash_keys
+    return torch.where(eq, stash_payload, 0).sum(-1)
+
+
+def _up(a: np.ndarray, device) -> torch.Tensor:
+    """A host table as int64 words on `device`."""
+    return torch.from_numpy(K.as_i64(a)).to(device)
+
+
 # ---------------------------------------------------------------------------
 # QMap: 2-choice cuckoo, one u64 slot per canonical (k-1)-mer
 #
@@ -105,18 +141,29 @@ def _flip9(p):
 #      bit 11+               bit 10     bit 9            bits 0-8
 
 QREP_BIT = np.uint16(1 << 8)  # repeat flag inside the payload
+QPAY_MASK = 0x1FF  # payload bits 0..8
+_Q_SHIFT_PAY = 11
+_Q_VALID = 1 << 10
+_Q_CHOICE = 1 << 9
 
 
 @dataclass
 class QMap:
-    slots: np.ndarray  # u64 [2**log_size]; 0 = empty
+    """Host tables are numpy arrays (slots u64, stash payloads u16);
+    `to(device)` gives the same tables as int64 tensors."""
+
+    slots: np.ndarray | torch.Tensor  # u64 [2**log_size]; 0 = empty
     log_size: int
-    stash_keys: np.ndarray  # u64 [<=64] (EMPTY-padded never matches)
-    stash_payload: np.ndarray  # u16
+    stash_keys: np.ndarray | torch.Tensor  # u64 [<=64] (EMPTY-padded never matches)
+    stash_payload: np.ndarray | torch.Tensor  # u16
 
     @property
     def nbytes(self):
         return self.slots.nbytes
+
+    def to(self, device) -> "QMap":
+        return QMap(_up(self.slots, device), self.log_size,
+                    _up(self.stash_keys, device), _up(self.stash_payload, device))
 
 
 def _sorted_stash(stash_k, *vals, n: int):
@@ -165,18 +212,26 @@ def build_fused(solid_canonical: np.ndarray, k: int, repeat_canonical: np.ndarra
 #   slot = [rem : 54][valid:1][payload:9]   (requires log_nb >= 10)
 
 _QB_SLOTS = 16
+_QB_SHIFT_PAY = 10
+_QB_VALID = 1 << 9
 
 
 @dataclass
 class QMapB:
-    slots: np.ndarray  # u64 [NB * 16]; 0 = empty
+    """Host tables as in QMap; `to(device)` gives int64 tensors."""
+
+    slots: np.ndarray | torch.Tensor  # u64 [NB * 16]; 0 = empty
     log_nb: int
-    stash_keys: np.ndarray  # u64 (EMPTY-padded)
-    stash_payload: np.ndarray  # u16
+    stash_keys: np.ndarray | torch.Tensor  # u64 (EMPTY-padded)
+    stash_payload: np.ndarray | torch.Tensor  # u16
 
     @property
     def nbytes(self):
         return self.slots.nbytes
+
+    def to(self, device) -> "QMapB":
+        return QMapB(_up(self.slots, device), self.log_nb,
+                     _up(self.stash_keys, device), _up(self.stash_payload, device))
 
 
 def build_fused_bucket(solid_canonical: np.ndarray, k: int, repeat_canonical: np.ndarray,
@@ -201,6 +256,41 @@ def build_fused_bucket(solid_canonical: np.ndarray, k: int, repeat_canonical: np
             return QMapB(slots, log_nb, sk, sv)
         log_nb += 1
     raise RuntimeError("bucket map build: placement failed at every table size")
+
+
+def lookup_q(qm: QMap, canon_keys: torch.Tensor) -> torch.Tensor:
+    """Fused payload lookup on int64 tensors (qm from QMap.to): 2 u64
+    gathers plus the stash pass. Returns the 9-bit payload (0 for absent
+    keys): ext bits 0-3, pre bits 4-7, repeat bit 8."""
+    keys = canon_keys
+    shift = 64 - qm.log_size
+    rem_mask = (1 << shift) - 1
+    out = torch.zeros_like(keys)
+    for i, const in enumerate((_H1, _H2)):
+        h = _mix(keys, const)
+        v = qm.slots[K.shr(h, shift)]
+        hit = (
+            (K.shr(v, _Q_SHIFT_PAY) == (h & rem_mask))
+            & ((v & _Q_VALID) != 0)
+            & (((v & _Q_CHOICE) != 0) == (i == 1))
+        )
+        out = torch.where(hit, v & QPAY_MASK, out)
+    return out | _stash_payload(keys, qm.stash_keys, qm.stash_payload)
+
+
+def lookup_qb(qm: QMapB, canon_keys: torch.Tensor) -> torch.Tensor:
+    """Fused payload lookup on int64 tensors (qm from QMapB.to): ONE
+    16-slot bucket gather plus the stash pass. Returns the 9-bit payload
+    (0 for absent keys)."""
+    keys = canon_keys
+    shift = 64 - qm.log_nb
+    h = _mix(keys, _H1)
+    rem = h & ((1 << shift) - 1)
+    start = K.shr(h, shift) * _QB_SLOTS
+    rows = qm.slots[start[..., None] + torch.arange(_QB_SLOTS, device=keys.device)]
+    hit = (K.shr(rows, _QB_SHIFT_PAY) == rem[..., None]) & ((rows & _QB_VALID) != 0)
+    out = torch.where(hit, rows & QPAY_MASK, 0).amax(-1)
+    return out | _stash_payload(keys, qm.stash_keys, qm.stash_payload)
 
 
 # ---------------------------------------------------------------------------
@@ -251,11 +341,8 @@ class QMapP:
         return self.slots.nbytes
 
     def to(self, device) -> "QMapP":
-        def up(a):
-            return torch.from_numpy(K.as_i64(a)).to(device)
-
-        return QMapP(up(self.slots), self.log_size, self.k,
-                     up(self.stash_keys), up(self.stash_l), up(self.stash_r))
+        return QMapP(_up(self.slots, device), self.log_size, self.k,
+                     _up(self.stash_keys, device), _up(self.stash_l, device), _up(self.stash_r, device))
 
 
 def build_fused_pair(solid_canonical: np.ndarray, k: int, repeat_canonical: np.ndarray,
@@ -305,8 +392,7 @@ def lookup_qp(qp: QMapP, canon_keys: torch.Tensor):
     l36 = torch.zeros_like(keys)
     r36 = torch.zeros_like(keys)
     for i, const in enumerate((_H1, _H2)):
-        h = (keys ^ K.shr(keys, 33)) * K.i64(const)  # wraps mod 2^64 like u64
-        h = h ^ K.shr(h, 29)
+        h = _mix(keys, const)
         rows = qp.slots[K.shr(h, shift)]  # [N, 2] row gather
         lane0 = rows[..., 0]
         lane1 = rows[..., 1]

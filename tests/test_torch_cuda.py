@@ -48,6 +48,65 @@ def test_scan_kernel_matches_plain(cuda, k):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("k", [15, 31, 32])
+def test_count_kernels_match_plain(cuda, k):
+    """K3 (extract + canonicalize) and K4 (merge + fold, a truncated out_cap
+    included) against their plain versions."""
+    from mindthegap_tpu_torch.ops import counting_device as C
+
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, 1 << 16, dtype=np.uint8)
+    codes[rng.integers(0, codes.size, 300)] = 255
+    packed, bad = (torch.from_numpy(a).to(cuda) for a in S.pack_codes_host(codes))
+    before = C.kmer_keys_cuda.launches
+    got = C.kmer_keys_cuda(packed, bad, k)
+    assert C.kmer_keys_cuda.launches == before + 1
+    assert torch.equal(got, C._kmer_keys_plain(packed, bad, k))
+    batch = torch.sort(got).values
+    # an accumulator from half of the batch's distinct keys, with counts
+    acc_k, acc_c, nd = C._merge_sorted_plain(batch[:0], batch[:0].clone(), batch[::2].contiguous(), 1 << 16)
+    acc_c = acc_c * 7
+    for out_cap in (1 << 16, int(nd) // 3):
+        want = C._merge_sorted_plain(acc_k, acc_c, batch, out_cap)
+        got = C.merge_sorted_cuda(acc_k, acc_c, batch, out_cap)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("layout", ["cuckoo", "bucket"])
+@pytest.mark.parametrize("k", [21, 31, 32])
+def test_walk_kernel_matches_plain(cuda, layout, k):
+    """K5 against its plain version on a random genome's graph with stash
+    entries, budgets of 0, small and large."""
+    from mindthegap_tpu_torch.fill import walk_device as W
+    from torch_tables import move_to_stash_walk
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 100_000, dtype=np.uint8)
+    genome[50_000:50_200] = genome[20_000:20_200]  # a repeat: forks and merges
+    fwd, _ = K.kmers_from_codes(genome, k)
+    solid = np.unique(K.canonical_u64(fwd, k))
+    build = X.build_fused_bucket if layout == "bucket" else X.build_fused
+    host = build(solid, k, np.zeros(0, np.uint64))
+    pre = np.unique(K.canonical_u64(solid >> np.uint64(2), k - 1))
+    qm = move_to_stash_walk(host, pre[::997][:40])
+    t = qm.to(cuda)
+    log = qm.log_nb if layout == "bucket" else qm.log_size
+    nodes = fwd[rng.integers(0, fwd.size, 512)]
+    budgets = np.concatenate([np.zeros(64), rng.integers(1, 50, 192), np.full(256, 10_000)]).astype(np.int32)
+    args = (torch.from_numpy(K.as_i64(nodes)).to(cuda), torch.from_numpy(budgets).to(cuda),
+            t.slots, t.stash_keys, t.stash_payload, log, k, 512, layout)
+    before = W.walk_batch_cuda.launches
+    got = W.walk_batch_cuda(*args)
+    want = W._walk_batch_plain(*args)
+    torch.cuda.synchronize()
+    assert W.walk_batch_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].max()) == 512  # some lanes walk every step
+
+
 def test_nw_kernel_matches_plain(cuda):
     rng = np.random.default_rng(0)
     pairs = [("".join(rng.choice(list("ACGT"), int(rng.integers(1, 400)))),

@@ -3,13 +3,18 @@ device=cpu, native automaton) and `fill -bkpt` against the JAX package's
 (host scan + native automaton, which the JAX package's own tests hold equal
 to its device-qp engine) on a seeded ~200 kb genome with planted
 insertions, SNPs and deletions and 30x error-free reads; `fill -contig` on
-donor contigs with gaps between them. Artifacts must be byte-identical (the
-VCF headers apart from ##filedate)."""
+donor contigs with gaps between them. The device engines on device=cpu:
+`find -count-engine device` against the host-count runs, and `fill
+-fill-engine device|device-qb` (both modes) against the JAX package's
+`-fill-engine device` and native runs. Artifacts must be byte-identical
+(the VCF headers apart from ##filedate, and ##REF where the output prefix
+differs)."""
 
 import contextlib
 import io
 import os
 
+import numpy as np
 import pytest
 
 import chip_smoke as CS
@@ -95,11 +100,89 @@ def test_graph_files_are_interchangeable(runs, tmp_path):
     assert (tmp_path / "g.breakpoints").read_text() == (root / "jax" / "t.breakpoints").read_text()
 
 
+@pytest.fixture(scope="module")
+def device_runs(runs):
+    """The device engines on device=cpu (each kernel's plain version): the
+    port's find with device counting, and fill with the device walker in
+    both layouts and both modes; the JAX package's -fill-engine device runs
+    beside them."""
+    root, _ = runs
+    contigs = str(root / "contigs.fa")
+    with _cwd(root / "port"):
+        port_find({"in": _reads_arg(root), "ref": str(root / "ref.fa"), "out": "d", "verbose": "0",
+                   "device": "cpu", "count-engine": "device"}, out=io.StringIO())
+    for name, fill, extra in (("jax", jax_fill, {}), ("port", port_fill, {"device": "cpu"})):
+        with _cwd(root / name):
+            for out, engine, mode in (("tfd", "device", "bkpt"), ("tfq", "device-qb", "bkpt"),
+                                      ("tcd", "device", "contig")):
+                if name == "jax" and engine == "device-qb":
+                    continue  # the JAX package's own tests hold device-qb to device
+                src = {"bkpt": "t.breakpoints"} if mode == "bkpt" else {"contig": contigs}
+                fill(dict({"graph": "t.h5", "out": out, "fill-engine": engine, "verbose": "0"}, **src, **extra),
+                     out=io.StringIO())
+    return root
+
+
+def _reads_arg(root):
+    return ",".join(str(root / f"{p}_{i}.fa") for p in ("reads", "reads2") for i in (1, 2))
+
+
+def test_device_count_graph_identical(device_runs):
+    """find -count-engine device builds the host-count graph, in the port and
+    in the JAX package."""
+    from mindthegap_tpu_torch.graph.dbg import Graph
+
+    got = Graph.load(str(device_runs / "port" / "d.h5"))
+    assert got.solid.keys.size > 100_000
+    for name in ("port", "jax"):
+        want = Graph.load(str(device_runs / name / "t.h5"))
+        assert got.info == want.info
+        np.testing.assert_array_equal(got.solid.keys, want.solid.keys)
+        np.testing.assert_array_equal(got.solid.counts, want.solid.counts)
+
+
+@pytest.mark.parametrize("ext", ["breakpoints", "othervariants.vcf"])
+def test_device_count_find_artifacts(device_runs, ext):
+    got = _read(device_runs, "port", "d." + ext)
+    assert got and got == _read(device_runs, "jax", "t." + ext)
+
+
+@pytest.mark.parametrize("fname", ["tfd.insertions.fasta", "tfd.insertions.vcf", "tfd.info.txt",
+                                   "tfq.insertions.fasta", "tfq.insertions.vcf", "tfq.info.txt",
+                                   "tcd.gfa", "tcd.insertions.fasta", "tcd.info.txt"])
+def test_device_fill_artifacts(device_runs, fname):
+    """The port's device walker writes the JAX device walker's artifacts
+    (device-qb: the JAX device run's) and the JAX native engine's."""
+    got = _read(device_runs, "port", fname, drop=("##filedate", "##REF"))
+    assert got
+    assert got == _read(device_runs, "jax", fname.replace("tfq", "tfd"), drop=("##filedate", "##REF"))
+    native = fname.replace("tfd", "tf").replace("tfq", "tf").replace("tcd", "tc")
+    assert got == _read(device_runs, "jax", native, drop=("##filedate", "##REF"))
+
+
+def test_fill_device_engine_without_gpu_raises(runs, tmp_path, monkeypatch):
+    """A device fill engine runs on CUDA; without a GPU and without -device
+    cpu it fails instead of falling back, while the default fill (host
+    engines) needs no GPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    root, _ = runs
+    args = ["fill", "-graph", str(root / "port" / "t.h5"), "-bkpt", str(root / "port" / "t.breakpoints"),
+            "-out", "u", "-nb-cores", "1", "-verbose", "0"]
+    with _cwd(tmp_path):
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            assert cli.main(args + ["-fill-engine", "device"]) == 1
+            assert "no CUDA device" in report.getvalue()
+            assert cli.main(args) == 0
+
+
 @pytest.mark.parametrize("extra", [
     ["-scan-engine", "host"],
     ["-scan-engine", "sharded"],
     ["-automaton", "host"],
-    ["-count-engine", "device"],
+    ["-count-engine", "sharded"],
     ["-profile-trace", "trace_dir"],
     ["-kmer-size", "45"],
 ], ids=lambda e: e[0] + "=" + e[1])
@@ -119,10 +202,13 @@ def test_unported_find_options_raise(runs, tmp_path, extra):
 
 @pytest.mark.parametrize("engine", ["device", "device-qb"])
 def test_unported_fill_engines_raise(runs, tmp_path, engine):
+    """The device walker covers k <= 32: at k = 45 (the span walker) it
+    raises before the graph is built."""
     root, _ = runs
     with _cwd(tmp_path), pytest.raises(NotYetPorted):
-        port_fill({"graph": str(root / "port" / "t.h5"), "bkpt": str(root / "port" / "t.breakpoints"),
-                   "out": "u", "fill-engine": engine}, out=io.StringIO())
+        port_fill({"in": str(root / "reads_1.fa"), "bkpt": str(root / "port" / "t.breakpoints"),
+                   "out": "u", "fill-engine": engine, "kmer-size": "45", "device": "cpu"},
+                  out=io.StringIO())
 
 
 def test_find_without_gpu_raises(runs, tmp_path, monkeypatch):
