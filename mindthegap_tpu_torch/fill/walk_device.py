@@ -18,8 +18,9 @@ the successor. The walk stops:
   "budget" when the job's base budget is spent.
 
 Appended bases occupy the first n_appended slots of each job's row.
-walk_batch runs the hand kernel K5 (csrc/walk.cu) on CUDA tensors and its
-plain PyTorch version on CPU tensors.
+walk_batch runs the hand kernel K5 (csrc/walk.cu: a team of threads per
+lane, probing several steps ahead per DRAM round trip) on CUDA tensors and
+its plain PyTorch version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -110,17 +111,41 @@ def _walk_lib():
         lib.walk_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         _WALK_LIB = lib
     return _WALK_LIB
 
 
+# K5's look-ahead: a round probes every node the next D steps can reach,
+# 1 + 4 + ... + 4^(D-1) of them (1, 5 or 21), in one DRAM round trip, so a
+# lane's chain of dependent probes takes about 1/D of the round trips. The
+# price is probes. While a round's probes over all lanes are few, a deeper
+# round costs only issue slots; past what the card serves in one round
+# trip, the probe rate sets the time and a deeper round only probes more.
+# So D falls as the lanes grow, and sooner for the cuckoo map, whose probe
+# is two random sectors, than for the bucket map, whose probe is one line.
+# The thresholds are measured (python -m mindthegap_tpu_torch.kernel_bench
+# on an H100, 2,048 steps, 1 to 65,536 lanes): D = 3 is the fastest up to
+# _MAX_LANES[layout][3] lanes, D = 2 up to _MAX_LANES[layout][2], D = 1
+# beyond. Lanes count as walks: a lane with a budget of 0 probes nothing,
+# and BatchWalker sends only the walks still live.
+DEPTHS = (1, 2, 3)  # the depths csrc/walk.cu is built for
+_MAX_LANES = {"cuckoo": {3: 1024, 2: 6144}, "bucket": {3: 1536, 2: 10240}}
+
+
+def lookahead_depth(lanes: int, layout: str) -> int:
+    """K5's look-ahead depth D for `lanes` live walks in `layout` (see above)."""
+    return next((d for d in (3, 2) if lanes <= _MAX_LANES[layout][d]), 1)
+
+
 def walk_batch_cuda(nodes, budgets, slots, stash_k, stash_v, log_size: int, k: int,
-                    steps: int, layout: str):
-    """K5 (csrc/walk.cu): the same outputs as _walk_batch_plain, one thread
-    per lane. Counts its launches in `walk_batch_cuda.launches`."""
+                    steps: int, layout: str, depth: int | None = None):
+    """K5 (csrc/walk.cu): the same outputs as _walk_batch_plain, one team
+    of threads per lane probing `depth` steps ahead per round trip
+    (lookahead_depth; an explicit 1..3 is for measuring the rule). Counts
+    its launches in `walk_batch_cuda.launches`."""
     check_kernel_tensor(nodes, "nodes", torch.int64, 1)
     check_kernel_tensor(budgets, "budgets", torch.int32, 1)
     check_kernel_tensor(slots, "slots", torch.int64, 1)
@@ -139,6 +164,9 @@ def walk_batch_cuda(nodes, budgets, slots, stash_k, stash_v, log_size: int, k: i
         raise ValueError("budgets must match nodes and the stash must hold 1..64 entries")
     if not 3 <= k <= 32 or steps < 1:
         raise ValueError(f"k must be in [3, 32] and steps >= 1, got k={k}, steps={steps}")
+    depth = lookahead_depth(lanes, layout) if depth is None else depth
+    if depth not in DEPTHS:
+        raise ValueError(f"depth must be one of {DEPTHS}, got {depth}")
     dev = nodes.device
     bases = torch.full((lanes, steps), NO_BASE, dtype=torch.uint8, device=dev)
     n_app = torch.empty(lanes, dtype=torch.int32, device=dev)
@@ -146,7 +174,7 @@ def walk_batch_cuda(nodes, budgets, slots, stash_k, stash_v, log_size: int, k: i
     status = torch.empty(lanes, dtype=torch.uint8, device=dev)
     err = _walk_lib().walk_launch(
         nodes.data_ptr(), budgets.data_ptr(), slots.data_ptr(), log_size, int(bucket),
-        stash_k.data_ptr(), stash_v.data_ptr(), n_stash, k, steps, lanes,
+        stash_k.data_ptr(), stash_v.data_ptr(), n_stash, k, steps, lanes, depth,
         bases.data_ptr(), n_app.data_ptr(), end_nodes.data_ptr(), status.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -178,8 +206,10 @@ def walk_batch(nodes, budgets, slots, stash_k, stash_v, log_size: int, k: int,
 class BatchWalker:
     """Host driver: satisfies batches of ("walk", node, budget) requests
     with walk_batch, re-invoking in `steps`-sized chunks until every lane
-    has stopped. Lane counts are padded to powers of two (floor 8) and the
-    step count starts at 256 and doubles to 2048, as in the JAX walker."""
+    has stopped. Each call takes only the walks still live, one lane each
+    (at least `min_lanes`, the rest with a budget of 0), so that K5's
+    look-ahead depth follows the live walks; the step count starts at 256
+    and doubles to 2048, as in the JAX walker."""
 
     def __init__(self, qmap, k: int, device, min_lanes: int = 8, steps: int = 256,
                  max_steps: int = 2048, mesh=None):
@@ -209,37 +239,36 @@ class BatchWalker:
         n = len(requests)
         if n == 0:
             return []
-        lanes = max(self.min_lanes, 1 << (n - 1).bit_length())
-        nodes = np.zeros(lanes, np.uint64)
-        budgets = np.zeros(lanes, np.int32)
-        for i, (node, budget) in enumerate(requests):
-            nodes[i] = node
-            budgets[i] = max(budget, 0)
-
+        nodes = np.array([node for node, _ in requests], np.uint64)
+        remaining = np.array([max(budget, 0) for _, budget in requests], np.int32)
+        status = np.zeros(n, np.uint8)
         out_bases: list[list[int]] = [[] for _ in range(n)]
-        remaining = budgets.copy()
-        status = np.zeros(lanes, np.uint8)
         steps = self.steps
         while True:
-            live = (status == STATUS_RUNNING) & (remaining > 0)
-            if not live.any():
+            idx = np.nonzero((status == STATUS_RUNNING) & (remaining > 0))[0]
+            if idx.size == 0:
                 break
+            # only the live walks go to the device (at least min_lanes lanes)
+            lanes = max(self.min_lanes, idx.size)
+            lane_nodes = np.zeros(lanes, np.uint64)
+            lane_budgets = np.zeros(lanes, np.int32)
+            lane_nodes[: idx.size] = nodes[idx]
+            lane_budgets[: idx.size] = remaining[idx]
             bases, n_app, end_nodes, st = self._call_device(
-                torch.from_numpy(K.as_i64(nodes)).to(self.device),
-                torch.from_numpy(np.where(live, remaining, 0).astype(np.int32)).to(self.device),
+                torch.from_numpy(K.as_i64(lane_nodes)).to(self.device),
+                torch.from_numpy(lane_budgets).to(self.device),
                 steps,
             )
-            bases = bases.cpu().numpy()
-            n_app = n_app.cpu().numpy()
-            nodes = K.as_u64(end_nodes)  # k = 32 nodes may have the top bit set
-            st = st.cpu().numpy()
+            bases = bases[: idx.size].cpu().numpy()
+            n_app = n_app[: idx.size].cpu().numpy()
             self.n_device_calls += 1
-            for i in np.nonzero(live[:n])[0]:
-                if n_app[i]:
-                    out_bases[i].extend(int(b) for b in bases[i, : n_app[i]])
-            remaining = remaining - n_app
-            status = np.where(live, st, status)
-            self.n_walked += int(n_app[live].sum())
+            for row, i in enumerate(idx):
+                if n_app[row]:
+                    out_bases[i].extend(int(b) for b in bases[row, : n_app[row]])
+            nodes[idx] = K.as_u64(end_nodes)[: idx.size]  # k = 32 nodes may have the top bit set
+            remaining[idx] -= n_app
+            status[idx] = st[: idx.size].cpu().numpy()
+            self.n_walked += int(n_app.sum())
             steps = min(steps * 2, self.max_steps)
 
         results = []

@@ -18,8 +18,8 @@ last. sort_batch writes them, merge_sorted keeps them, and result() and
 count_batch remove the bias. Counts are int64.
 
 On a CUDA tensor sort_batch runs the hand kernel K3 (csrc/count_kmers.cu)
-and merge_sorted runs K4 (csrc/count_merge.cu); on a CPU tensor each runs
-its plain PyTorch version below.
+and merge_sorted runs K4 (csrc/count_merge.cu, a single-pass tiled merge);
+on a CPU tensor each runs its plain PyTorch version below.
 
 k <= 32 (u64 words). Larger spans use the host counter.
 """
@@ -311,18 +311,14 @@ def _merge_lib():
         from .._build import cuda_library
 
         lib = cuda_library("count_merge.cu", "libmtg_count_merge.so")
-        lib.merge_path_launch.restype = ctypes.c_int
-        lib.merge_path_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        lib.merge_tile_size.restype = ctypes.c_int
+        lib.merge_tile_size.argtypes = []
         lib.merge_fold_launch.restype = ctypes.c_int
         lib.merge_fold_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p,
         ]
         _MERGE_LIB = lib
     return _MERGE_LIB
@@ -330,10 +326,11 @@ def _merge_lib():
 
 def merge_sorted_cuda(acc_keys, acc_counts, batch_sorted, out_cap: int):
     """K4 (csrc/count_merge.cu): the same (keys, counts, n_distinct) as
-    _merge_sorted_plain. A merge-path pass writes the merged stream and its
-    run-start flags; torch.cumsum scans the flags and the counts; a second
-    pass compacts the run starts and sums each run. Counts its launches in
-    `merge_sorted_cuda.launches`."""
+    _merge_sorted_plain, in one pass over the merged stream: tiles merged
+    in shared memory, run starts and run totals joined across tiles by a
+    decoupled look-back, outputs written once (around it, a small pass
+    splits the merge path at the tile boundaries and one pads past
+    n_distinct). Counts its launches in `merge_sorted_cuda.launches`."""
     check_kernel_tensor(acc_keys, "acc_keys", torch.int64, 1)
     check_kernel_tensor(acc_counts, "acc_counts", torch.int64, 1)
     check_kernel_tensor(batch_sorted, "batch_sorted", torch.int64, 1)
@@ -343,26 +340,19 @@ def merge_sorted_cuda(acc_keys, acc_counts, batch_sorted, out_cap: int):
     if na + nb == 0 or out_cap < 1:
         raise ValueError("merge_sorted needs at least one input element and out_cap >= 1")
     dev = acc_keys.device
-    n = na + nb
-    mk = torch.empty(n, dtype=torch.int64, device=dev)
-    mc = torch.empty(n, dtype=torch.int64, device=dev)
-    flag = torch.empty(n, dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _merge_lib()
-    err = lib.merge_path_launch(acc_keys.data_ptr(), acc_counts.data_ptr(), na,
-                                batch_sorted.data_ptr(), nb,
-                                mk.data_ptr(), mc.data_ptr(), flag.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"merge_path kernel launch failed: CUDA error {err}")
-    pos = torch.cumsum(flag, 0, dtype=torch.int64)  # output slot + 1 of each run start
-    s = torch.cumsum(mc, 0)
+    n_tiles = -(-(na + nb) // lib.merge_tile_size())
+    # look-back values (4 int64 words per tile) and the tile boundaries'
+    # splits, then an int32 flag per tile and the tile counter (zeroed by
+    # the launch)
+    scratch = torch.empty(5 * n_tiles + 1 + (n_tiles + 2) // 2, dtype=torch.int64, device=dev)
     keys_out = torch.empty(out_cap, dtype=torch.int64, device=dev)
     counts_out = torch.empty(out_cap, dtype=torch.int64, device=dev)
-    starts = torch.empty(out_cap + 1, dtype=torch.int64, device=dev)
     n_distinct = torch.empty((), dtype=torch.int32, device=dev)
-    err = lib.merge_fold_launch(mk.data_ptr(), mc.data_ptr(), flag.data_ptr(), pos.data_ptr(),
-                                s.data_ptr(), n, keys_out.data_ptr(), counts_out.data_ptr(),
-                                starts.data_ptr(), n_distinct.data_ptr(), out_cap, stream)
+    err = lib.merge_fold_launch(acc_keys.data_ptr(), acc_counts.data_ptr(), na,
+                                batch_sorted.data_ptr(), nb,
+                                keys_out.data_ptr(), counts_out.data_ptr(), n_distinct.data_ptr(), out_cap,
+                                scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"merge_fold kernel launch failed: CUDA error {err}")
     merge_sorted_cuda.launches += 1

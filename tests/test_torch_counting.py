@@ -15,6 +15,7 @@ from mindthegap_tpu.ops.counting import StreamingCounter
 from mindthegap_tpu_torch.find.scan_device import pack_codes_host
 from mindthegap_tpu_torch.ops import counting_device as PC
 from mindthegap_tpu_torch.ops import kmers as PK
+from torch_tables import merge_edge_cases
 
 
 def _biased(u64: np.ndarray) -> torch.Tensor:
@@ -74,6 +75,25 @@ def test_merge_sorted(case):
         assert int(jn) > out_cap
     np.testing.assert_array_equal(_unbiased(pk), np.asarray(jk))
     np.testing.assert_array_equal(pc.numpy(), np.asarray(jc))
+
+
+_MERGE_EDGES = merge_edge_cases()
+
+
+@pytest.mark.parametrize("name", list(_MERGE_EDGES))
+def test_merge_sorted_edge_cases(name):
+    """K4's tile edges (tests/torch_tables.py merge_edge_cases) through the
+    plain merge and the JAX program."""
+    acc_k, acc_c, batch, out_cap = _MERGE_EDGES[name]
+    jk, jc, jn = JC.merge_sorted_device(jnp.asarray(acc_k), jnp.asarray(acc_c), jnp.asarray(batch), out_cap)
+    pk, pc, pn = PC.merge_sorted(_biased(acc_k), torch.from_numpy(acc_c), _biased(batch), out_cap)
+    assert int(pn) == int(jn)
+    np.testing.assert_array_equal(_unbiased(pk), np.asarray(jk))
+    np.testing.assert_array_equal(pc.numpy(), np.asarray(jc))
+    if name.startswith("cap-"):
+        assert int(jn) > out_cap  # truncated
+    if name == "repeat-over-3-tiles":
+        assert int(np.asarray(jc).max()) > 3 * 2048
 
 
 @pytest.mark.parametrize("exc_cap", [64, 4], ids=["fits", "over-cap"])

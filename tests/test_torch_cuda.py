@@ -11,7 +11,7 @@ from mindthegap_tpu_torch.find import scan_device as S
 from mindthegap_tpu_torch.ops import extmap as X
 from mindthegap_tpu_torch.ops import kmers as K
 from mindthegap_tpu_torch.ops import nw_device as ND
-from torch_tables import move_to_stash
+from torch_tables import edge_walk_case, merge_edge_cases, move_to_stash
 
 pytestmark = pytest.mark.cuda
 
@@ -105,6 +105,39 @@ def test_walk_kernel_matches_plain(cuda, layout, k):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[1].max()) == 512  # some lanes walk every step
+
+
+@pytest.mark.parametrize("name", list(merge_edge_cases()))
+def test_merge_kernel_edge_cases(cuda, name):
+    """K4 against its plain version on its tile edges: a run over more than
+    3 tiles, out_cap inside it and at a tile boundary, sentinel inputs."""
+    from mindthegap_tpu_torch.ops import counting_device as C
+
+    acc_k, acc_c, batch, out_cap = merge_edge_cases()[name]
+    args = [torch.from_numpy(K.as_i64(acc_k) ^ K.SIGN_BIT).to(cuda), torch.from_numpy(acc_c).to(cuda),
+            torch.from_numpy(K.as_i64(batch) ^ K.SIGN_BIT).to(cuda)]
+    got = C.merge_sorted_cuda(*args, out_cap)
+    want = C._merge_sorted_plain(*args, out_cap)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("layout", ["cuckoo", "bucket"])
+@pytest.mark.parametrize("k,lanes", [(9, 8), (31, 37), (32, 100)])
+def test_walk_kernel_edge_cases(cuda, k, lanes, layout):
+    """K5 against its plain version on the look-ahead's edges
+    (tests/torch_tables.py walk_edge_inputs), at every depth and probe
+    the kernel takes."""
+    from mindthegap_tpu_torch.fill import walk_device as W
+
+    _qm, args = edge_walk_case(layout, k, lanes, cuda)
+    want = W._walk_batch_plain(*args)
+    for depth in W.DEPTHS:
+        got = W.walk_batch_cuda(*args, depth=depth)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), depth
 
 
 def test_nw_kernel_matches_plain(cuda):

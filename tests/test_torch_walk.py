@@ -15,7 +15,7 @@ from mindthegap_tpu_torch.fill import walk_device as PW
 from mindthegap_tpu_torch.fill.traversal import GraphView, host_walk
 from mindthegap_tpu_torch.ops import extmap as PX
 from mindthegap_tpu_torch.ops import kmers as PK
-from torch_tables import move_to_stash_walk
+from torch_tables import edge_walk_case, move_to_stash_walk
 
 
 class _Solid:
@@ -135,10 +135,23 @@ def test_batch_walker_matches_jax_and_host(layout, seed):
     budgets = [int(b) for b in rng.integers(0, 200, len(starts))]
     reqs = list(zip(starts, budgets))
     walker = PW.BatchWalker(view.qm, k, "cpu", steps=16, max_steps=64)
+    calls = []
+    call_device = walker._call_device
+
+    def recording(nodes, lane_budgets, steps):
+        calls.append(lane_budgets.numpy().copy())
+        return call_device(nodes, lane_budgets, steps)
+
+    walker._call_device = recording
     got = walker.walk_many(reqs)
     assert got == JW.BatchWalker(_jax_table(view.qm), k, steps=16, max_steps=64).walk_many(reqs)
     assert got == [tuple(host_walk(view, n, b)) for n, b in reqs]
-    assert walker.n_device_calls > 1
+    assert walker.n_device_calls == len(calls) > 1
+    # each call takes only the live walks, first (at least 8 lanes)
+    for lane_budgets in calls:
+        live = int((lane_budgets > 0).sum())
+        assert (lane_budgets[:live] > 0).all() and lane_budgets.size == max(8, live)
+    assert (calls[0] > 0).sum() == sum(b > 0 for b in budgets) and calls[-1].size < calls[0].size
 
 
 def test_run_jobs_batched_interleaves():
@@ -192,3 +205,48 @@ def test_walk_kernel_wrapper_takes_cuda_tensors_only():
         PW.walk_batch_cuda(nodes, torch.zeros(8, dtype=torch.int32), t.slots, t.stash_keys,
                            t.stash_payload, 12, 21, 16, "cuckoo")
     assert PW.walk_batch_cuda.launches == 0
+
+
+@pytest.mark.parametrize("layout", ["cuckoo", "bucket"])
+@pytest.mark.parametrize("k,lanes", [(9, 8), (31, 37), (32, 100)])
+def test_walk_edge_cases(layout, k, lanes):
+    """The look-ahead kernel's edge cases (8 lanes, lane counts off the
+    warp size, budgets ending mid-round, stops at every depth, stash hits
+    ahead, k = 32 top bits, small k) through the plain walk and the JAX
+    walker."""
+    qm, args = edge_walk_case(layout, k, lanes, "cpu")
+    nodes = PK.as_u64(args[0])
+    j = JW.walk_batch_device(jnp.asarray(nodes), jnp.asarray(args[1].numpy()), jnp.asarray(qm.slots),
+                             jnp.asarray(qm.stash_keys), jnp.asarray(qm.stash_payload), *args[5:])
+    p = PW.walk_batch(*args)
+    for got, want in zip(p, j):
+        got = got.numpy()
+        np.testing.assert_array_equal(got.view(np.uint64) if got.dtype == np.int64 else got, np.asarray(want))
+    n_app, status = np.asarray(j[1]), np.asarray(j[3])
+    assert (status == PW.STATUS_EVENT).any() and (n_app[:8] > 0).any()
+    if lanes >= 32:
+        # event stops at every depth of a round of 2 and of 3 steps
+        ev = n_app[status == PW.STATUS_EVENT]
+        assert {0, 1} <= set((ev % 2).tolist()) and {0, 1, 2} <= set((ev % 3).tolist())
+        # budgets that end inside a round of 3 steps
+        lim = np.minimum(args[1].numpy(), 64)
+        run = status == PW.STATUS_RUNNING
+        assert (n_app[run] == lim[run]).all() and {1, 2} <= set((n_app[run] % 3).tolist())
+    if k == 32:
+        assert (nodes >> np.uint64(63)).any()
+
+
+def test_lookahead_depth_rule():
+    """K5's look-ahead depth from the live lane count (the fastest depths
+    measured on the card): 3 at the fill's lane counts, 2 at 4,096 lanes,
+    1 from 16,384 on, the cuckoo map turning shallower sooner than the
+    bucket map; never deeper for more lanes, and always a depth the kernel
+    is built for."""
+    for layout in ("cuckoo", "bucket"):
+        assert PW.lookahead_depth(1, layout) == PW.lookahead_depth(8, layout) == PW.lookahead_depth(1024, layout) == 3
+        assert PW.lookahead_depth(2048, layout) == PW.lookahead_depth(6144, layout) == 2
+        assert PW.lookahead_depth(16384, layout) == PW.lookahead_depth(1 << 16, layout) == 1
+        depths = [PW.lookahead_depth(n, layout) for n in range(1, 1 << 15, 97)]
+        assert depths == sorted(depths, reverse=True) and set(depths) == set(PW.DEPTHS)
+    assert PW.lookahead_depth(1536, "cuckoo") == 2 and PW.lookahead_depth(1536, "bucket") == 3
+    assert PW.lookahead_depth(8192, "cuckoo") == 1 and PW.lookahead_depth(8192, "bucket") == 2
