@@ -10,22 +10,26 @@ Phases, each of which must pass (any failure exits non-zero):
      (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu) and
      K5 (csrc/walk.cu);
   3. hold each kernel against its plain PyTorch version on the card, exactly,
-     at the main path's shapes, and time both sides: K1 on a full 2^22-base
-     window over the pair map of a bacterial-size solid set; K2 on 256
-     seeded pairs of 50 to 10,000 bp (also against the native nw.cpp); K3
-     (+ the sort) on one default counting batch of 2^23 bases of the reads;
-     K4 merging that batch into an accumulator of the donor's distinct
-     k-mers, once at full capacity and once truncated, and on its tile
-     edge cases; K5 on donor k-mers with a budget of 10,000 and 2,048
+     at the main path's shapes, and time both sides: K1 (the whole
+     scan_cls_qp, its exception compaction included) on a full 2^22-base
+     window over the pair map of a bacterial-size solid set, and on its
+     compaction edge cases; K2 on 256 seeded pairs of 50 to 10,000 bp
+     (also against the native nw.cpp); K3 (+ the sort) on one default
+     counting batch of 2^23 bases of the reads, and on its edge batches
+     (k 1 to 32); K4 merging that batch into an accumulator of the donor's
+     distinct k-mers, once at full capacity and once truncated, and on its
+     tile edge cases; K5 on donor k-mers with a budget of 10,000 and 2,048
      steps at 4,096 lanes, 128 lanes (the fill's shape) and 1 lane (the
      chain latency), both layouts, and on its look-ahead edge cases at
      every depth. The edge cases come from tests/torch_tables.py
-     (merge_edge_cases, edge_walk_case), the generators the CUDA tests
-     use, so the smoke and tests/test_torch_cuda.py check the same
-     inputs; the script needs the checkout's tests/ directory for them.
+     (scan_edge_windows, key_edge_batches, merge_edge_cases,
+     edge_walk_case), the generators the CUDA tests use, so the smoke and
+     tests/test_torch_cuda.py check the same inputs; the script needs the
+     checkout's tests/ directory for them.
      Each kernel's bound is the
      larger of its bytes over 3.35 TB/s and its operations over the card's
-     peak rate for them, counted from this run's inputs;
+     peak rate for them, counted from this run's inputs
+     (mindthegap_tpu_torch/bounds.py);
   4. drive the main path at the size users run: a seeded genome of
      4,641,652 bp (the length of E. coli K-12 MG1655) with ~100 planted
      homozygous insertions of 20-500 bp plus SNPs and deletions, 30x of
@@ -66,10 +70,6 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-# the bytes one K5 probe needs: two 32-byte sectors of the cuckoo map, or
-# one 128-byte bucket line
-PROBE_BYTES = {"cuckoo": 64, "bucket": 128}
 # int32 ALU ops outside the tensor cores: 132 SMs x 64 INT32 lanes x 1.98 GHz
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # K2 per DP cell: match compare, diagonal, up and left scores, two maxes,
@@ -181,8 +181,15 @@ def _cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def _max_abs_err(pairs) -> int:
-    """Largest |kernel - plain| over (kernel, plain) integer tensor pairs."""
-    return max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+    """Largest |kernel - plain| over (kernel, plain) integer tensor pairs of
+    equal shapes (an empty pair counts 0)."""
+    errs = [0]
+    for a, b in pairs:
+        if a.shape != b.shape:
+            raise AssertionError(f"kernel output of shape {tuple(a.shape)}, plain {tuple(b.shape)}")
+        if a.numel():
+            errs.append(int((a.long() - b.long()).abs().max()))
+    return max(errs)
 
 
 def _nbytes(*tensors) -> int:
@@ -190,17 +197,23 @@ def _nbytes(*tensors) -> int:
 
 
 def _bytes_bound_ms(n_bytes: float) -> dict:
-    return {"bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None}
+    from mindthegap_tpu_torch.bounds import bytes_ms
+
+    return {"bound_ms": bytes_ms(n_bytes), "bound_by": "bytes", "library_ms": None}
 
 
 def check_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int) -> dict:
-    """K1 against its plain version on one full 2^22-base window of the
-    reference, over the pair map of the donor's solid set."""
+    """K1, the whole scan_cls_qp (classes and the exception compaction),
+    against its plain version on one full 2^22-base window of the reference
+    at the feed's default exception cap, over the pair map of the donor's
+    solid set; then on its compaction edges."""
     import torch
 
+    from mindthegap_tpu_torch.bounds import SECTOR_BYTES, bytes_ms, scan_probe_sectors
     from mindthegap_tpu_torch.find import scan_device as S
     from mindthegap_tpu_torch.ops import extmap as X
     from mindthegap_tpu_torch.ops import kmers as K
+    from torch_tables import scan_edge_windows
 
     rng = np.random.default_rng(seed)
     rfwd, _ = K.kmers_from_codes(ref, k - 1)
@@ -214,20 +227,42 @@ def check_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int) -> 
     packed, bad = S.pack_codes_host(codes)
     packed = torch.from_numpy(packed).cuda()
     bad = torch.from_numpy(bad).cuda()
-    args = (packed, bad, t.slots, t.stash_keys, t.stash_l, t.stash_r, t.log_size, k)
-    got = S.cls_core_cuda(*args)
-    want = S._cls_core_plain(*args)
+    cap = (window - k + 2 + 3) // 4 * 4 // 8
+    args = (packed, bad, t.slots, t.stash_keys, t.stash_l, t.stash_r, t.log_size, k, cap)
+    keys = ("cls2", "exc16", "n_exc")
+    got = S.scan_cls_qp_cuda(*args)
+    want = S._scan_cls_qp_plain(*args)
     torch.cuda.synchronize()
-    err = _max_abs_err(zip(got, want))
-    ms = _cuda_ms(lambda: S.cls_core_cuda(*args), iters=20, warmup=2)
-    plain_ms = _cuda_ms(lambda: S._cls_core_plain(*args), iters=3)
-    # one 16-byte row (one 32-byte sector) per position: one lookup per two
-    # positions, two hash choices each
-    bound = _bytes_bound_ms(window * 32 + _nbytes(packed, bad, *got))
-    print(f"K1 scan_cls_qp: window {window}, k {k}, solid {solid.size}, table {qp.nbytes >> 20} MB, "
-          f"stash {int(qp.stash_keys.size)}, max_abs_err {err} (tolerance 0: exact), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms (bytes)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+    errs = [_max_abs_err((got[key], want[key]) for key in keys)]
+    ms = _cuda_ms(lambda: S.scan_cls_qp_cuda(*args), iters=20, warmup=2)
+    plain_ms = _cuda_ms(lambda: S._scan_cls_qp_plain(*args), iters=3)
+    # the row sectors this window's lookups need (one lookup per two
+    # positions: its first-choice row, and its second where the key is not
+    # in the first), the inputs read once and the outputs written once
+    io_bytes = _nbytes(packed, bad, *(got[key] for key in keys))
+    sectors = scan_probe_sectors(packed, bad, t, k)
+    bound = _bytes_bound_ms(sectors * SECTOR_BYTES + io_bytes)
+    # the bound as the earlier kernel's records counted it, two sectors for every pair
+    two_sector_ms = bytes_ms(window * SECTOR_BYTES + io_bytes)
+    print(f"K1 scan_cls_qp (whole: classes and exception compaction): window {window}, k {k}, "
+          f"solid {solid.size}, table {qp.nbytes >> 20} MB, stash {int(qp.stash_keys.size)}, "
+          f"{int(want['n_exc'])} EXC of cap {cap}, max_abs_err {errs[0]} (tolerance 0: exact), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms (bytes: "
+          f"{sectors} row sectors for {(window - k + 3) // 2} pairs; two sectors a pair: {two_sector_ms:.4f} ms)")
+    edge_qp, cases = scan_edge_windows(k)
+    te = edge_qp.to("cuda")
+    for name, (ecodes, ecap) in cases.items():
+        ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(ecodes))
+        eargs = (ep, eb, te.slots, te.stash_keys, te.stash_l, te.stash_r, te.log_size, k, ecap)
+        g, w = S.scan_cls_qp_cuda(*eargs), S._scan_cls_qp_plain(*eargs)
+        torch.cuda.synchronize()
+        errs.append(_max_abs_err((g[key], w[key]) for key in keys))
+        print(f"K1 edge case {name}: window {ecodes.size}, cap {ecap}, n_exc {int(w['n_exc'])}, "
+              f"max_abs_err {errs[-1]}")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound,
+            "row_sectors": sectors, "bound_ms_two_sector": two_sector_ms,
+            "ms_covers": "the whole scan_cls_qp: classes and exception compaction "
+                         "(records of the earlier kernel timed its core alone)"}
 
 
 def make_pairs(n_pairs: int, lo: int, hi: int, seed: int):
@@ -252,6 +287,7 @@ def check_nw_kernel(seed: int) -> dict:
     50 to 10,000 bp (both the shared-memory and the global-scratch launch)."""
     import torch
 
+    from mindthegap_tpu_torch.bounds import bytes_ms
     from mindthegap_tpu_torch.ops import nw as N
     from mindthegap_tpu_torch.ops import nw_device as ND
 
@@ -271,7 +307,7 @@ def check_nw_kernel(seed: int) -> dict:
         raise AssertionError(f"K2 disagrees with native nw.cpp on {int((ident != native).sum())} pairs")
     ms = _cuda_ms(lambda: ND.nw_matches_cuda(seq, off), iters=3)
     cells = float((lens[:, 0] * lens[:, 1]).sum())
-    bound_ms = max(cells * NW_OPS_PER_CELL / INT32_OPS_PER_S, _nbytes(seq, off, got) / HBM_BYTES_PER_S) * 1e3
+    bound_ms = max(cells * NW_OPS_PER_CELL / INT32_OPS_PER_S * 1e3, bytes_ms(_nbytes(seq, off, got)))
     print(f"K2 nw_matches: 256 pairs, {cells / 1e9:.3f} Gcells, max_abs_err {err} (tolerance 0: exact), "
           "equal to native nw.cpp, "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call), bound {bound_ms:.4f} ms "
@@ -291,7 +327,7 @@ def check_count_kernels(reads: str, solid: np.ndarray, k: int, seed: int) -> tup
     from mindthegap_tpu_torch.io.bank import iter_codes
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import kmers as K
-    from torch_tables import merge_edge_cases
+    from torch_tables import key_edge_batches, merge_edge_cases
 
     batch = 1 << 23
     buf = np.full(batch, C.SEP, np.uint8)
@@ -305,14 +341,18 @@ def check_count_kernels(reads: str, solid: np.ndarray, k: int, seed: int) -> tup
     got = C.kmer_keys_cuda(packed, bad, k)
     want = C._kmer_keys_plain(packed, bad, k)
     torch.cuda.synchronize()
-    err3 = _max_abs_err([(got, want)])
+    errs3 = [_max_abs_err([(got, want)])]
     ms3 = _cuda_ms(lambda: C.kmer_keys_cuda(packed, bad, k), iters=20, warmup=2)
     plain3 = _cuda_ms(lambda: C._kmer_keys_plain(packed, bad, k), iters=3)
     sort_ms = _cuda_ms(lambda: C.sort_batch(packed, bad, k), iters=10)
     bound3 = _bytes_bound_ms(_nbytes(packed, bad, got))
-    print(f"K3 kmer_keys: batch {batch} bases ({fill} filled), k {k}, max_abs_err {err3} "
+    print(f"K3 kmer_keys: batch {batch} bases ({fill} filled), k {k}, max_abs_err {errs3[0]} "
           f"(tolerance 0: exact), kernel {ms3:.4f} ms, plain {plain3:.4f} ms; "
           f"sort_batch (K3 + torch.sort) {sort_ms:.4f} ms; bound {bound3['bound_ms']:.4f} ms (bytes)")
+    for name, (ecodes, ek) in key_edge_batches().items():
+        ep, eb = (torch.from_numpy(a).cuda() for a in pack_codes_host(ecodes))
+        errs3.append(_max_abs_err([(C.kmer_keys_cuda(ep, eb, ek), C._kmer_keys_plain(ep, eb, ek))]))
+    print(f"K3 edge cases ({len(errs3) - 1} batches, k 1 to 32): max_abs_err {max(errs3[1:])}")
 
     b = C.sort_batch(packed, bad, k)
     rng = np.random.default_rng(seed)
@@ -349,19 +389,8 @@ def check_count_kernels(reads: str, solid: np.ndarray, k: int, seed: int) -> tup
           f"out_cap {cap} and {cap // 2} (truncated, {nd} distinct), max_abs_err {err4} "
           f"(tolerance 0: exact), kernel {ms4:.4f} ms, plain {plain4:.4f} ms, "
           f"bound {bound4['bound_ms']:.4f} ms (bytes)")
-    return ({"max_abs_err": err3, "ms": ms3, "plain_ms": plain3, **bound3},
+    return ({"max_abs_err": max(errs3), "ms": ms3, "plain_ms": plain3, **bound3, "sort_batch_ms": sort_ms},
             {"max_abs_err": err4, "ms": ms4, "plain_ms": plain4, **bound4})
-
-
-def walk_bound_ms(n_app, status, lanes: int, steps: int, layout: str) -> float:
-    """The least time for this run's walks: one probe per appended base, one
-    for each walk's start node and one for each stop at a branching
-    successor, each reading its sectors (cuckoo 2 x 32 B, bucket 128 B),
-    plus the inputs and outputs, at the card's memory rate."""
-    from mindthegap_tpu_torch.fill import walk_device as W
-
-    probes = int(n_app.sum()) + int((n_app > 0).sum()) + int((status == W.STATUS_EVENT).sum())
-    return (probes * PROBE_BYTES[layout] + lanes * (steps + 4 + 8 + 1 + 12)) / HBM_BYTES_PER_S * 1e3
 
 
 def check_walk_kernel(donor: np.ndarray, solid: np.ndarray, k: int, seed: int) -> dict:
@@ -376,6 +405,7 @@ def check_walk_kernel(donor: np.ndarray, solid: np.ndarray, k: int, seed: int) -
     import torch
 
     from mindthegap_tpu_torch.fill import walk_device as W
+    from mindthegap_tpu_torch.bounds import walk_bound_ms
     from mindthegap_tpu_torch.ops import extmap as X
     from mindthegap_tpu_torch.ops import kmers as K
     from torch_tables import edge_walk_case
@@ -495,7 +525,7 @@ def _reset_launches():
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
 
-    wrappers = {"scan_cls_qp": S.cls_core_cuda, "nw_matches": ND.nw_matches_cuda,
+    wrappers = {"scan_cls_qp": S.scan_cls_qp_cuda, "nw_matches": ND.nw_matches_cuda,
                 "kmer_keys": C.kmer_keys_cuda, "merge_sorted": C.merge_sorted_cuda,
                 "walk_batch": W.walk_batch_cuda}
     for fn in wrappers.values():

@@ -65,11 +65,13 @@ def nvcc_path() -> str:
 
 @functools.cache
 def cuda_library(src_name: str, lib_name: str) -> ctypes.CDLL:
-    """Compile `csrc/<src_name>` with nvcc for sm_90a (once per process) and load it."""
+    """Compile `csrc/<src_name>` with nvcc for sm_90a (once per process) and
+    load it; it is rebuilt when it or any `csrc/*.cuh` header is newer."""
     src = os.path.join(CSRC_DIR, src_name)
     out = os.path.join(BUILD_DIR, lib_name)
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")]
     _build_if_stale(
-        [src], out,
+        [src, *headers], out,
         lambda tmp: [nvcc_path(), *CUDA_ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                      "-Xcompiler", "-fPIC", "-o", tmp, src],
     )

@@ -1,36 +1,64 @@
-// K1: the fused core of the find scan's reference-delta pass over the
-// pair-coalesced quotient map (mindthegap_tpu_torch/ops/extmap.py QMapP).
+// K1: the whole reference-delta scan of one window over the pair-coalesced
+// quotient map (mindthegap_tpu_torch/ops/extmap.py QMapP): payloads, their
+// 2-bit classes and the exception compaction
+// (mindthegap_tpu_torch/find/scan_device.py _scan_cls_qp_plain, which this
+// kernel must equal bit for bit).
 //
 // Replaces: mindthegap_tpu/find/scan_device.py scan_cls_device_qp, with its
-// core _pair_pay_device and mindthegap_tpu/ops/extmap.py lookup_qp — an XLA
-// program on the TPU, about a hundred 64-bit elementwise ops per window in
-// plain PyTorch (mindthegap_tpu_torch/find/scan_device.py _cls_core_plain,
-// which this kernel must equal bit for bit).
+// core _pair_pay_device, mindthegap_tpu/ops/extmap.py lookup_qp and the
+// tuple sort that moves the EXC payloads first — an XLA program on the TPU.
 //
-// One thread per four payload entries j = 4t..4t+3 (two position pairs):
-//   1. read the (k-2)-mer at position 2m+1 from the 2-bit packed codes and
-//      the bad bits (invalid bases and bases past the window read as A);
-//   2. canonicalize it, keeping the strand;
-//   3. two hashed 16-byte row probes of `slots` (one ulonglong2 load each),
-//      then the <= 64-entry stash, held in shared memory;
-//   4. derive both 9-bit payloads of the pair;
-//   5. classify each payload against the reference's own continuation;
-//   6. write one byte of four 2-bit classes and four int16 payloads.
-// The exception compaction stays in PyTorch (scan_cls_qp).
+// Per pair m of payload entries (2m, 2m+1): the canonical (k-2)-mer at base
+// 2m+1 (bad bases and bases past the window read as A), two hashed 16-byte
+// row probes of `slots` and the <= 64-entry stash give (L36, R36); each
+// entry's 9-bit payload follows from the strand and its flanking base, and
+// its class from the reference's own continuation (REF 0, ZERO 1, EXC 2,
+// REP 3). Outputs: cls2 (4 classes per byte), exc16 (the EXC payloads in
+// entry order, then the other payloads in order, out_len = min(exc_cap,
+// n4) entries) and n_exc.
 //
-// Bound on this card: two random 16-byte row gathers per pair out of a
-// table of 2^log_size * 16 bytes (256 MB for a bacterial solid set of 4.7 M
-// k-mers, above the 50 MB L2), so the pass is limited by random DRAM
-// transactions, not by arithmetic. The design issues each row as one
-// 16-byte load and keeps everything else (codes, stash) in L1 or shared
-// memory.
+// Bound on this card: the row probes, random 32-byte sectors out of a table
+// of 2^log_size * 16 bytes (256 MB for a bacterial solid set, above the 50
+// MB L2): one per pair, and one more for each pair whose key is not in its
+// first-choice row (mindthegap_tpu_torch/bounds.py scan_probe_sectors),
+// against 3.5 MB of inputs and outputs per 2^22-base window.
+//
+// The design, one launch of the main kernel and one of a small finishing
+// kernel:
+//   - A block of 256 threads takes a tile of 256 * 2 pairs, claimed from an
+//     atomic counter, and stages the tile's bases with a 128-base halo on
+//     each side in shared memory (packed_window.cuh). Each pair's window is
+//     64 bits read at base 2m-1 by funnel shifts: the flanking bases, the
+//     (k-2)-mer (its reverse complement by complement and mask, its forward
+//     word by one 2-bit-group reversal) and the four bad bits the classes
+//     need, with one more 32-bit read for the bases at 2m+k-1 and 2m+k.
+//   - Both of a thread's first-choice row loads (through the read-only
+//     path) are issued before the first compare, and the second choice is
+//     probed only where the first missed (exact: mix is a bijection, so a
+//     row's (remainder, choice) names one key). On the card this beat
+//     loading both choices together (a bacterial table holds ~86% of the
+//     keys in their first row), and 2 pairs a thread beat 4.
+//   - The stash is held in shared memory; a sorted stash of unique keys (as
+//     QMapP keeps it) is searched in six steps, any other by a full scan.
+//   - Compaction: a block scan counts the tile's EXC entries and a
+//     decoupled look-back (Merrill and Garland's single-pass scan; each
+//     tile's state and count in one 64-bit word) gives the EXC entries
+//     before the tile. EXC entry i goes to exc16[e_i] when e_i < out_len,
+//     e_i being the EXC entries before it; a non-EXC entry whose rank
+//     i - e_i is below out_len goes to `tail` at that rank. The last tile
+//     writes n_exc; the finishing kernel copies tail[0, out_len - n_exc) to
+//     exc16[n_exc, out_len).
+// Nothing but the outputs, `tail` and 8 bytes of look-back state per tile
+// goes to device memory: no per-entry payload stream.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-typedef unsigned long long u64;
+#include "packed_window.cuh"
 
 namespace {
+
+using namespace packed_window;
 
 constexpr u64 H1 = 0x9E3779B97F4A7C15ull;
 constexpr u64 H2 = 0xC2B2AE3D27D4EB4Full;
@@ -38,22 +66,14 @@ constexpr u64 QP_REM_MASK = (1ull << 45) - 1;
 constexpr u64 QP_CHOICE = 1ull << 8;
 constexpr u64 QP_VALID = 1ull << 9;
 constexpr u64 QP_L36 = (1ull << 36) - 1;
-constexpr int INVALID = 255;
 constexpr int MAX_STASH = 64;
+constexpr int THREADS = 256, WARPS = THREADS / 32;
+constexpr u64 STATE_AGGREGATE = 1, STATE_INCLUSIVE = 2;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ u64 mix(u64 key, u64 c) {
     u64 h = (key ^ (key >> 33)) * c;
     return h ^ (h >> 29);
-}
-
-__device__ __forceinline__ u64 revcomp(u64 x, int k) {
-    x ^= 0xAAAAAAAAAAAAAAAAull;  // complement every base
-    x = ((x >> 2) & 0x3333333333333333ull) | ((x & 0x3333333333333333ull) << 2);
-    x = ((x >> 4) & 0x0F0F0F0F0F0F0F0Full) | ((x & 0x0F0F0F0F0F0F0F0Full) << 4);
-    x = ((x >> 8) & 0x00FF00FF00FF00FFull) | ((x & 0x00FF00FF00FF00FFull) << 8);
-    x = ((x >> 16) & 0x0000FFFF0000FFFFull) | ((x & 0x0000FFFF0000FFFFull) << 16);
-    x = (x >> 32) | (x << 32);
-    return x >> (64 - 2 * k);
 }
 
 __device__ __forceinline__ u64 shuffle02(u64 b) {
@@ -64,114 +84,265 @@ __device__ __forceinline__ u64 flip9(u64 p) {
     return shuffle02((p >> 4) & 0xF) | (shuffle02(p & 0xF) << 4) | (p & 0x100);
 }
 
-// Raw code at position p: 0..3, or 255 when the base is bad or outside [0, w).
-__device__ __forceinline__ int raw_code(const uint8_t* packed, const uint8_t* bad, int64_t w, int64_t p) {
-    if (p < 0 || p >= w) return INVALID;
-    if ((bad[p >> 3] >> (7 - (p & 7))) & 1) return INVALID;
-    return (packed[p >> 2] >> (2 * (p & 3))) & 3;
-}
-
-__device__ __forceinline__ u64 clean_code(const uint8_t* packed, const uint8_t* bad, int64_t w, int64_t p) {
-    int c = raw_code(packed, bad, w, p);
-    return c == INVALID ? 0 : (u64)c;
-}
-
 __device__ __forceinline__ u64 sub9(u64 blk, u64 i4) { return (blk >> (9 * i4)) & 0x1FF; }
 
-__device__ __forceinline__ int classify(u64 pay, int b_hi, int b_lo) {
-    bool ok = b_hi < 4 && b_lo < 4;
-    if (ok && (pay & 0xFF) == ((1ull << b_hi) | ((1ull << b_lo) << 4)))
-        return ((pay >> 8) & 1) ? 3 : 0;
+// the class of payload `pay` whose flanking bases are b_hi and b_lo, both
+// valid when ok
+__device__ __forceinline__ int classify(u64 pay, bool ok, u64 b_hi, u64 b_lo) {
+    if (ok && (pay & 0xFF) == ((1ull << b_hi) | (1ull << (b_lo + 4)))) return ((pay >> 8) & 1) ? 3 : 0;
     return pay == 0 ? 1 : 2;
 }
 
-__global__ void scan_cls_qp_kernel(
-    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad, int64_t w,
+__device__ __forceinline__ bool row_hit(ulonglong2 row, u64 h, u64 rem_mask, int choice) {
+    return (((row.x >> 10) & QP_REM_MASK) == (h & rem_mask)) && (row.x & QP_VALID)
+        && (((row.x & QP_CHOICE) != 0) == (choice == 1));
+}
+
+__device__ __forceinline__ void publish(u64* state, u64 kind, unsigned count) {
+    atomicExch(state, (kind << 32) | count);
+}
+
+constexpr int P = 2;              // pairs per thread
+constexpr int TP = THREADS * P;   // pairs per tile
+
+// at most 48 registers: five blocks per SM (a cap for six or eight spills,
+// and was slower on the card)
+__global__ void __launch_bounds__(THREADS, 5) scan_cls_qp_kernel(
+    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad, int64_t w, bool aligned,
     const ulonglong2* __restrict__ slots, int log_size,
-    const u64* __restrict__ stash_k, const u64* __restrict__ stash_l,
-    const u64* __restrict__ stash_r, int n_stash, int k,
-    uint8_t* __restrict__ cls2, int16_t* __restrict__ pay16, int64_t n4)
+    const u64* __restrict__ stash_k, const u64* __restrict__ stash_l, const u64* __restrict__ stash_r,
+    int n_stash, int k,
+    uint8_t* __restrict__ cls2, int16_t* __restrict__ exc16, long long* __restrict__ n_exc_out,
+    int64_t out_len, int16_t* __restrict__ tail, u64* states, unsigned* tile_counter, int64_t n_tiles)
 {
+    constexpr int N_CHUNKS = TP / 32 + 4;   // 2 * TP bases and the halos, 64 a chunk
+    constexpr int E = 2 * P;                // payload entries per thread
+    __shared__ uint32_t s_code[4 * N_CHUNKS], s_bad[2 * N_CHUNKS];
     __shared__ u64 s_k[MAX_STASH], s_l[MAX_STASH], s_r[MAX_STASH];
-    for (int s = threadIdx.x; s < n_stash; s += blockDim.x) {
-        s_k[s] = stash_k[s];
-        s_l[s] = stash_l[s];
-        s_r[s] = stash_r[s];
+    __shared__ int64_t s_tile;
+    __shared__ unsigned s_warp[WARPS], s_prefix;
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid == 0) s_tile = atomicAdd(tile_counter, 1u);
+    for (int s = tid; s < MAX_STASH; s += THREADS) {
+        s_k[s] = s < n_stash ? stash_k[s] : ~0ull;  // the padding sorts last and equals no key
+        s_l[s] = s < n_stash ? stash_l[s] : 0;
+        s_r[s] = s < n_stash ? stash_r[s] : 0;
+    }
+    __syncthreads();
+    const int64_t tile = s_tile;
+    const int64_t m0 = tile * TP, b0 = 2 * m0 - 128;
+    stage(packed, bad, w, b0, N_CHUNKS, aligned, s_code, s_bad);
+    const bool sorted = !__syncthreads_or(tid + 1 < n_stash && s_k[tid] >= s_k[tid + 1]);
+
+    const int64_t n_pay = w - k + 2, n_pairs = (n_pay + 1) / 2, n4 = (n_pay + 3) / 4 * 4;
+    const int shift = 64 - log_size;
+    const u64 rem_mask = (1ull << shift) - 1;
+    const int km = k - 2;
+
+    // the windows: key, strand and the flanking bases of each pair
+    u64 key[P], h1[P], h2[P], win[P];
+    uint32_t hi[P];
+    u64 badw[P];
+    bool strand[P], live[P];
+#pragma unroll
+    for (int e = 0; e < P; e++) {
+        const int lm = P * tid + e;            // pair within the tile
+        live[e] = m0 + lm < n_pairs;
+        const int rel = 2 * lm + 127;          // base 2m-1, relative to b0
+        win[e] = bits64(s_code, 2 * rel);      // bases 2m-1 .. 2m+30
+        hi[e] = bits32(s_code, 2 * (rel + k)); // bases 2m+k-1, 2m+k
+        badw[e] = bits64(s_bad, rel);          // bad bits of bases 2m-1 .. 2m+62
+        u64 fwd, rc;
+        kmer_words(win[e] >> 4, km, fwd, rc);  // the (k-2)-mer at base 2m+1
+        key[e] = fwd < rc ? fwd : rc;
+        strand[e] = fwd == key[e];
+        h1[e] = mix(key[e], H1);
+        h2[e] = mix(key[e], H2);
+    }
+    // first-choice row probes: every load in flight before the first compare
+    ulonglong2 row0[P];
+#pragma unroll
+    for (int e = 0; e < P; e++) row0[e] = live[e] ? __ldg(&slots[h1[e] >> shift]) : make_ulonglong2(0, 0);
+    u64 l36[P], r36[P];
+#pragma unroll
+    for (int e = 0; e < P; e++) {
+        bool hit = row_hit(row0[e], h1[e], rem_mask, 0);
+        ulonglong2 row = row0[e];
+        if (!hit && live[e]) {  // the second choice, only after a miss
+            row = __ldg(&slots[h2[e] >> shift]);
+            hit = row_hit(row, h2[e], rem_mask, 1);
+        }
+        l36[e] = hit ? ((row.x & 0xFF) << 28) | (row.y >> 36) : 0;
+        r36[e] = hit ? row.y & QP_L36 : 0;
+        if (sorted) {  // lower bound over the 64 sorted slots, then one compare
+            int i = 0;
+#pragma unroll
+            for (int step = MAX_STASH / 2; step >= 1; step >>= 1)
+                if (s_k[i + step - 1] < key[e]) i += step;
+            if (s_k[i] == key[e]) {
+                l36[e] |= s_l[i];
+                r36[e] |= s_r[i];
+            }
+        } else {
+            for (int s = 0; s < n_stash; s++) {
+                if (s_k[s] == key[e]) {
+                    l36[e] |= s_l[s];
+                    r36[e] |= s_r[s];
+                }
+            }
+        }
+    }
+
+    // payloads and classes of the thread's E entries j = j0 .. j0 + E - 1
+    const int64_t j0 = 2 * (m0 + P * tid);
+    uint16_t pay[E];
+    uint32_t cls_bits = 0, exc_mask = 0;
+#pragma unroll
+    for (int e = 0; e < P; e++) {
+        const u64 b_lo = win[e] & 3, y = (win[e] >> 2) & 3;  // bases 2m-1, 2m
+        const u64 x = hi[e] & 3, b_hi1 = (hi[e] >> 2) & 3;   // bases 2m+k-1, 2m+k
+        u64 pe = 0, po = 0;
+        if (live[e]) {
+            pe = strand[e] ? sub9(l36[e], y) : flip9(sub9(r36[e], y ^ 2));
+            po = strand[e] ? sub9(r36[e], x) : flip9(sub9(l36[e], x ^ 2));
+        }
+        const u64 bw = badw[e];
+        const int ce = classify(pe, !(((bw >> k) | bw) & 1), x, b_lo);
+        const int co = classify(po, !(((bw >> (k + 1)) | (bw >> 1)) & 1), b_hi1, y);
+        pay[2 * e] = (uint16_t)pe;
+        pay[2 * e + 1] = (uint16_t)po;
+        cls_bits |= (uint32_t)(ce | (co << 2)) << (4 * e);
+        if (j0 + 2 * e < n4 && ce == 2) exc_mask |= 1u << (2 * e);
+        if (j0 + 2 * e + 1 < n4 && co == 2) exc_mask |= 1u << (2 * e + 1);
+    }
+#pragma unroll
+    for (int b = 0; b < E / 4; b++)
+        if (j0 + 4 * b < n4) cls2[j0 / 4 + b] = (uint8_t)(cls_bits >> (8 * b));
+
+    // EXC entries before this thread in the tile, and the tile's count
+    const unsigned mine = __popc(exc_mask);
+    unsigned inc = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_up_sync(FULL, inc, o);
+        if (lane >= o) inc += v;
+    }
+    if (lane == 31) s_warp[warp] = inc;
+    __syncthreads();
+    unsigned before = inc - mine, agg = 0;
+#pragma unroll
+    for (int v = 0; v < WARPS; v++) {
+        if (v < warp) before += s_warp[v];
+        agg += s_warp[v];
+    }
+
+    // decoupled look-back: EXC entries before the tile
+    if (warp == 0) {
+        unsigned prefix = 0;
+        if (tile == 0) {
+            if (lane == 0) publish(&states[0], STATE_INCLUSIVE, agg);
+        } else {
+            if (lane == 0) publish(&states[tile], STATE_AGGREGATE, agg);
+            for (int64_t t = tile - 1;; t -= 32) {
+                const int64_t ti = t - lane;  // lane 0 holds the latest tile of the window
+                u64 st = STATE_INCLUSIVE << 32;
+                if (ti >= 0) {
+                    do {
+                        st = *(volatile u64*)&states[ti];
+                    } while ((st >> 32) == 0);
+                }
+                const unsigned incl = __ballot_sync(FULL, (st >> 32) == STATE_INCLUSIVE);
+                const int stop = incl ? __ffs(incl) - 1 : 31;
+                unsigned v = lane <= stop ? (unsigned)st : 0;
+#pragma unroll
+                for (int o = 16; o >= 1; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+                prefix += v;
+                if (incl) break;
+            }
+            if (lane == 0) publish(&states[tile], STATE_INCLUSIVE, prefix + agg);
+        }
+        if (lane == 0) {
+            s_prefix = prefix;
+            if (tile == n_tiles - 1) *n_exc_out = (long long)(prefix + agg);
+        }
     }
     __syncthreads();
 
-    const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n4 / 4) return;
-
-    const int64_t n_pay = w - k + 2;
-    const int64_t n_pairs = (n_pay + 1) / 2;
-    const int shift = 64 - log_size;
-    const u64 rem_mask = (1ull << shift) - 1;
-
-    u64 pay[4];
-    for (int e = 0; e < 2; e++) {
-        const int64_t m = 2 * t + e;
-        if (m >= n_pairs) {  // padding past the payload stream
-            pay[2 * e] = 0;
-            pay[2 * e + 1] = 0;
-            continue;
+    // place the entries: EXC ones by their EXC rank, the others by theirs
+    int64_t e_i = (int64_t)s_prefix + before;
+#pragma unroll
+    for (int i = 0; i < E; i++) {
+        const int64_t j = j0 + i;
+        if ((exc_mask >> i) & 1) {
+            if (e_i < out_len) exc16[e_i] = (int16_t)pay[i];
+            e_i++;
+        } else if (j < n4 && j - e_i < out_len) {
+            tail[j - e_i] = (int16_t)pay[i];
         }
-        u64 r = 0;
-        for (int j = 0; j < k - 2; j++) r = (r << 2) | clean_code(packed, bad, w, 2 * m + 1 + j);
-        const u64 rc = revcomp(r, k - 2);
-        const u64 key = r < rc ? r : rc;
-        const bool strand = r == key;
-
-        u64 l36 = 0, r36 = 0;
-        for (int i = 0; i < 2; i++) {
-            const u64 h = mix(key, i ? H2 : H1);
-            const ulonglong2 row = slots[h >> shift];
-            const bool hit = (((row.x >> 10) & QP_REM_MASK) == (h & rem_mask))
-                && (row.x & QP_VALID) && (((row.x & QP_CHOICE) != 0) == (i == 1));
-            if (hit) {
-                l36 = ((row.x & 0xFF) << 28) | (row.y >> 36);
-                r36 = row.y & QP_L36;
-            }
-        }
-        for (int s = 0; s < n_stash; s++) {
-            if (s_k[s] == key) {
-                l36 |= s_l[s];
-                r36 |= s_r[s];
-            }
-        }
-        const u64 y = clean_code(packed, bad, w, 2 * m);
-        const u64 x = clean_code(packed, bad, w, 2 * m + k - 1);
-        pay[2 * e] = strand ? sub9(l36, y) : flip9(sub9(r36, y ^ 2));
-        pay[2 * e + 1] = strand ? sub9(r36, x) : flip9(sub9(l36, x ^ 2));
     }
+}
 
-    uint8_t byte = 0;
-    u64 packed_pay = 0;
-    for (int e = 0; e < 4; e++) {
-        const int64_t j = 4 * t + e;
-        const int cls = classify(pay[e], raw_code(packed, bad, w, j + k - 1), raw_code(packed, bad, w, j - 1));
-        byte |= (uint8_t)(cls << (2 * e));
-        packed_pay |= (pay[e] & 0xFFFF) << (16 * e);
-    }
-    cls2[t] = byte;
-    reinterpret_cast<u64*>(pay16)[t] = packed_pay;
+// exc16[n_exc + i] = tail[i] for i < out_len - n_exc
+__global__ void finish_kernel(int16_t* __restrict__ exc16, const int16_t* __restrict__ tail,
+                              const long long* __restrict__ n_exc, int64_t out_len)
+{
+    const int64_t n = *n_exc, stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; n + i < out_len; i += stride)
+        exc16[n + i] = tail[i];
+}
+
+struct Args {
+    const uint8_t* packed;
+    const uint8_t* bad;
+    int64_t w;
+    bool aligned;
+    const ulonglong2* slots;
+    int log_size;
+    const u64 *stash_k, *stash_l, *stash_r;
+    int n_stash, k;
+    uint8_t* cls2;
+    int16_t* exc16;
+    long long* n_exc;
+    int64_t out_len;
+    int16_t* tail;
+    u64* states;
+};
+
+cudaError_t launch(const Args& a, cudaStream_t st)
+{
+    const int64_t n4 = (a.w - a.k + 2 + 3) / 4 * 4;
+    const int64_t n_tiles = (n4 + 2 * TP - 1) / (2 * TP);
+    cudaError_t err = cudaMemsetAsync(a.states, 0, (n_tiles + 1) * sizeof(u64), st);
+    if (err != cudaSuccess) return err;
+    scan_cls_qp_kernel<<<(unsigned)n_tiles, THREADS, 0, st>>>(
+        a.packed, a.bad, a.w, a.aligned, a.slots, a.log_size, a.stash_k, a.stash_l, a.stash_r, a.n_stash, a.k,
+        a.cls2, a.exc16, a.n_exc, a.out_len, a.tail, a.states, (unsigned*)(a.states + n_tiles), n_tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || a.out_len == 0) return err;
+    const int64_t blocks = (a.out_len + 1023) / 1024;
+    finish_kernel<<<(unsigned)(blocks < 264 ? blocks : 264), 1024, 0, st>>>(a.exc16, a.tail, a.n_exc, a.out_len);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
+// pairs a block takes: the tile count sizes the look-back scratch
+extern "C" int scan_cls_qp_tile_pairs() { return TP; }
+
+// packed: w / 4 bytes, bad: w / 8 bytes; cls2: n4 / 4 bytes; exc16 and
+// tail: out_len int16; n_exc: one int64; states: n_tiles + 1 words of
+// scratch (zeroed here), n_tiles = ceil(n4 / (2 * scan_cls_qp_tile_pairs())).
 extern "C" int scan_cls_qp_launch(
     const void* packed, const void* bad, int64_t w,
     const void* slots, int log_size,
-    const void* stash_k, const void* stash_l, const void* stash_r, int n_stash,
-    int k, void* cls2, void* pay16, int64_t n4, void* stream)
+    const void* stash_k, const void* stash_l, const void* stash_r, int n_stash, int k,
+    void* cls2, void* exc16, void* n_exc, int64_t out_len, void* tail, void* states, void* stream)
 {
-    const int block = 256;
-    const int64_t n_threads = n4 / 4;
-    const int64_t grid = (n_threads + block - 1) / block;
-    scan_cls_qp_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)packed, (const uint8_t*)bad, w,
-        (const ulonglong2*)slots, log_size,
-        (const u64*)stash_k, (const u64*)stash_l, (const u64*)stash_r, n_stash, k,
-        (uint8_t*)cls2, (int16_t*)pay16, n4);
-    return (int)cudaGetLastError();
+    const Args a = {(const uint8_t*)packed, (const uint8_t*)bad, w,
+                    (uintptr_t)packed % 16 == 0 && (uintptr_t)bad % 8 == 0,
+                    (const ulonglong2*)slots, log_size,
+                    (const u64*)stash_k, (const u64*)stash_l, (const u64*)stash_r, n_stash, k,
+                    (uint8_t*)cls2, (int16_t*)exc16, (long long*)n_exc, out_len, (int16_t*)tail, (u64*)states};
+    return (int)launch(a, (cudaStream_t)stream);
 }

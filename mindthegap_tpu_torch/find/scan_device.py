@@ -10,9 +10,10 @@ positions) and ships it to the native automaton in one of two forms:
 - scan_pay_qp: the dense payload bytes plus packed repeat bits — the
   re-dispatch for a window with more exceptions than the cap.
 
-Every function here is plain PyTorch and runs on any device, except the
-core of scan_cls_qp, which on a CUDA tensor runs the hand kernel K1
-(csrc/scan_qp.cu) and on a CPU tensor its plain version below.
+Every function here is plain PyTorch and runs on any device, except
+scan_cls_qp, which on a CUDA tensor runs the hand kernel K1
+(csrc/scan_qp.cu: payloads, classes and the exception compaction in one
+pass) and on a CPU tensor its plain version below.
 """
 
 from __future__ import annotations
@@ -70,16 +71,12 @@ def rolling_kmers(codes: torch.Tensor, k: int):
     return fwd, valid
 
 
-def _pair_pay(codes, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
-    """Shared core of the qp passes: the per-position fused 9-bit payload
-    stream (int64[2*n_pairs], oriented as-read) via one pair-map lookup per
-    TWO positions, at the canonical (k-2)-mer the two positions share
-    (ops/extmap.py QMapP). Bases that are invalid or beyond the window read
-    as 0."""
-    qp = X.QMapP(slots2, log_size, k, stash_k, stash_l, stash_r)
+def pair_keys(codes, k: int):
+    """The keys of a window's pair lookups: the even and odd base columns
+    (bases that are invalid or beyond the window read as 0) and, for each
+    pair m, the (k-2)-mer at base 2m+1 as read and canonical."""
     p = codes.shape[0] - k + 1
-    n_pay = p + 1
-    n_pairs = (n_pay + 1) // 2
+    n_pairs = (p + 2) // 2
 
     # even/odd base columns; base 2m+1+j lives in col_{(1+j)%2}[m + (1+j)//2]
     clean = torch.where(codes == INVALID, 0, codes).to(torch.int64)
@@ -95,7 +92,17 @@ def _pair_pay(codes, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
         col = col1 if (1 + j) & 1 else col0
         off = (1 + j) >> 1
         r_asread = (r_asread << 2) | col[off : off + n_pairs]
-    canon_r = K.canonical_u64(r_asread, k - 2)
+    return col0, col1, r_asread, K.canonical_u64(r_asread, k - 2)
+
+
+def _pair_pay(codes, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
+    """Shared core of the qp passes: the per-position fused 9-bit payload
+    stream (int64[2*n_pairs], oriented as-read) via one pair-map lookup per
+    TWO positions, at the canonical (k-2)-mer the two positions share
+    (ops/extmap.py QMapP)."""
+    qp = X.QMapP(slots2, log_size, k, stash_k, stash_l, stash_r)
+    col0, col1, r_asread, canon_r = pair_keys(codes, k)
+    n_pairs = r_asread.shape[0]
     strand = r_asread == canon_r
     l36, r36 = X.lookup_qp(qp, canon_r)
 
@@ -146,7 +153,7 @@ def scan_pay_qp(codes, slots2, stash_k, stash_l, stash_r, log_size: int, k: int)
 
 
 def _cls_core_plain(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
-    """Plain version of K1: (cls2 u8[n4/4], pay16 int16[n4])."""
+    """Classes and payloads of one window: (cls2 u8[n4/4], pay16 int16[n4])."""
     codes = unpack_codes(packed, badbits)
     w = codes.shape[0]
     p = w - k + 1
@@ -172,6 +179,20 @@ def _cls_core_plain(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size
     return cls2, pay.to(torch.int16)
 
 
+def _scan_cls_qp_plain(packed, badbits, slots2, stash_k, stash_l, stash_r,
+                       log_size: int, k: int, exc_cap: int):
+    """Plain version of K1: the classes, then the EXC-first stable
+    compaction by prefix sums (no sort, and no host sync, so that the next
+    window's dispatch can overlap this one's replay)."""
+    cls2, pay16 = _cls_core_plain(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k)
+    cls = torch.stack([(cls2 >> (2 * j)) & 3 for j in range(4)], dim=1).reshape(-1)
+    exc = cls == 2
+    n_exc = exc.sum()
+    dest = torch.where(exc, torch.cumsum(exc, 0) - 1, n_exc + torch.cumsum(~exc, 0) - 1)
+    order = torch.empty_like(pay16).scatter_(0, dest, pay16)
+    return {"cls2": cls2, "exc16": order[:exc_cap], "n_exc": n_exc}
+
+
 _CLS_LIB = None
 
 
@@ -181,22 +202,28 @@ def _cls_lib():
         from .._build import cuda_library
 
         lib = cuda_library("scan_qp.cu", "libmtg_scan_qp.so")
+        lib.scan_cls_qp_tile_pairs.restype = ctypes.c_int
+        lib.scan_cls_qp_tile_pairs.argtypes = []
         lib.scan_cls_qp_launch.restype = ctypes.c_int
         lib.scan_cls_qp_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p,
         ]
         _CLS_LIB = lib
     return _CLS_LIB
 
 
-def cls_core_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
-    """K1 (csrc/scan_qp.cu): the same (cls2, pay16) as _cls_core_plain, one
-    thread per four payload entries. Counts its launches in
-    `cls_core_cuda.launches`."""
+def scan_cls_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int,
+                     exc_cap: int):
+    """K1 (csrc/scan_qp.cu): the same {cls2, exc16, n_exc} as
+    _scan_cls_qp_plain, in one pass: tiles of 256 x 2 pairs classified from
+    shared memory (the second cuckoo probe only after the first misses),
+    the EXC count carried across tiles by a decoupled look-back, then a
+    small kernel that places the non-EXC tail of exc16 behind the n_exc EXC
+    payloads. Counts one launch per window in `scan_cls_qp_cuda.launches`."""
     check_kernel_tensor(packed, "packed", torch.uint8, 1)
     check_kernel_tensor(badbits, "badbits", torch.uint8, 1)
     check_kernel_tensor(slots2, "slots2", torch.int64, 2)
@@ -212,26 +239,36 @@ def cls_core_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: 
         raise ValueError("slots2 rows must be 16-byte aligned (one ulonglong2 load each)")
     if not 1 <= n_stash <= 64 or stash_l.shape[0] != n_stash or stash_r.shape[0] != n_stash:
         raise ValueError("stash tables must hold 1..64 entries each")
-    if not 3 <= k <= 32 or w < k + 8:
-        raise ValueError(f"k must be in [3, 32] and below the window, got k={k}, window={w}")
-    n_pay = w - k + 2
-    n4 = -(-n_pay // 4) * 4
-    cls2 = torch.empty(n4 // 4, dtype=torch.uint8, device=packed.device)
-    pay16 = torch.empty(n4, dtype=torch.int16, device=packed.device)
-    err = _cls_lib().scan_cls_qp_launch(
+    if not 3 <= k <= 32 or w < k + 8 or w >= 1 << 31:
+        raise ValueError(f"k must be in [3, 32] and the window in [k + 8, 2^31), got k={k}, window={w}")
+    if exc_cap < 0:
+        raise ValueError(f"exc_cap must be >= 0, got {exc_cap}")
+    dev = packed.device
+    lib = _cls_lib()
+    n4 = -(-(w - k + 2) // 4) * 4
+    out_len = min(exc_cap, n4)
+    n_tiles = -(-n4 // (2 * lib.scan_cls_qp_tile_pairs()))
+    cls2 = torch.empty(n4 // 4, dtype=torch.uint8, device=dev)
+    exc16 = torch.empty(out_len, dtype=torch.int16, device=dev)
+    n_exc = torch.empty((), dtype=torch.int64, device=dev)
+    # the non-EXC payloads by rank, then the tiles' look-back states and the
+    # tile counter (zeroed by the launch)
+    tail = torch.empty(out_len, dtype=torch.int16, device=dev)
+    states = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
+    err = lib.scan_cls_qp_launch(
         packed.data_ptr(), badbits.data_ptr(), w,
         slots2.data_ptr(), log_size,
-        stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), n_stash,
-        k, cls2.data_ptr(), pay16.data_ptr(), n4,
-        torch.cuda.current_stream(packed.device).cuda_stream,
+        stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), n_stash, k,
+        cls2.data_ptr(), exc16.data_ptr(), n_exc.data_ptr(), out_len, tail.data_ptr(), states.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"scan_cls_qp kernel launch failed: CUDA error {err}")
-    cls_core_cuda.launches += 1
-    return cls2, pay16
+    scan_cls_qp_cuda.launches += 1
+    return {"cls2": cls2, "exc16": exc16, "n_exc": n_exc}
 
 
-cls_core_cuda.launches = 0
+scan_cls_qp_cuda.launches = 0
 
 
 def scan_cls_qp(packed, badbits, slots2, stash_k, stash_l, stash_r,
@@ -240,19 +277,10 @@ def scan_cls_qp(packed, badbits, slots2, stash_k, stash_l, stash_r,
     (pack_codes_host): classify each payload index j against what the
     reference's own continuation implies (classes above).
 
-    Returns cls2 (u8, 4 classes per byte), exc16 (int16[exc_cap]: the EXC
-    payloads in payload order, then the other payloads in order) and n_exc
-    (0-d int64). n_exc > exc_cap means the window must be re-dispatched
-    through scan_pay_qp. On a CUDA tensor the core runs the kernel K1; on a
-    CPU tensor its plain version."""
-    core = cls_core_cuda if packed.is_cuda else _cls_core_plain
-    cls2, pay16 = core(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k)
-    cls = torch.stack([(cls2 >> (2 * j)) & 3 for j in range(4)], dim=1).reshape(-1)
-    exc = cls == 2
-    n_exc = exc.sum()
-    # stable partition (EXC entries first, both halves in payload order) by
-    # prefix sums: no sort, and no host sync, so the next window's dispatch
-    # can overlap this one's replay
-    dest = torch.where(exc, torch.cumsum(exc, 0) - 1, n_exc + torch.cumsum(~exc, 0) - 1)
-    order = torch.empty_like(pay16).scatter_(0, dest, pay16)
-    return {"cls2": cls2, "exc16": order[:exc_cap], "n_exc": n_exc}
+    Returns cls2 (u8, 4 classes per byte), exc16 (int16[min(exc_cap, n4)]:
+    the EXC payloads in payload order, then the other payloads in order) and
+    n_exc (0-d int64). n_exc > exc_cap means the window must be
+    re-dispatched through scan_pay_qp. On a CUDA tensor this runs the
+    kernel K1; on a CPU tensor its plain version."""
+    fn = scan_cls_qp_cuda if packed.is_cuda else _scan_cls_qp_plain
+    return fn(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k, exc_cap)

@@ -1,6 +1,7 @@
-"""Times K5 (the fill walker) and K4 (the counting merge) on one GPU against
-another checkout of this repository, and sweeps K5's look-ahead depth, in
-one process on the same card and inputs.
+"""Times the port's kernels on one GPU against another checkout of this
+repository, in one process on the same card and inputs: K1 (the whole
+scan_cls_qp), K3 (k-mer keys, and sort_batch around it), K4 (the counting
+merge) and K5 (the fill walker, with a sweep of its look-ahead depth).
 
     python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE]
 
@@ -8,20 +9,24 @@ DIR holds an earlier checkout's `mindthegap_tpu_torch/` and `native/` (for
 example `git archive <commit> mindthegap_tpu_torch native | tar -x -C DIR`
 into the gitignored `mindthegap_tpu_torch/_build/`). That package is
 imported under another name, builds its kernels into its own `_build/`, and
-is called through its own wrappers, `walk_batch_cuda` and
-`merge_sorted_cuda`, whose signatures this checkout keeps. Each pair of
-versions is timed in turns (earlier, current, current, earlier) by CUDA
-events, and their outputs must be equal.
+is called through its own entry points, `scan_cls_qp`, `kmer_keys_cuda`,
+`sort_batch`, `merge_sorted_cuda` and `walk_batch_cuda`, whose signatures
+this checkout keeps. Each pair of versions is timed in turns (earlier,
+current, current, earlier) by CUDA events, and their outputs must be equal.
 
 The inputs: a seeded random genome of 4,641,652 bp (the length of E. coli
-K-12 MG1655), k = 31, its canonical k-mers as the solid set. K5 walks from
-random genome k-mers over the cuckoo and the bucket map of that set, 2,048
-steps with a budget of 10,000, at 1 to 65,536 lanes, and on two mostly
-dead rounds (lanes with a budget of 0 issue no probe), at every look-ahead
-depth the kernel takes and at the depth `lookahead_depth` picks. K4 merges
-2^23 sorted k-mers sampled from both strands into an accumulator of the
-solid set in 2^23 slots. Prints the card, one line per shape and, last, one
-JSON object of every time. Exits non-zero without a CUDA device.
+K-12 MG1655), k = 31, its canonical k-mers as the solid set. K1 scans a
+2^22-base window of the genome, with N runs and isolated Ns, over the pair
+map of that set (the default exception cap). K3 extracts the keys of a
+2^23-base batch of 150-base reads sampled from the genome, joined by
+separators, and sort_batch sorts them. K5 walks from random genome k-mers
+over the cuckoo and the bucket map of the set, 2,048 steps with a budget
+of 10,000, at 1 to 65,536 lanes, and on two mostly dead rounds (lanes with
+a budget of 0 issue no probe), at every look-ahead depth the kernel takes
+and at the depth `lookahead_depth` picks. K4 merges 2^23 sorted k-mers sampled from both strands into an
+accumulator of the solid set in 2^23 slots. Prints the card, one line per
+shape and, last, one JSON object of every time. Exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -37,8 +42,10 @@ import sys
 import numpy as np
 import torch
 
+from .bounds import bytes_ms, scan_probe_sectors, walk_bound_ms
 from .device import cuda_ms
 from .fill import walk_device as W
+from .find import scan_device as S
 from .ops import counting_device as C
 from .ops import extmap as X
 from .ops import kmers as K
@@ -53,15 +60,15 @@ WALK_SHAPES = tuple((n, n) for n in (1, 128, 512, 1024, 1536, 2048, 4096, 6144, 
 
 
 def load_checkout(root: str, alias: str = "prev_mindthegap_tpu_torch"):
-    """(walk_device, counting_device) of the `mindthegap_tpu_torch` under
-    `root`, imported as `alias`."""
+    """(walk_device, counting_device, scan_device) of the
+    `mindthegap_tpu_torch` under `root`, imported as `alias`."""
     pkg = os.path.join(root, "mindthegap_tpu_torch")
     spec = importlib.util.spec_from_file_location(alias, os.path.join(pkg, "__init__.py"),
                                                   submodule_search_locations=[pkg])
     sys.modules[alias] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules[alias])
-    return (importlib.import_module(f"{alias}.fill.walk_device"),
-            importlib.import_module(f"{alias}.ops.counting_device"))
+    return tuple(importlib.import_module(f"{alias}.{m}")
+                 for m in ("fill.walk_device", "ops.counting_device", "find.scan_device"))
 
 
 def _in_turns(old, new, iters: int) -> tuple[list[float], list[float]]:
@@ -70,7 +77,59 @@ def _in_turns(old, new, iters: int) -> tuple[list[float], list[float]]:
 
 
 def _equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(torch.equal(a[key], b[key]) for key in a)
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def bench_scan(rng, genome, solid, k, prev_s):
+    window = 1 << 22
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    qp = X.build_fused_pair(solid, k, np.unique(K.canonical_u64(rfwd[::50], k - 1)))
+    t = qp.to("cuda")
+    codes = genome[:window].copy()
+    codes[1000:1100] = 255
+    codes[rng.integers(0, window, 64)] = 255
+    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    cap = (window - k + 2 + 3) // 4 * 4 // 8
+    args = (packed, bad, t.slots, t.stash_keys, t.stash_l, t.stash_r, t.log_size, k, cap)
+    want = prev_s.scan_cls_qp(*args)
+    if not _equal(S.scan_cls_qp(*args), want):
+        raise AssertionError("K1 differs from the earlier scan_cls_qp")
+    n_pairs = (window - k + 3) // 2
+    sectors = scan_probe_sectors(packed, bad, t, k)
+    row = {"window": window, "n_exc": int(want["n_exc"]), "exc_cap": cap, "table_mb": qp.nbytes >> 20,
+           "pairs": n_pairs, "sectors": sectors, "first_row_share": 2 - sectors / n_pairs,
+           "sector_bound_ms": bytes_ms(sectors * 32)}
+    row["prev_ms"], row["new_ms"] = _in_turns(lambda: prev_s.scan_cls_qp(*args), lambda: S.scan_cls_qp(*args), 20)
+    print(f"K1 scan_cls_qp, 2^22-base window ({row['n_exc']} EXC, cap {cap}), table {row['table_mb']} MB: "
+          f"{sectors} row sectors needed for {n_pairs} pairs ({row['first_row_share']:.4f} of the keys in their "
+          f"first row, {row['sector_bound_ms']:.4f} ms at the memory rate); in turns, earlier (core + PyTorch "
+          f"compaction) {row['prev_ms']} ms, current {row['new_ms']} ms")
+    return row
+
+
+def bench_keys(rng, genome, k, prev_c):
+    batch = 1 << 23
+    n_reads = batch // 151
+    starts = rng.integers(0, genome.size - 150, n_reads)
+    buf = np.full((n_reads, 151), C.SEP, np.uint8)
+    buf[:, :150] = genome[starts[:, None] + np.arange(150)]
+    codes = np.full(batch, C.SEP, np.uint8)
+    codes[: buf.size] = buf.ravel()
+    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    if not torch.equal(C.kmer_keys_cuda(packed, bad, k), prev_c.kmer_keys_cuda(packed, bad, k)):
+        raise AssertionError("K3 differs from the earlier kernel")
+    row = {"batch": batch}
+    row["prev_ms"], row["new_ms"] = _in_turns(lambda: prev_c.kmer_keys_cuda(packed, bad, k),
+                                              lambda: C.kmer_keys_cuda(packed, bad, k), 20)
+    if not torch.equal(C.sort_batch(packed, bad, k), prev_c.sort_batch(packed, bad, k)):
+        raise AssertionError("sort_batch differs from the earlier one")
+    row["prev_sort_batch_ms"], row["sort_batch_ms"] = _in_turns(lambda: prev_c.sort_batch(packed, bad, k),
+                                                                lambda: C.sort_batch(packed, bad, k), 10)
+    print(f"K3 kmer_keys, 2^23-base batch: in turns, earlier {row['prev_ms']} ms, current {row['new_ms']} ms; "
+          f"sort_batch in turns, earlier {row['prev_sort_batch_ms']} ms, current {row['sort_batch_ms']} ms")
+    return row
 
 
 def bench_walk(rng, fwd, solid, k, prev_w):
@@ -89,7 +148,8 @@ def bench_walk(rng, fwd, solid, k, prev_w):
             walked = int(want[1].max())
             iters = 20 if lanes <= 128 else 5
             row = {"lanes": lanes, "live": live, "steps_walked": walked,
-                   "rule_depth": W.lookahead_depth(live, layout)}
+                   "rule_depth": W.lookahead_depth(live, layout),
+                   "bound_ms": walk_bound_ms(want[1], want[3], lanes, STEPS, layout)}
             for depth in W.DEPTHS:
                 if not _equal(W.walk_batch_cuda(*args, depth=depth), want):
                     raise AssertionError(f"K5 at D = {depth} differs from the earlier kernel ({layout}, {lanes} lanes)")
@@ -99,7 +159,8 @@ def bench_walk(rng, fwd, solid, k, prev_w):
             print(f"K5 {layout}, {lanes} lanes ({live} live) x {STEPS} steps ({walked} walked): "
                   + ", ".join(f"D = {d} {row[f'd{d}_ms']:.4f} ms ({row[f'd{d}_ms'] * 1e3 / walked:.4f} us/step)"
                               for d in W.DEPTHS)
-                  + f"; in turns, earlier {row['prev_ms']} ms, current (D = {row['rule_depth']}) {row['rule_ms']} ms")
+                  + f"; in turns, earlier {row['prev_ms']} ms, current (D = {row['rule_depth']}) {row['rule_ms']} ms"
+                  + f"; bound {row['bound_ms']:.4f} ms (bytes)")
             out[f"{layout}_{lanes}_{live}"] = row
     return out
 
@@ -138,12 +199,16 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    prev_w, prev_c = load_checkout(args.prev)
+    prev_w, prev_c, prev_s = load_checkout(args.prev)
     rng = np.random.default_rng(args.seed)
     k = 31
-    fwd, _ = K.kmers_from_codes(rng.integers(0, 4, GENOME_LEN, dtype=np.uint8), k)
+    genome = rng.integers(0, 4, GENOME_LEN, dtype=np.uint8)
+    fwd, _ = K.kmers_from_codes(genome, k)
     solid = np.unique(K.canonical_u64(fwd, k))
-    record = {"device": smi, "walk": bench_walk(rng, fwd, solid, k, prev_w),
+    record = {"device": smi,
+              "scan": bench_scan(rng, genome, solid, k, prev_s),
+              "keys": bench_keys(rng, genome, k, prev_c),
+              "walk": bench_walk(rng, fwd, solid, k, prev_w),
               "merge": bench_merge(rng, fwd, solid, k, prev_c)}
     line = json.dumps(record)
     if args.json:

@@ -243,8 +243,10 @@ def _keys_lib():
 
 
 def kmer_keys_cuda(packed: torch.Tensor, bad: torch.Tensor, k: int) -> torch.Tensor:
-    """K3 (csrc/count_kmers.cu): the same keys as _kmer_keys_plain, one
-    thread per window. Counts its launches in `kmer_keys_cuda.launches`."""
+    """K3 (csrc/count_kmers.cu): the same keys as _kmer_keys_plain, in
+    tiles of 2,048 windows staged in shared memory, each window formed from
+    two words by funnel shifts. Counts its launches in
+    `kmer_keys_cuda.launches`."""
     check_kernel_tensor(packed, "packed", torch.uint8, 1)
     check_kernel_tensor(bad, "bad", torch.uint8, 1)
     w = packed.shape[0] * 4
@@ -252,10 +254,9 @@ def kmer_keys_cuda(packed: torch.Tensor, bad: torch.Tensor, k: int) -> torch.Ten
         raise ValueError("bad must hold one bit per base of packed (batch % 8 == 0)")
     if not 1 <= k <= 32 or w < k:
         raise ValueError(f"k must be in [1, 32] and at most the batch, got k={k}, batch={w}")
-    p = w - k + 1
-    out = torch.empty(p, dtype=torch.int64, device=packed.device)
+    out = torch.empty(w - k + 1, dtype=torch.int64, device=packed.device)
     err = _keys_lib().kmer_keys_launch(
-        packed.data_ptr(), bad.data_ptr(), p, k, out.data_ptr(),
+        packed.data_ptr(), bad.data_ptr(), w, k, out.data_ptr(),
         torch.cuda.current_stream(packed.device).cuda_stream,
     )
     if err != 0:

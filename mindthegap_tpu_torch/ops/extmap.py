@@ -382,27 +382,31 @@ def build_fused_pair(solid_canonical: np.ndarray, k: int, repeat_canonical: np.n
     raise RuntimeError("pair map build: placement failed at every table size")
 
 
+def qp_probe(qp: QMapP, keys: torch.Tensor, choice: int):
+    """One row probe of lookup_qp, hash choice 0 or 1 (qp from QMapP.to):
+    whether each key's row holds it, and the row's (L36, R36)."""
+    shift = 64 - qp.log_size
+    h = _mix(keys, (_H1, _H2)[choice])
+    rows = qp.slots[K.shr(h, shift)]  # [N, 2] row gather
+    lane0 = rows[..., 0]
+    lane1 = rows[..., 1]
+    hit = (
+        ((K.shr(lane0, 10) & _QP_REM_MASK) == (h & ((1 << shift) - 1)))
+        & ((lane0 & _QP_VALID) != 0)
+        & (((lane0 & _QP_CHOICE) != 0) == (choice == 1))
+    )
+    return hit, ((lane0 & 0xFF) << 28) | K.shr(lane1, 36), lane1 & _QP_L36
+
+
 def lookup_qp(qp: QMapP, canon_keys: torch.Tensor):
     """Pair lookup on int64 tensors (qp from QMapP.to): 2 row gathers plus a
     pass over the <= 64-entry stash. Returns (L36, R36) int64 tensors (0 for
     absent buckets)."""
     keys = canon_keys
-    shift = 64 - qp.log_size
-    rem_mask = (1 << shift) - 1
     l36 = torch.zeros_like(keys)
     r36 = torch.zeros_like(keys)
-    for i, const in enumerate((_H1, _H2)):
-        h = _mix(keys, const)
-        rows = qp.slots[K.shr(h, shift)]  # [N, 2] row gather
-        lane0 = rows[..., 0]
-        lane1 = rows[..., 1]
-        hit = (
-            ((K.shr(lane0, 10) & _QP_REM_MASK) == (h & rem_mask))
-            & ((lane0 & _QP_VALID) != 0)
-            & (((lane0 & _QP_CHOICE) != 0) == (i == 1))
-        )
-        lv = ((lane0 & 0xFF) << 28) | K.shr(lane1, 36)
-        rv = lane1 & _QP_L36
+    for choice in (0, 1):
+        hit, lv, rv = qp_probe(qp, keys, choice)
         l36 = torch.where(hit, lv, l36)
         r36 = torch.where(hit, rv, r36)
     # stash: keys are unique and the EMPTY padding (-1) never equals a

@@ -15,7 +15,7 @@ from mindthegap_tpu.ops.counting import StreamingCounter
 from mindthegap_tpu_torch.find.scan_device import pack_codes_host
 from mindthegap_tpu_torch.ops import counting_device as PC
 from mindthegap_tpu_torch.ops import kmers as PK
-from torch_tables import merge_edge_cases
+from torch_tables import key_edge_batches, merge_edge_cases
 
 
 def _biased(u64: np.ndarray) -> torch.Tensor:
@@ -44,6 +44,26 @@ def test_sort_batch(k):
     assert (want == JC.SENTINEL).sum() > 100  # separators and Ns give sentinels
     if k == 32:
         assert (want[want != JC.SENTINEL] >> np.uint64(63)).any()  # unsigned order is exercised
+
+
+_KEY_EDGES = key_edge_batches()
+
+
+@pytest.mark.parametrize("name", list(_KEY_EDGES))
+def test_sort_batch_edge_cases(name):
+    """K3's edges (tests/torch_tables.py key_edge_batches): the plain keys
+    against the numpy k-mer oracle window by window, and sort_batch against
+    the JAX program."""
+    codes, k = _KEY_EDGES[name]
+    packed, bad = pack_codes_host(codes)
+    fwd, valid = PK.kmers_from_codes(codes, k)
+    oracle = np.where(valid, PK.canonical_u64(fwd, k), JC.SENTINEL)
+    keys = PC._kmer_keys_plain(torch.from_numpy(packed), torch.from_numpy(bad), k)
+    np.testing.assert_array_equal(_unbiased(keys), oracle)
+    want = np.asarray(JC.sort_batch_device(jnp.asarray(packed), jnp.asarray(bad), k))
+    got = PC.sort_batch(torch.from_numpy(packed), torch.from_numpy(bad), k)
+    np.testing.assert_array_equal(_unbiased(got), want)
+    assert valid.any()
 
 
 def _acc(rng, n_keys: int, length: int, pool: np.ndarray):

@@ -11,7 +11,8 @@ from mindthegap_tpu_torch.find import scan_device as S
 from mindthegap_tpu_torch.ops import extmap as X
 from mindthegap_tpu_torch.ops import kmers as K
 from mindthegap_tpu_torch.ops import nw_device as ND
-from torch_tables import edge_walk_case, merge_edge_cases, move_to_stash
+from torch_tables import (SCAN_EDGE_NAMES, edge_walk_case, key_edge_batches, merge_edge_cases, move_to_stash,
+                          scan_edge_windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -23,29 +24,68 @@ def cuda():
     return torch.device("cuda")
 
 
+def _equal_scans(got, want):
+    for key in ("cls2", "exc16", "n_exc"):
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+
+
 @pytest.mark.parametrize("k", [21, 31, 32])
 def test_scan_kernel_matches_plain(cuda, k):
+    """K1, the whole scan_cls_qp (classes and exception compaction),
+    against its plain version."""
     rng = np.random.default_rng(k)
     genome = rng.integers(0, 4, 200_000, dtype=np.uint8)
     fwd, _ = K.kmers_from_codes(genome, k)
     solid = np.unique(K.canonical_u64(fwd[: 150_000], k))
     rfwd, _ = K.kmers_from_codes(genome, k - 1)
     host = X.build_fused_pair(solid, k, np.unique(K.canonical_u64(rfwd[::30], k - 1)))
-    # a stash of 40 entries exercises the kernel's shared-memory stash pass
+    # a stash of 40 entries exercises the kernel's shared-memory stash search
     r, _ = K.kmers_from_codes(genome[50_100:50_140 + k], k - 2)
     qp = move_to_stash(host, np.unique(K.canonical_u64(r, k - 2))[:40]).to(cuda)
     codes = genome[50_000:50_000 + 65_536].copy()
     codes[rng.integers(0, codes.size, 40)] = 255
     packed, bad = S.pack_codes_host(codes)
     args = (torch.from_numpy(packed).to(cuda), torch.from_numpy(bad).to(cuda),
-            qp.slots, qp.stash_keys, qp.stash_l, qp.stash_r, qp.log_size, k)
-    before = S.cls_core_cuda.launches
-    got = S.cls_core_cuda(*args)
-    want = S._cls_core_plain(*args)
+            qp.slots, qp.stash_keys, qp.stash_l, qp.stash_r, qp.log_size, k, (65_536 - k + 2 + 3) // 4 * 4 // 8)
+    want = S._scan_cls_qp_plain(*args)
+    before = S.scan_cls_qp_cuda.launches
+    got = S.scan_cls_qp_cuda(*args)
     torch.cuda.synchronize()
-    assert S.cls_core_cuda.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert S.scan_cls_qp_cuda.launches == before + 1
+    _equal_scans(got, want)
+    assert int(want["n_exc"]) > 0
+    # a stash out of key order takes the kernel's full scan, not its binary search
+    unsorted = args[:3] + tuple(t.flip(0) for t in args[3:6]) + args[6:]
+    _equal_scans(S.scan_cls_qp_cuda(*unsorted), S._scan_cls_qp_plain(*unsorted))
+    assert torch.equal(S._scan_cls_qp_plain(*unsorted)["exc16"], want["exc16"])
+
+
+@pytest.mark.parametrize("k", [21, 31, 32])
+@pytest.mark.parametrize("name", SCAN_EDGE_NAMES)
+def test_scan_kernel_edge_cases(cuda, name, k):
+    """K1 against its plain version on its compaction edges
+    (tests/torch_tables.py scan_edge_windows)."""
+    qp, cases = scan_edge_windows(k)
+    codes, cap = cases[name]
+    t = qp.to(cuda)
+    packed, bad = (torch.from_numpy(a).to(cuda) for a in S.pack_codes_host(codes))
+    args = (packed, bad, t.slots, t.stash_keys, t.stash_l, t.stash_r, t.log_size, k, cap)
+    want = S._scan_cls_qp_plain(*args)
+    _equal_scans(S.scan_cls_qp_cuda(*args), want)
+
+
+@pytest.mark.parametrize("name", list(key_edge_batches()))
+def test_key_kernel_edge_cases(cuda, name):
+    """K3 against its plain version on its edges (tests/torch_tables.py
+    key_edge_batches)."""
+    from mindthegap_tpu_torch.ops import counting_device as C
+
+    codes, k = key_edge_batches()[name]
+    packed, bad = (torch.from_numpy(a).to(cuda) for a in S.pack_codes_host(codes))
+    want = C._kmer_keys_plain(packed, bad, k)
+    got = C.kmer_keys_cuda(packed, bad, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("k", [15, 31, 32])

@@ -16,7 +16,7 @@ from mindthegap_tpu_torch.find import scan_device as PS
 from mindthegap_tpu_torch.graph import dbg as PD
 from mindthegap_tpu_torch.ops import extmap as PX
 from mindthegap_tpu_torch.ops import kmers as PK
-from torch_tables import move_to_stash
+from torch_tables import SCAN_EDGE_NAMES, move_to_stash, scan_edge_windows
 
 WINDOW = 8192
 
@@ -71,6 +71,40 @@ def test_lookup_qp(case):
     assert (jl != 0).sum() > keys.size // 2
 
 
+def test_qp_probe_rows_and_sectors(case):
+    """A key sits in at most one of its two rows (mix is a bijection), so K1
+    may skip the second probe after a first-row hit; the two probes give
+    lookup_qp's rows. bounds.scan_probe_sectors counts one row per pair
+    lookup of a window, at the keys the JAX package's k-mers give, and a
+    second for each key not in its first row."""
+    from mindthegap_tpu_torch.bounds import scan_probe_sectors
+
+    k, genome, _s, _r, window, jq, pq = case
+    t = pq.to("cpu")
+    fwd, _ = JK.kmers_from_codes(genome, k - 2)
+    keys = np.concatenate([JK.canonical_u64(fwd[::3], k - 2), np.arange(200, dtype=np.uint64)])
+    tk = torch.from_numpy(PK.as_i64(keys))
+    (h0, l0, r0), (h1, l1, r1) = PX.qp_probe(t, tk, 0), PX.qp_probe(t, tk, 1)
+    assert not (h0 & h1).any() and h0.sum() > h1.sum() > 0
+    in_stash = (tk[:, None] == t.stash_keys).any(1)
+    jl, jr = JX.lookup_qp(jq, keys)
+    rows_l = torch.where(h0, l0, torch.where(h1, l1, 0))
+    rows_r = torch.where(h0, r0, torch.where(h1, r1, 0))
+    np.testing.assert_array_equal(PK.as_u64(rows_l[~in_stash]), jl[~in_stash.numpy()])
+    np.testing.assert_array_equal(PK.as_u64(rows_r[~in_stash]), jr[~in_stash.numpy()])
+
+    n_pairs = (WINDOW - k + 3) // 2
+    clean = np.zeros(2 * n_pairs + k, np.uint8)
+    clean[:WINDOW] = np.where(window == 255, 0, window)
+    wfwd, _ = JK.kmers_from_codes(clean, k - 2)
+    pair_keys = JK.canonical_u64(wfwd[1 : 2 * n_pairs : 2], k - 2)
+    np.testing.assert_array_equal(PK.as_u64(PS.pair_keys(torch.from_numpy(window), k)[3]), pair_keys)
+    in_first = PX.qp_probe(t, torch.from_numpy(PK.as_i64(pair_keys)), 0)[0]
+    packed, bad = PS.pack_codes_host(window)
+    sectors = scan_probe_sectors(torch.from_numpy(packed), torch.from_numpy(bad), t, k)
+    assert sectors == n_pairs + int((~in_first).sum()) < 2 * n_pairs
+
+
 def test_pair_payload_stream(case):
     k, _g, _s, _r, window, jq, pq = case
     n_pay = WINDOW - k + 2
@@ -98,6 +132,34 @@ def test_scan_pay_qp(case):
     p = PS.scan_pay_qp(torch.from_numpy(window), *_ptables(pq), pq.log_size, k)
     np.testing.assert_array_equal(p["pay8"].numpy(), np.asarray(j["pay8"]))
     np.testing.assert_array_equal(p["rep8"].numpy(), np.asarray(j["rep8"]))
+
+
+@pytest.fixture(scope="module")
+def scan_edges():
+    return scan_edge_windows(31)
+
+
+@pytest.mark.parametrize("name", SCAN_EDGE_NAMES)
+def test_scan_cls_qp_edge_cases(scan_edges, name):
+    """K1's compaction edges (tests/torch_tables.py scan_edge_windows)
+    through the plain scan and the JAX program: n_exc 0, at the cap, one
+    over it, a cap of 0, N runs across tile boundaries, the shortest
+    window the feed sends."""
+    qp, cases = scan_edges
+    k = qp.k
+    codes, cap = cases[name]
+    packed, bad = PS.pack_codes_host(codes)
+    jm = JX.QMapP(qp.slots, qp.log_size, k, qp.stash_keys, qp.stash_l, qp.stash_r)
+    j = JS.scan_cls_device_qp(jnp.asarray(packed), jnp.asarray(bad), *_jtables(jm), jm.log_size, k, cap)
+    p = PS.scan_cls_qp(torch.from_numpy(packed), torch.from_numpy(bad), *_ptables(qp), qp.log_size, k, cap)
+    np.testing.assert_array_equal(p["cls2"].numpy(), np.asarray(j["cls2"]))
+    assert int(p["n_exc"]) == int(j["n_exc"])
+    np.testing.assert_array_equal(p["exc16"].numpy().view(np.uint16), np.asarray(j["exc16"]))
+    n_exc = int(j["n_exc"])
+    want = {"n-exc-0": n_exc == 0, "n-exc-at-cap": n_exc == cap > 0, "n-exc-over-cap": n_exc == cap + 1,
+            "cap-0": cap == 0 < n_exc, "shortest": codes.size == -(-(k + 8) // 8) * 8,
+            "shortest-cap-over-n4": p["exc16"].shape[0] < cap}
+    assert want[name]
 
 
 _FLAGS = dict(max_repeat=5, snp_min_val=5, branching_threshold=15, homo_only=False, snp=True,

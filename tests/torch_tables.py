@@ -153,3 +153,81 @@ def edge_walk_case(layout: str, k: int, lanes: int, device):
     log = qm.log_nb if layout == "bucket" else qm.log_size
     return qm, (torch.from_numpy(K.as_i64(nodes)).to(device), torch.from_numpy(budgets).to(device),
                 t.slots, t.stash_keys, t.stash_payload, log, k, 64, layout)
+
+
+# K1's tile is 256 * 2 or 256 * 4 pairs (1,024 or 2,048 payload entries);
+# K3's is 2,048 windows
+SCAN_EDGE_NAMES = ("n-exc-0", "n-exc-at-cap", "n-exc-over-cap", "cap-0", "shortest", "shortest-cap-over-n4")
+
+
+def scan_edge_windows(k: int, seed: int = 0):
+    """(host pair map with 30 entries moved to its stash, {name: (codes
+    u8[w], exc_cap)}) for K1's compaction: a window unrelated to the solid
+    set (n_exc 0); a window of the genome with N runs across payload entry
+    1,024, 2,048 and 4,096 (tile boundaries) whose cap is exactly its n_exc,
+    n_exc - 1 (one over) and 0 (the feed's forced dense re-dispatch); and
+    the shortest window the feed sends (k + 8 bases rounded up to 8), with
+    the default cap and with a cap above its n4 payload entries. The caps
+    come from the plain scan's n_exc."""
+    import torch
+
+    from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 40_000, dtype=np.uint8)
+    fwd, _ = K.kmers_from_codes(genome, k)
+    solid = np.unique(K.canonical_u64(fwd[:30_000], k))
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    host = X.build_fused_pair(solid, k, np.unique(K.canonical_u64(rfwd[::40], k - 1)))
+    r, _ = K.kmers_from_codes(genome[12_000:12_200], k - 2)
+    qp = move_to_stash(host, np.unique(K.canonical_u64(r, k - 2))[:30])
+
+    def default_cap(w):
+        return (w - k + 2 + 3) // 4 * 4 // 8
+
+    window = genome[10_000:10_000 + 8192].copy()
+    for lo, hi in ((1000, 1040), (2030, 2070), (4090, 4100)):
+        window[lo:hi] = 255
+    window[rng.integers(0, window.size, 12)] = 255
+    t = qp.to("cpu")
+    packed, bad = (torch.from_numpy(a) for a in S.pack_codes_host(window))
+    n_exc = int(S.scan_cls_qp(packed, bad, t.slots, t.stash_keys, t.stash_l, t.stash_r, t.log_size, k, 0)["n_exc"])
+    short = genome[10_000:10_000 + -(-(k + 8) // 8) * 8].copy()
+    cases = {
+        "n-exc-0": (rng.integers(0, 4, 8192, dtype=np.uint8), default_cap(8192)),
+        "n-exc-at-cap": (window, n_exc),
+        "n-exc-over-cap": (window, n_exc - 1),
+        "cap-0": (window, 0),
+        "shortest": (short, default_cap(short.size)),
+        "shortest-cap-over-n4": (short, 64),
+    }
+    assert tuple(cases) == SCAN_EDGE_NAMES
+    return qp, cases
+
+
+def key_edge_batches(seed: int = 0):
+    """{name: (codes u8[w], k)} for K3 at k in {1, 15, 16, 31, 32}: a
+    batch of 2^17 bases (the final flush's floor) with isolated Ns at every
+    bit position of a bad byte, every 64 bases, so that windows end and
+    start on each side of every packed-byte and bad-byte boundary, plus an
+    N run across the tile boundary at window 2,048; a batch of 4,392 bases
+    (not a multiple of the tile, nor of 64); and the smallest batch the
+    wrapper takes (k rounded up to 8 bases; an N as its last base when it
+    holds more than one window)."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for k in (1, 15, 16, 31, 32):
+        codes = rng.integers(0, 4, 1 << 17, dtype=np.uint8)
+        i = np.arange(codes.size // 64)
+        codes[64 * i + i % 8] = 255
+        codes[2040:2060] = 255
+        cases[f"bad-bit-positions-k{k}"] = (codes, k)
+        odd = rng.integers(0, 4, 4392, dtype=np.uint8)
+        odd[rng.integers(0, odd.size, 40)] = 255
+        cases[f"length-4392-k{k}"] = (odd, k)
+        small = rng.integers(0, 4, -(-k // 8) * 8, dtype=np.uint8)
+        if small.size > k:
+            small[-1] = 255
+        cases[f"smallest-k{k}"] = (small, k)
+    return cases
