@@ -70,11 +70,6 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# int32 ALU ops outside the tensor cores: 132 SMs x 64 INT32 lanes x 1.98 GHz
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# K2 per DP cell: match compare, diagonal, up and left scores, two maxes,
-# two tie compares, the match-count add and two selects, the loop bounds
-NW_OPS_PER_CELL = 12
 ECOLI_LEN = 4_641_652  # E. coli K-12 MG1655 chromosome length
 NUC = np.frombuffer(b"ACTG", np.uint8)  # code -> letter (A=0 C=1 T=2 G=3)
 LETTERS = np.full(256, ord("N"), np.uint8)  # codes with 255 (invalid) as N
@@ -284,17 +279,20 @@ def make_pairs(n_pairs: int, lo: int, hi: int, seed: int):
 
 def check_nw_kernel(seed: int) -> dict:
     """K2 against its plain version and the native nw.cpp on 256 pairs of
-    50 to 10,000 bp (both the shared-memory and the global-scratch launch)."""
+    50 to 10,000 bp, in one launch per call."""
     import torch
 
-    from mindthegap_tpu_torch.bounds import bytes_ms
+    from mindthegap_tpu_torch.bounds import NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, bytes_ms, nw_bound_ms
     from mindthegap_tpu_torch.ops import nw as N
     from mindthegap_tpu_torch.ops import nw_device as ND
 
     pairs = make_pairs(256, 50, 10_000, seed)
     seq, off = ND.pack_pairs(pairs)
     seq, off = seq.cuda(), off.cuda()
+    before = ND.nw_matches_cuda.launches
     got = ND.nw_matches_cuda(seq, off)
+    if ND.nw_matches_cuda.launches != before + 1:
+        raise AssertionError(f"K2 took {ND.nw_matches_cuda.launches - before} launches for one call")
     t0 = time.perf_counter()
     want = ND._nw_matches_plain(seq, off)
     torch.cuda.synchronize()
@@ -305,15 +303,19 @@ def check_nw_kernel(seed: int) -> dict:
     native = np.array([N.nw_identity(a, b) for a, b in pairs])
     if not np.array_equal(ident, native):
         raise AssertionError(f"K2 disagrees with native nw.cpp on {int((ident != native).sum())} pairs")
-    ms = _cuda_ms(lambda: ND.nw_matches_cuda(seq, off), iters=3)
+    ms = _cuda_ms(lambda: ND.nw_matches_cuda(seq, off), iters=10)
     cells = float((lens[:, 0] * lens[:, 1]).sum())
-    bound_ms = max(cells * NW_OPS_PER_CELL / INT32_OPS_PER_S * 1e3, bytes_ms(_nbytes(seq, off, got)))
+    io_ms = bytes_ms(_nbytes(seq, off, got))
+    bound_ms = max(nw_bound_ms(cells), io_ms)
+    # the bound as the earlier kernel's records counted it
+    bound_12op = max(nw_bound_ms(cells, NW_OPS_PER_CELL_12), io_ms)
     print(f"K2 nw_matches: 256 pairs, {cells / 1e9:.3f} Gcells, max_abs_err {err} (tolerance 0: exact), "
-          "equal to native nw.cpp, "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one call), bound {bound_ms:.4f} ms "
-          f"({NW_OPS_PER_CELL} int32 operations per cell)")
+          "equal to native nw.cpp, one launch a call, "
+          f"kernel {ms:.4f} ms (the wrapper's call), plain {plain_ms:.4f} ms (one call), bound {bound_ms:.4f} ms "
+          f"({NW_OPS_PER_CELL} int32 operations per cell), share {bound_ms / ms:.4f}; at "
+          f"{NW_OPS_PER_CELL_12} a cell {bound_12op:.4f} ms, share {bound_12op / ms:.4f}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations", "library_ms": None}
+            "bound_by": "operations", "library_ms": None, "bound_ms_12op": bound_12op}
 
 
 def check_count_kernels(reads: str, solid: np.ndarray, k: int, seed: int) -> tuple[dict, dict]:

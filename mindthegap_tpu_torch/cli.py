@@ -47,7 +47,7 @@ FIND_OPTIONS = {
     "max-memory": (True, "2000", "max memory for graph building (in MBytes)", True),
     "verbose": (True, "1", "verbosity level", True),
     "scan-engine": (True, "auto", "reference-scan engine: auto | host | device | device-qp | device-qb | sharded | sharded-mem", False),
-    "scan-memory": (True, "0", "per-chip memory budget for the replicated scan map in MBytes (0 = auto); exceeded -> sharded-mem membership routing on a mesh", False),
+    "scan-memory": (True, "0", "per-device memory budget for the replicated scan map in MBytes (0 = auto); ignored on one device (the rerouting to sharded membership on a mesh is not yet ported)", False),
     "count-engine": (True, "auto", "k-mer counting engine: auto | host | device | sharded | partitioned", False),
     "automaton": (True, "auto", "breakpoint automaton: auto | native | host", False),
     "profile": (False, None, "add per-phase wall-clock timings to the result report", False),

@@ -100,23 +100,22 @@ def _validate_scan_engine(engine: str):
         raise NotYetPorted(f"-scan-engine {engine}")
 
 
-def _check_table_fits(nbytes: int, device: torch.device, scan_memory_mb: int):
+def _check_table_fits(nbytes: int, device: torch.device):
     """The scan map is replicated on the device: refuse a table above the
-    -scan-memory budget, or above the card's memory when none is given."""
-    if scan_memory_mb > 0:
-        budget = scan_memory_mb << 20
-    elif device.type == "cuda":
-        budget = torch.cuda.get_device_properties(device).total_memory
-    else:
+    card's memory. A -scan-memory budget only reroutes membership on a mesh
+    of more than one device (not yet ported); on one device it is ignored,
+    as in the JAX package."""
+    if device.type != "cuda":
         return
-    if nbytes > budget:
+    total = torch.cuda.get_device_properties(device).total_memory
+    if nbytes > total:
         raise FinderError(
-            f"ERROR: the scan map needs {nbytes >> 20} MB, above the {budget >> 20} MB budget "
-            "of one device (membership sharding across devices is not yet ported)"
+            f"ERROR: the scan map needs {nbytes >> 20} MB, above the {total >> 20} MB of one device "
+            "(membership sharding across devices is not yet ported)"
         )
 
 
-def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device, scan_memory_mb: int = 0,
+def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device,
                       window: int = 1 << 22, exc_cap: int | None = None):
     """Class-stream scan feed for the native automaton: returns a factory
     `codes -> iterator of chunks` for NativeScanner.scan_sequence_pay.
@@ -132,7 +131,7 @@ def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device, scan_memo
     from .scan_device import pack_codes_host, scan_cls_qp, scan_pay_qp, unpack_codes
 
     qp = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers)
-    _check_table_fits(qp.nbytes, device, scan_memory_mb)
+    _check_table_fits(qp.nbytes, device)
     tables = qp.to(device)
     targs = (tables.slots, tables.stash_keys, tables.stash_l, tables.stash_r)
     log_size = qp.log_size
@@ -314,8 +313,7 @@ def run_find(opts: dict, out=None) -> Properties:
             refbank.estimate_sequences_size(), "Finding breakpoints", enabled=verbose > 0
         )
         with phases.phase("scan engine setup"):
-            scan_mem = int(opts.get("scan-memory", 0))
-            pay_feed = _make_pay_feed_fn(graph, repeat_set, k, device, scan_memory_mb=scan_mem)
+            pay_feed = _make_pay_feed_fn(graph, repeat_set, k, device)
         for rec in refbank:
             codes = dna.seq_to_codes(rec.seq)
             bed_intervals = None

@@ -1,7 +1,8 @@
 """Times the port's kernels on one GPU against another checkout of this
 repository, in one process on the same card and inputs: K1 (the whole
-scan_cls_qp), K3 (k-mer keys, and sort_batch around it), K4 (the counting
-merge) and K5 (the fill walker, with a sweep of its look-ahead depth).
+scan_cls_qp), K2 (the NW match counts), K3 (k-mer keys, and sort_batch
+around it), K4 (the counting merge) and K5 (the fill walker, with a sweep
+of its look-ahead depth).
 
     python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE]
 
@@ -9,10 +10,11 @@ DIR holds an earlier checkout's `mindthegap_tpu_torch/` and `native/` (for
 example `git archive <commit> mindthegap_tpu_torch native | tar -x -C DIR`
 into the gitignored `mindthegap_tpu_torch/_build/`). That package is
 imported under another name, builds its kernels into its own `_build/`, and
-is called through its own entry points, `scan_cls_qp`, `kmer_keys_cuda`,
-`sort_batch`, `merge_sorted_cuda` and `walk_batch_cuda`, whose signatures
-this checkout keeps. Each pair of versions is timed in turns (earlier,
-current, current, earlier) by CUDA events, and their outputs must be equal.
+is called through its own entry points, `scan_cls_qp`, `nw_matches_cuda`,
+`kmer_keys_cuda`, `sort_batch`, `merge_sorted_cuda` and `walk_batch_cuda`,
+whose signatures this checkout keeps. Each pair of versions is timed in
+turns (earlier, current, current, earlier) by CUDA events, and their
+outputs must be equal.
 
 The inputs: a seeded random genome of 4,641,652 bp (the length of E. coli
 K-12 MG1655), k = 31, its canonical k-mers as the solid set. K1 scans a
@@ -23,10 +25,12 @@ separators, and sort_batch sorts them. K5 walks from random genome k-mers
 over the cuckoo and the bucket map of the set, 2,048 steps with a budget
 of 10,000, at 1 to 65,536 lanes, and on two mostly dead rounds (lanes with
 a budget of 0 issue no probe), at every look-ahead depth the kernel takes
-and at the depth `lookahead_depth` picks. K4 merges 2^23 sorted k-mers sampled from both strands into an
-accumulator of the solid set in 2^23 slots. Prints the card, one line per
-shape and, last, one JSON object of every time. Exits non-zero without a
-CUDA device.
+and at the depth `lookahead_depth` picks. K4 merges 2^23 sorted k-mers
+sampled from both strands into an accumulator of the solid set in 2^23
+slots. K2 aligns 256 seeded pairs of 50 to 10,000 bp, made as
+chip_smoke.py's K2 check makes them. Prints the card, one line per shape
+and, last, one JSON object of every time. Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -42,13 +46,14 @@ import sys
 import numpy as np
 import torch
 
-from .bounds import bytes_ms, scan_probe_sectors, walk_bound_ms
+from .bounds import NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, bytes_ms, nw_bound_ms, scan_probe_sectors, walk_bound_ms
 from .device import cuda_ms
 from .fill import walk_device as W
 from .find import scan_device as S
 from .ops import counting_device as C
 from .ops import extmap as X
 from .ops import kmers as K
+from .ops import nw_device as ND
 
 GENOME_LEN = 4_641_652
 STEPS = 2048
@@ -60,7 +65,7 @@ WALK_SHAPES = tuple((n, n) for n in (1, 128, 512, 1024, 1536, 2048, 4096, 6144, 
 
 
 def load_checkout(root: str, alias: str = "prev_mindthegap_tpu_torch"):
-    """(walk_device, counting_device, scan_device) of the
+    """(walk_device, counting_device, scan_device, nw_device) of the
     `mindthegap_tpu_torch` under `root`, imported as `alias`."""
     pkg = os.path.join(root, "mindthegap_tpu_torch")
     spec = importlib.util.spec_from_file_location(alias, os.path.join(pkg, "__init__.py"),
@@ -68,7 +73,7 @@ def load_checkout(root: str, alias: str = "prev_mindthegap_tpu_torch"):
     sys.modules[alias] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules[alias])
     return tuple(importlib.import_module(f"{alias}.{m}")
-                 for m in ("fill.walk_device", "ops.counting_device", "find.scan_device"))
+                 for m in ("fill.walk_device", "ops.counting_device", "find.scan_device", "ops.nw_device"))
 
 
 def _in_turns(old, new, iters: int) -> tuple[list[float], list[float]]:
@@ -80,6 +85,42 @@ def _equal(a, b) -> bool:
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(torch.equal(a[key], b[key]) for key in a)
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _nw_pairs(seed: int, n_pairs: int = 256, lo: int = 50, hi: int = 10_000):
+    """chip_smoke.py's K2 pairs: half a mutated copy of a, half an unrelated b."""
+    rng = np.random.default_rng(seed)
+    nuc = np.frombuffer(b"ACTG", np.uint8)
+    pairs = []
+    for _ in range(n_pairs):
+        a = rng.integers(0, 4, int(rng.integers(lo, hi + 1)), dtype=np.uint8)
+        if rng.random() < 0.5:
+            b = a.copy()
+            idx = rng.integers(0, a.size, max(1, a.size // 50))
+            b[idx] = rng.integers(0, 4, idx.size, dtype=np.uint8)
+            b = np.delete(b, rng.integers(0, b.size, max(1, b.size // 200)))
+        else:
+            b = rng.integers(0, 4, int(rng.integers(lo, hi + 1)), dtype=np.uint8)
+        pairs.append((nuc[a].tobytes().decode(), nuc[b].tobytes().decode()))
+    return pairs
+
+
+def bench_nw(seed, prev_nd):
+    pairs = _nw_pairs(seed)
+    seq, off = (t.cuda() for t in ND.pack_pairs(pairs))
+    if not torch.equal(ND.nw_matches_cuda(seq, off), prev_nd.nw_matches_cuda(seq, off)):
+        raise AssertionError("K2 differs from the earlier nw_matches_cuda")
+    lens = np.array([(len(a), len(b)) for a, b in pairs], np.float64)
+    cells = float((lens[:, 0] * lens[:, 1]).sum())
+    row = {"pairs": len(pairs), "cells": cells, "bound_ms": nw_bound_ms(cells),
+           "bound_ms_12op": nw_bound_ms(cells, NW_OPS_PER_CELL_12)}
+    row["prev_ms"], row["new_ms"] = _in_turns(lambda: prev_nd.nw_matches_cuda(seq, off),
+                                              lambda: ND.nw_matches_cuda(seq, off), 2)
+    print(f"K2 nw_matches, 256 pairs of 50-10,000 bp ({cells / 1e9:.3f} Gcells): in turns, earlier "
+          f"{row['prev_ms']} ms, current {row['new_ms']} ms; bound {row['bound_ms']:.4f} ms "
+          f"({NW_OPS_PER_CELL} int32 operations per cell; {row['bound_ms_12op']:.4f} ms at "
+          f"{NW_OPS_PER_CELL_12})")
+    return row
 
 
 def bench_scan(rng, genome, solid, k, prev_s):
@@ -199,13 +240,14 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    prev_w, prev_c, prev_s = load_checkout(args.prev)
+    prev_w, prev_c, prev_s, prev_nd = load_checkout(args.prev)
     rng = np.random.default_rng(args.seed)
     k = 31
     genome = rng.integers(0, 4, GENOME_LEN, dtype=np.uint8)
     fwd, _ = K.kmers_from_codes(genome, k)
     solid = np.unique(K.canonical_u64(fwd, k))
     record = {"device": smi,
+              "nw": bench_nw(args.seed, prev_nd),
               "scan": bench_scan(rng, genome, solid, k, prev_s),
               "keys": bench_keys(rng, genome, k, prev_c),
               "walk": bench_walk(rng, fwd, solid, k, prev_w),

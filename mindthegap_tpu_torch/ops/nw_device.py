@@ -1,15 +1,15 @@
-"""Needleman-Wunsch identity as an anti-diagonal wavefront on the GPU.
+"""Needleman-Wunsch identity on the GPU.
 
-Cells on diagonal d = i + j depend only on diagonals d-1 and d-2, so each
-step updates a whole diagonal at once and only three diagonals stay live
-(O(n) memory for an O(n*m) DP). Semantics are the reference's exactly
-(src/Utils.cpp:87-189 via ops/nw.py): gap -5, mismatch -5, match +10,
-identity = traceback matches / max(n, m) with diagonal > up > left
-preference; the traceback is emulated forward by carrying, per cell, the
-match count along the path the backward traceback would take.
+Semantics are the reference's exactly (src/Utils.cpp:87-189 via ops/nw.py):
+gap -5, mismatch -5, match +10, identity = traceback matches / max(n, m)
+with diagonal > up > left preference; the traceback is emulated forward by
+carrying, per cell, the match count along the path the backward traceback
+would take.
 
-`nw_matches` runs the hand kernel K2 (csrc/nw.cu) on CUDA tensors and its
-plain PyTorch version on CPU tensors. `nwalign --device` is its caller.
+`nw_matches` runs the hand kernel K2 (csrc/nw.cu, a striped register DP)
+on CUDA tensors and its plain PyTorch version, an anti-diagonal wavefront
+(cells on diagonal d = i + j depend only on diagonals d-1 and d-2, so only
+three diagonals stay live), on CPU tensors. `nwalign --device` is its caller.
 """
 
 from __future__ import annotations
@@ -92,6 +92,8 @@ def _nw_matches_plain(seq: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
 
 
 _NW_LIB = None
+# a count travels with its b code as count << 8 | code (csrc/nw.cu)
+MAX_LEN = (1 << 23) - 1
 
 
 def _nw_lib():
@@ -100,18 +102,13 @@ def _nw_lib():
         from .._build import cuda_library
 
         lib = cuda_library("nw.cu", "libmtg_nw.so")
-        lib.nw_matches_shared_launch.restype = ctypes.c_int
-        lib.nw_matches_shared_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.nw_matches_global_launch.restype = ctypes.c_int
-        lib.nw_matches_global_launch.argtypes = [
+        lib.nw_matches_launch.restype = ctypes.c_int
+        lib.nw_matches_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ]
-        lib.nw_max_shared_bytes.restype = ctypes.c_int
-        lib.nw_max_shared_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.nw_geometry.restype = None
+        lib.nw_geometry.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
         _NW_LIB = lib
     return _NW_LIB
 
@@ -121,46 +118,40 @@ def _check(err: int, what: str):
         raise RuntimeError(f"{what} failed: CUDA error {err}")
 
 
+def nw_geometry() -> tuple[int, int]:
+    """K2's (rows of a stripe, warps of a block working on one pair)."""
+    rows, warps = ctypes.c_int(0), ctypes.c_int(0)
+    _nw_lib().nw_geometry(ctypes.byref(rows), ctypes.byref(warps))
+    return rows.value, warps.value
+
+
 def nw_matches_cuda(seq: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
-    """K2 (csrc/nw.cu): traceback match counts, int32[B]. Pairs whose three
-    diagonals fit the block's shared memory run in one launch, the rest in
-    a second launch over a global scratch buffer. Counts its launches in
-    `nw_matches_cuda.launches`."""
+    """K2 (csrc/nw.cu): traceback match counts, int32[B], in one launch:
+    one block per pair, the pairs in decreasing n * m so that the longest
+    start first, a boundary row of m_max int32 pairs per pair as scratch.
+    Counts its launches in `nw_matches_cuda.launches`."""
     check_kernel_tensor(seq, "seq", torch.uint8, 1)
     check_kernel_tensor(off, "off", torch.int64, 1)
     if off.shape[0] % 2 != 1:
         raise ValueError("off must hold 2B+1 offsets")
     lib = _nw_lib()
     nb = (off.shape[0] - 1) // 2
-    out = torch.zeros(nb, dtype=torch.int32, device=seq.device)
+    out = torch.empty(nb, dtype=torch.int32, device=seq.device)
     if nb == 0:
         return out
     o = off.cpu()
-    n = o[1::2] - o[0:-1:2]
     if bool((o[1:] < o[:-1]).any()) or int(o[0]) != 0 or int(o[-1]) != seq.shape[0]:
         raise ValueError("off must be non-decreasing from 0 to len(seq)")
-    max_smem = ctypes.c_int(0)
-    _check(lib.nw_max_shared_bytes(ctypes.byref(max_smem)), "shared memory query")
-    in_smem = 24 * (n + 1) <= max_smem.value
+    n, m = o[1::2] - o[0:-1:2], o[2::2] - o[1::2]
+    if int(torch.maximum(n, m).max()) > MAX_LEN:
+        raise ValueError(f"K2 takes sequences of at most {MAX_LEN} bases")
+    order = torch.argsort(n * m, descending=True, stable=True).to(torch.int32).to(seq.device)
+    stride = max(int(m.max()), 1)
+    bnd = torch.empty(nb * stride * 2, dtype=torch.int32, device=seq.device)
     stream = torch.cuda.current_stream(seq.device).cuda_stream
-    for use_smem in (True, False):
-        ids = torch.nonzero(in_smem == use_smem)[:, 0]
-        if ids.numel() == 0:
-            continue
-        lens = n[ids]
-        ids_dev = ids.to(torch.int32).to(seq.device)
-        if use_smem:
-            err = lib.nw_matches_shared_launch(
-                seq.data_ptr(), off.data_ptr(), ids_dev.data_ptr(), ids.numel(),
-                out.data_ptr(), 24 * (int(lens.max()) + 1), stream)
-        else:
-            stride = 6 * (int(lens.max()) + 1)
-            scratch = torch.empty(ids.numel() * stride, dtype=torch.int32, device=seq.device)
-            err = lib.nw_matches_global_launch(
-                seq.data_ptr(), off.data_ptr(), ids_dev.data_ptr(), ids.numel(),
-                out.data_ptr(), scratch.data_ptr(), stride, stream)
-        _check(err, "nw_matches kernel launch")
-        nw_matches_cuda.launches += 1
+    _check(lib.nw_matches_launch(seq.data_ptr(), off.data_ptr(), order.data_ptr(), nb,
+                                 out.data_ptr(), bnd.data_ptr(), stride, stream), "nw_matches kernel launch")
+    nw_matches_cuda.launches += 1
     return out
 
 

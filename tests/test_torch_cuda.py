@@ -181,11 +181,29 @@ def test_walk_kernel_edge_cases(cuda, k, lanes, layout):
 
 
 def test_nw_kernel_matches_plain(cuda):
+    """K2 against its plain version, in one launch, on random pairs and on
+    the seams of its stripes (h = 32 R rows a warp, W warps a pair): n =
+    h - 1, h, h + 1, W h +- 1 and 3 W h, each against a mutated copy and a
+    two-letter pair (up and left tie often); a single row and a single
+    column; one 10,000 x 10,000 pair."""
     rng = np.random.default_rng(0)
-    pairs = [("".join(rng.choice(list("ACGT"), int(rng.integers(1, 400)))),
-              "".join(rng.choice(list("ACGT"), int(rng.integers(1, 400))))) for _ in range(32)]
-    pairs += [("ACGT" * 2500, "ACGA" * 2400)]  # past the shared-memory limit: the global-scratch launch
+
+    def rand(n, letters="ACGT"):
+        return "".join(rng.choice(list(letters), n))
+
+    pairs = [(rand(int(rng.integers(1, 400))), rand(int(rng.integers(1, 400)))) for _ in range(32)]
+    h, w = ND.nw_geometry()
+    for n in (h - 1, h, h + 1, w * h - 1, w * h + 1, 3 * w * h):
+        a = np.array(list(rand(n)))
+        b = a.copy()
+        b[rng.integers(0, n, n // 20)] = "T"
+        pairs += [("".join(a), "".join(np.delete(b, rng.integers(0, n, n // 100 + 1)))),
+                  (rand(n, "AC"), rand(n + 7, "AC"))]
+    pairs += [("G", rand(5000)), (rand(5000), "G"), (rand(10_000), rand(10_000))]
     seq, off = ND.pack_pairs(pairs)
+    before = ND.nw_matches_cuda.launches
     got = ND.nw_matches_cuda(seq.to(cuda), off.to(cuda))
-    want = ND._nw_matches_plain(seq, off)
-    assert torch.equal(got.cpu(), want)
+    torch.cuda.synchronize()
+    assert ND.nw_matches_cuda.launches == before + 1
+    want = ND._nw_matches_plain(seq.to(cuda), off.to(cuda))
+    assert torch.equal(got.cpu(), want.cpu())

@@ -100,6 +100,19 @@ def test_graph_files_are_interchangeable(runs, tmp_path):
     assert (tmp_path / "g.breakpoints").read_text() == (root / "jax" / "t.breakpoints").read_text()
 
 
+def test_scan_memory_budget_ignored_on_one_device(runs, tmp_path):
+    """A -scan-memory budget below the pair map changes nothing on one
+    device (the JAX package ignores it there too): the run writes the JAX
+    run's artifacts."""
+    root, _ = runs
+    with _cwd(tmp_path):
+        port_find({"in": _reads_arg(root), "ref": str(root / "ref.fa"), "out": "t", "verbose": "0",
+                   "device": "cpu", "scan-memory": "1"}, out=io.StringIO())
+    for fname in ("t.breakpoints", "t.othervariants.vcf"):
+        got = _read(tmp_path.parent, tmp_path.name, fname)
+        assert got and got == _read(root, "jax", fname)
+
+
 @pytest.fixture(scope="module")
 def device_runs(runs):
     """The device engines on device=cpu (each kernel's plain version): the
