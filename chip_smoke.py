@@ -7,8 +7,8 @@ Phases, each of which must pass (any failure exits non-zero):
   1. print the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build the CUDA kernels from the checkout, one nvcc per source, all
      started together, and time the build: K1 (csrc/scan_qp.cu), K2
-     (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu) and
-     K5 (csrc/walk.cu);
+     (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu), K5
+     (csrc/walk.cu), K6 (csrc/scan_span.cu) and K7 (csrc/walk_span.cu);
   3. hold each kernel against its plain PyTorch version on the card, exactly,
      at the main path's shapes, and time both sides: K1 (the whole
      scan_cls_qp, its exception compaction included) on a full 2^22-base
@@ -21,9 +21,14 @@ Phases, each of which must pass (any failure exits non-zero):
      tile edge cases; K5 on donor k-mers with a budget of 10,000 and 2,048
      steps at 4,096 lanes, 128 lanes (the fill's shape) and 1 lane (the
      chain latency), both layouts, and on its look-ahead edge cases at
-     every depth. The edge cases come from tests/torch_tables.py
-     (scan_edge_windows, key_edge_batches, merge_edge_cases,
-     edge_walk_case), the generators the CUDA tests use, so the smoke and
+     every depth; K6 on a full 2^21-base window at k = 45 over the span map
+     of the donor's k-mers (made from the donor directly, without
+     counting), and on its edge windows at k 33 to 256; K7 on donor
+     k-mers at k = 45 with a budget of 10,000 and 2,048 steps at 4,096,
+     128 and 1 lanes, and on its edge cases at k 33 to 256. The edge cases
+     come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
+     merge_edge_cases, edge_walk_case, span_edge_windows,
+     edge_walk_span_case), the generators the CUDA tests use, so the smoke and
      tests/test_torch_cuda.py check the same inputs; the script needs the
      checkout's tests/ directory for them.
      Each kernel's bound is the
@@ -44,11 +49,17 @@ Phases, each of which must pass (any failure exits non-zero):
      `-fill-engine device-qb` (and the native fill, for its time); then the
      same device runs again under torch.profiler, for the device time of
      K3, K4, K5 and the sort without the profiler in the wall times;
-  6. check the results: every kernel launched on its path; the find
-     artifacts equal a `-device cpu` rerun on the same graph; the
-     device-count graph, breakpoints and VCF records equal the host-count
-     run's; the device fills' artifacts equal the native fill's; insertion
-     recall >= 90% on both paths.
+  6. drive the k = 45 path on a case of its own (1,000,000 bp, 22
+     insertions, 11 SNPs, 11 deletions, 30x: cut from the E. coli size
+     because host span counting takes ~0.7 ms a read), in-process: `find
+     -kmer-size 45` (the span scan, K6), the native fill, `fill
+     -fill-engine device` and `device-qb` (the span walker, K7); then a
+     `find -graph -device cpu` rerun;
+  7. check the results: every kernel launched on its path; the find
+     artifacts equal a `-device cpu` rerun on the same graph (at k = 31
+     and k = 45); the device-count graph, breakpoints and VCF records
+     equal the host-count run's; the device fills' artifacts equal the
+     native fill's (at both k); insertion recall >= 90% on every path.
 
 The line before the last holds the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -458,6 +469,128 @@ def check_walk_kernel(donor: np.ndarray, solid: np.ndarray, k: int, seed: int) -
             "bucket_bound_ms": bucket["bound_ms"], "shapes": list(shapes.values())}
 
 
+SPAN_K = 45  # the span phase's k (a (k-1)-mer of two words, a k-mer of two)
+
+
+def span_solid(donor: np.ndarray, k: int):
+    """(forward k-mer rows of the donor, its canonical k-mer rows sorted
+    and unique): the solid set that error-free reads give at k > 32, made
+    directly from the donor's k-mers, without counting."""
+    from mindthegap_tpu_torch.ops.span import Span
+
+    sp = Span(k)
+    fwd, _ = sp.from_codes(donor)
+    return fwd, sp.from_keys(np.unique(sp.keys(sp.canonical(fwd))))
+
+
+def check_span_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int):
+    """K6 against its plain version on one full 2^21-base window of the
+    reference (the span feed's window), over the span map of the donor's
+    k-mers with a repeat set of every 50th (k-1)-mer of the window; then on
+    its edge windows at k 33 to 256. Returns (the kernel record, the host
+    map, so that K7's check reuses it)."""
+    import torch
+
+    from mindthegap_tpu_torch.bounds import SECTOR_BYTES, span_scan_sectors
+    from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.ops import extmap as X
+    from mindthegap_tpu_torch.ops.span import Span
+    from torch_tables import span_edge_windows
+
+    rng = np.random.default_rng(seed)
+    window = 1 << 21
+    spm1 = Span(k - 1)
+    q, _ = spm1.from_codes(ref[:window])
+    repeat = spm1.from_keys(np.unique(spm1.keys(spm1.canonical(q[::50]))))
+    t0 = time.perf_counter()
+    qms = X.build_fused_span(solid, k, repeat)
+    build_s = time.perf_counter() - t0
+    t = qms.to("cuda")
+    codes = ref[:window].copy()
+    codes[1000:1100] = 255
+    codes[rng.integers(0, window, 64)] = 255
+    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    args = (packed, bad, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size, k)
+    keys = ("pay8", "rep8", "str8")
+    got = S.scan_pay_q_span_cuda(*args)
+    want = S._scan_pay_q_span_plain(*args)
+    torch.cuda.synchronize()
+    errs = [_max_abs_err((got[key], want[key]) for key in keys)]
+    ms = _cuda_ms(lambda: S.scan_pay_q_span_cuda(*args), iters=20, warmup=2)
+    plain_ms = _cuda_ms(lambda: S._scan_pay_q_span_plain(*args), iters=3)
+    # the sectors this window's probes need, the inputs read once and the
+    # outputs written once
+    sectors = span_scan_sectors(packed, bad, t, k)
+    bound = _bytes_bound_ms(sectors * SECTOR_BYTES + _nbytes(packed, bad, *(got[key] for key in keys)))
+    n_pay = window - k + 2
+    print(f"K6 scan_pay_q_span: window {window}, k {k}, solid {solid.shape[0]}, table {qms.nbytes >> 20} MB "
+          f"(built in {build_s:.1f} s on the host), stash {int(qms.stash_key64.size)}, "
+          f"{int((want['pay8'] != 0).sum())} of {n_pay} payloads non-zero, max_abs_err {errs[0]} (tolerance 0: "
+          f"exact), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms (bytes: "
+          f"{sectors} sectors for {n_pay} probes)")
+    for kk in (33, 45, 64, 65, 96, 128, 256):
+        eq, cases = span_edge_windows(kk)
+        te = eq.to("cuda")
+        for name, ecodes in cases.items():
+            ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(ecodes))
+            eargs = (ep, eb, te.slots, te.sat, te.stash_key64, te.stash_sat, te.stash_payload, eq.salt,
+                     eq.log_size, kk)
+            g, w = S.scan_pay_q_span_cuda(*eargs), S._scan_pay_q_span_plain(*eargs)
+            torch.cuda.synchronize()
+            errs.append(_max_abs_err((g[key], w[key]) for key in keys))
+        print(f"K6 edge cases (k {kk}: {', '.join(cases)}): max_abs_err {max(errs[-len(cases):])}")
+    return ({"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound, "sectors": sectors,
+             "map_build_s": build_s}, qms)
+
+
+def check_span_walk_kernel(fwd: np.ndarray, qms, k: int, seed: int) -> dict:
+    """K7 on donor k-mers with a budget of 10,000 for the walker's largest
+    step count, over the span map of K6's check, at 4,096 lanes (the
+    record's `ms`, `plain_ms` and `bound_ms`), 128 lanes (the fill's shape)
+    and 1 lane (the chain latency), each exact against the plain version
+    and listed under "shapes"; then on its edge cases at k 33 to 256."""
+    import torch
+
+    from mindthegap_tpu_torch.bounds import walk_span_bound_ms
+    from mindthegap_tpu_torch.fill import walk_device as W
+    from mindthegap_tpu_torch.ops import kmers as K
+    from torch_tables import edge_walk_span_case
+
+    rng = np.random.default_rng(seed)
+    picks = fwd[rng.integers(0, fwd.shape[0], 4096)]
+    t = qms.to("cuda")
+    steps = 2048
+    shapes, errs = [], []
+    for lanes in (4096, 128, 1):
+        nodes = torch.from_numpy(K.as_i64(picks[:lanes])).cuda()
+        budgets = torch.full((lanes,), 10_000, dtype=torch.int32).cuda()
+        args = (nodes, budgets, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt,
+                qms.log_size, k, steps)
+        got = W.walk_batch_span_cuda(*args)
+        t0 = time.perf_counter()
+        want = W._walk_batch_span_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs.append(_max_abs_err(zip(got, want)))
+        ms = _cuda_ms(lambda: W.walk_batch_span_cuda(*args), iters=10 if lanes < 4096 else 5)
+        walked = int(got[1].max())
+        row = {"lanes": lanes, "ms": ms, "plain_ms": plain_ms, "us_per_step": ms * 1e3 / max(walked, 1),
+               "bound_ms": walk_span_bound_ms(got[1], got[3], lanes, steps, k)}
+        shapes.append(row)
+        print(f"K7 walk_batch_span: {lanes} lanes, {steps} steps, k {k}, {int(got[1].sum())} bases appended, "
+              f"max_abs_err {errs[-1]} (tolerance 0: exact), kernel {ms:.4f} ms ({row['us_per_step']:.4f} us "
+              f"per step), plain {plain_ms:.1f} ms (one call), bound {row['bound_ms']:.4f} ms (bytes)")
+    for kk, lanes in ((33, 48), (45, 37), (64, 8), (65, 100), (96, 64), (128, 40), (256, 33)):
+        _q, eargs = edge_walk_span_case(kk, lanes, "cuda")
+        g, w = W.walk_batch_span_cuda(*eargs), W._walk_batch_span_plain(*eargs)
+        torch.cuda.synchronize()
+        errs.append(_max_abs_err(zip(g, w)))
+        print(f"K7 edge case (k {kk}, {lanes} lanes): max_abs_err {errs[-1]}")
+    big = shapes[0]
+    return {"max_abs_err": max(errs), "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "shapes": shapes}
+
+
 def _run(cmd: list[str], cwd: str) -> float:
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
@@ -529,7 +662,8 @@ def _reset_launches():
 
     wrappers = {"scan_cls_qp": S.scan_cls_qp_cuda, "nw_matches": ND.nw_matches_cuda,
                 "kmer_keys": C.kmer_keys_cuda, "merge_sorted": C.merge_sorted_cuda,
-                "walk_batch": W.walk_batch_cuda}
+                "walk_batch": W.walk_batch_cuda, "scan_pay_q_span": S.scan_pay_q_span_cuda,
+                "walk_batch_span": W.walk_batch_span_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
@@ -670,6 +804,73 @@ def device_path(work: str, insertions, reads: str) -> dict:
     return {"launches": counts}
 
 
+SPAN_GENOME = 1_000_000  # the span phase's genome, cut for host span counting (~0.7 ms a read)
+
+
+def span_path(work: str, seed: int) -> dict:
+    """The CLI at k = 45 on its own case (a seeded genome of SPAN_GENOME bp
+    with 22 insertions, 11 SNPs and 11 deletions, 30x): `find -kmer-size
+    45` (K6 on CUDA), the native fill, `fill -fill-engine device` and
+    `device-qb` (K7), all in-process; a `find -graph -device cpu` rerun as
+    a subprocess. Returns the kernel launch counts of the run."""
+    sub = os.path.join(work, "span")
+    os.makedirs(sub)
+    ref, donor, insertions = make_case(SPAN_GENOME, n_ins=22, n_snp=11, n_del=11, seed=seed + 7)
+    write_fasta(os.path.join(sub, "ref.fa"), CHROM, ref)
+    reads = write_reads(os.path.join(sub, "reads"), donor, 30.0, seed + 8)
+    k = str(SPAN_K)
+
+    def fill(out, engine):
+        return _cli(["fill", "-graph", "s.h5", "-bkpt", "s.breakpoints", "-fill-engine", engine, "-out", out,
+                     "-profile", "-verbose", "0"])
+
+    launches = _reset_launches()
+    cwd = os.getcwd()
+    os.chdir(sub)
+    try:
+        find_s, report = _cli(["find", "-in", reads, "-ref", "ref.fa", "-kmer-size", k, "-out", "s", "-profile",
+                               "-verbose", "0"])
+        times = {out: fill(out, engine) for out, engine in (("sn", "native"), ("sd", "device"), ("sq", "device-qb"))}
+        counts = launches()
+    finally:
+        os.chdir(cwd)
+    cpu_s = _run([sys.executable, "-m", "mindthegap_tpu_torch", "find", "-graph", "s.h5", "-ref", "ref.fa",
+                  "-out", "sc", "-device", "cpu", "-verbose", "0"], sub)
+
+    def path(name):
+        return os.path.join(sub, name)
+
+    if not _same(path("s.breakpoints"), path("sc.breakpoints")):
+        raise AssertionError("find -kmer-size 45 -device cpu wrote other .breakpoints than the CUDA run")
+    if _records(path("s.othervariants.vcf")) != _records(path("sc.othervariants.vcf")):
+        raise AssertionError("find -kmer-size 45 -device cpu wrote other VCF records than the CUDA run")
+    for out in ("sd", "sq"):
+        for ext in ("insertions.fasta", "info.txt"):
+            if not _same(path(f"sn.{ext}"), path(f"{out}.{ext}")):
+                raise AssertionError(f"{out}.{ext} differs from the native fill's sn.{ext} at k = 45")
+        if _records(path("sn.insertions.vcf")) != _records(path(f"{out}.insertions.vcf")):
+            raise AssertionError(f"{out}.insertions.vcf records differ from the native fill's at k = 45")
+    for name in ("scan_pay_q_span", "walk_batch_span"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the k = 45 path")
+    filled = filled_insertions(path("sd.insertions.fasta"))
+    recall = insertion_recall(insertions, filled)
+    n_bkpt = sum(1 for line in open(path("s.breakpoints")) if line.startswith(">")) // 2
+    print(f"k = {k} path: genome {ref.size} bp, {len(insertions)} insertions, 30x reads; find (CUDA) "
+          f"{find_s:.1f} s (graph build, host span counting, {_phase(report, 'graph build'):.2f} s; scan engine "
+          f"setup {_phase(report, 'scan engine setup'):.2f} s; scan+replay {_phase(report, 'scan+replay (fused)'):.2f} s), "
+          f"{n_bkpt} breakpoints; find -graph -device cpu {cpu_s:.1f} s, equal")
+    print("fill -graph s.h5 (in-process): " + ", ".join(
+        f"{engine} {times[out][0]:.1f} s (fill jobs {_phase(times[out][1], 'fill jobs'):.2f} s)"
+        for out, engine in (("sn", "native"), ("sd", "device"), ("sq", "device-qb"))))
+    print(f"device and device-qb fill artifacts equal the native fill's at k = {k}; insertion recall "
+          f"{recall:.4f} ({round(recall * len(insertions))}/{len(insertions)})")
+    print(f"kernel launches on the k = {k} path: {counts}")
+    if recall < 0.9:
+        raise AssertionError(f"insertion recall {recall:.4f} is below 0.9 on the k = {k} path")
+    return {"launches": counts}
+
+
 def build_kernels():
     """Build every kernel library at once: one nvcc per source, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -679,7 +880,7 @@ def build_kernels():
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
 
-    loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib)
+    loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib, S._span_scan_lib, W._walk_span_lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
@@ -698,11 +899,12 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    t_start = time.perf_counter()
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     build_kernels()
-    print(f"kernel build (nvcc, sm_90a, 5 sources in parallel): {time.perf_counter() - t0:.1f} s")
+    print(f"kernel build (nvcc, sm_90a, 7 sources in parallel): {time.perf_counter() - t0:.1f} s")
 
     seed = 20261016
     k = 31
@@ -724,11 +926,19 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s to write)")
         k3, k4 = check_count_kernels(reads, solid, k, seed)
         k5 = check_walk_kernel(donor, solid, k, seed)
-        for name, r in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5)):
+        t0 = time.perf_counter()
+        span_fwd, span_rows = span_solid(donor, SPAN_K)
+        print(f"k = {SPAN_K} solid set from the donor's k-mers: {span_rows.shape[0]} rows "
+              f"({time.perf_counter() - t0:.1f} s)")
+        k6, qms = check_span_scan_kernel(ref, span_rows, SPAN_K, seed)
+        k7 = check_span_walk_kernel(span_fwd, qms, SPAN_K, seed)
+        del span_fwd, span_rows, qms
+        for name, r in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7)):
             if r["max_abs_err"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
         run = main_path(work, insertions, reads)
         run2 = device_path(work, insertions, reads)
+        run3 = span_path(work, seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -748,7 +958,14 @@ def main() -> int:
         {"name": "walk_batch", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/walk.cu",
          "replaces": "mindthegap_tpu/fill/walk_device.py:58",
          "launches": run2["launches"]["walk_batch"], **k5},
+        {"name": "scan_pay_q_span", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_span.cu",
+         "replaces": "mindthegap_tpu/find/scan_device.py:240",
+         "launches": run3["launches"]["scan_pay_q_span"], **k6},
+        {"name": "walk_batch_span", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/walk_span.cu",
+         "replaces": "mindthegap_tpu/fill/walk_device.py:157",
+         "launches": run3["launches"]["walk_batch_span"], **k7},
     ]
+    print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ import torch
 from .fill import walk_device as W
 from .find import scan_device as S
 from .ops import extmap as X
+from .ops import span_device as SD
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SECTOR_BYTES = 32  # the least the card reads from device memory at a random address
@@ -55,3 +56,37 @@ def walk_bound_ms(n_app, status, lanes: int, steps: int, layout: str) -> float:
     successor, each reading its sectors, plus the inputs and outputs."""
     probes = int(n_app.sum()) + int((n_app > 0).sum()) + int((status == W.STATUS_EVENT).sum())
     return bytes_ms(probes * PROBE_BYTES[layout] + lanes * (steps + 4 + 8 + 1 + 12))
+
+
+def span_probe_sectors(qms: X.QMapSpan, words: torch.Tensor) -> int:
+    """The random sectors the span map's probes of these canonical keys
+    ((Wq, P) words; qms from QMapSpan.to on their device) need, as
+    csrc/span_map.cuh reads them: each key's first slot; its Wq-1
+    satellite words where that slot holds the key's digest; and, where the
+    key is not in its first slot, the second slot and its satellites where
+    that one holds the digest."""
+    wq = words.shape[0]
+    _dig, _v, here, hit = X.span_probe(qms, words)
+    miss = ~hit[0]
+    return (words.shape[1] + (wq - 1) * int(here[0].sum())
+            + int(miss.sum()) + (wq - 1) * int((miss & here[1]).sum()))
+
+
+def span_scan_sectors(packed: torch.Tensor, badbits: torch.Tensor, qms: X.QMapSpan, k: int) -> int:
+    """The random sectors K6's function needs on one window (packed and
+    badbits as scan_pay_q_span takes them): span_probe_sectors over the
+    canonical (k-1)-mer of every position, as the plain version forms
+    them."""
+    qwords, _ = SD.rolling_span(S.unpack_codes(packed, badbits), k - 1)
+    canon, _ = SD.canonical_span(qwords, k - 1)
+    return span_probe_sectors(qms, canon)
+
+
+def walk_span_bound_ms(n_app, status, lanes: int, steps: int, k: int) -> float:
+    """K7's least time for these walks, counted as walk_bound_ms counts
+    K5's probes, each probe reading Wq = ceil((k-1)/32) sectors (a slot and
+    its Wq-1 satellite words), plus the inputs and outputs (Wk-word nodes
+    in and out, budgets, bases, counts and status)."""
+    probes = int(n_app.sum()) + int((n_app > 0).sum()) + int((status == W.STATUS_EVENT).sum())
+    wq, wk = SD.span_width(k - 1), SD.span_width(k)
+    return bytes_ms(probes * wq * SECTOR_BYTES + lanes * (steps + 16 * wk + 4 + 4 + 1))

@@ -15,7 +15,7 @@ import time
 
 import numpy as np
 
-from .. import MTG_COMPAT_VERSION, KSIZE_STRING, NotYetPorted
+from .. import MTG_COMPAT_VERSION, KSIZE_STRING
 from ..device import resolve_device
 from ..graph import dbg
 from ..io.bank import Bank
@@ -157,8 +157,6 @@ class Filler:
         self.device = None
         if self.fill_engine in _DEVICE_ENGINES or (has_in and count_engine == "device"):
             self.device = resolve_device(opts.get("device"))
-        if has_in:  # checked before the graph build
-            self._check_walker_k(int(opts.get("kmer-size", 31)))
 
         t0 = time.time()
         if has_in:
@@ -180,7 +178,6 @@ class Filler:
             self.graph = dbg.Graph.load(opts["graph"])
             sys.stderr.write("done\n")
         self.k = self.graph.k
-        self._check_walker_k(self.k)
         with self.phases.phase("graph view (quotient map) build"):
             layout = "bucket" if self.fill_engine == "device-qb" else "cuckoo"
             self.view = GraphView(self.graph, layout=layout)
@@ -318,16 +315,11 @@ class Filler:
 
     # ------------------------------------------------------------------
     # job dispatch: host process pool (the GATB Dispatcher analog) or the
-    # device-batched walker (jobs ride lanes; fill/walk_device.py). The JAX
-    # package's multi-host sharding is not ported: the port runs one process.
+    # device-batched walker (jobs ride lanes; fill/walk_device.py): the u64
+    # walker for k <= 32, the span walker for 32 < k <= 256 (both device
+    # engines take it there, as in the JAX package). The JAX package's
+    # multi-host sharding is not ported: the port runs one process.
     # ------------------------------------------------------------------
-    def _check_walker_k(self, k: int):
-        """The device walker covers k <= 32; the span walker (32 < k <= 256)
-        is not yet ported. Above 256 the JAX package's own rule sends the
-        jobs to the host (_run_jobs)."""
-        if self.fill_engine in _DEVICE_ENGINES and 32 < k <= 256:
-            raise NotYetPorted(f"-fill-engine {self.fill_engine} with -kmer-size above 32")
-
     def _run_jobs(self, fn, co_fn, jobs):
         engine = self.fill_engine
         if engine == "device-qb":
@@ -338,7 +330,8 @@ class Filler:
         if engine == "device":
             from .walk_device import BatchWalker, run_jobs_batched
 
-            walker = BatchWalker(self.view.qm, self.k, self.device)
+            qmap = self.view.qm if self.view.qm is not None else self.view.ensure_span_map()
+            walker = BatchWalker(qmap, self.k, self.device)
             gens = [co_fn(*j) for j in jobs]
             yield from run_jobs_batched(gens, walker)
         else:

@@ -125,6 +125,21 @@ class GraphView:
                 if sk != np.uint64(0xFFFFFFFFFFFFFFFF)
             }
 
+    def ensure_span_map(self):
+        """Build (once) the multi-word fused quotient map over the solid set
+        for the k > 32 device walker (fill/walk_device.py walk_batch_span),
+        only when a device fill engine asks for it."""
+        qms = getattr(self, "_qm_span", None)
+        if qms is None:
+            from ..ops import extmap as X
+            from ..ops.span import Span
+
+            assert 32 < self.k <= 256
+            rows = Span(self.k).from_keys(self.g.solid.keys)
+            qms = X.build_fused_span(rows, self.k, np.zeros((0, Span(self.k - 1).W), np.uint64))
+            self._qm_span = qms
+        return qms
+
     def enable_native(self, policy: "TraversalPolicy") -> bool:
         """Attach the native C++ traversal engine (native/traversal.cpp) so
         construct_linear_seqs_co short-circuits to it. k <= 32 probes the

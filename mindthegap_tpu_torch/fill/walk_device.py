@@ -1,5 +1,5 @@
 """Device-batched fill walker: simple-path extension over many jobs at once
-(the counterpart of mindthegap_tpu/fill/walk_device.py, k <= 32).
+(the counterpart of mindthegap_tpu/fill/walk_device.py).
 
 The `fill` hot loop (reference src/Filler.cpp:854-884: per-breakpoint
 bounded BFS in the DBG) spends nearly all of its probes on uninterrupted
@@ -18,9 +18,11 @@ the successor. The walk stops:
   "budget" when the job's base budget is spent.
 
 Appended bases occupy the first n_appended slots of each job's row.
-walk_batch runs the hand kernel K5 (csrc/walk.cu: a team of threads per
-lane, probing several steps ahead per DRAM round trip) on CUDA tensors and
-its plain PyTorch version on CPU tensors.
+walk_batch (k <= 32) runs the hand kernel K5 (csrc/walk.cu: a team of
+threads per lane, probing several steps ahead per DRAM round trip) on CUDA
+tensors, and walk_batch_span (32 < k <= 256, multi-word nodes over the
+span map) the hand kernel K7 (csrc/walk_span.cu: a thread per lane); each
+runs its plain PyTorch version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -203,23 +205,183 @@ def walk_batch(nodes, budgets, slots, stash_k, stash_v, log_size: int, k: int,
     return fn(nodes, budgets, slots, stash_k, stash_v, log_size, k, steps, layout)
 
 
+# ---------------------------------------------------------------------------
+# The span walker (32 < k <= 256): nodes are int64 rows of Wk = ceil(k/32)
+# words, word 0 most significant, over the multi-word map (ops/extmap.py
+# QMapSpan); the same contract and stop reasons as walk_batch.
+
+
+def _mask_top_span(words: torch.Tensor, nbases: int) -> torch.Tensor:
+    """Keep the low 2 * nbases bits of a (W, J) span value."""
+    from ..ops.span_device import span_width, top_mask
+
+    w = words.shape[0]
+    keep = span_width(nbases)  # the words that hold those bits, the top one masked
+    out = words.clone()
+    out[: w - keep] = 0
+    out[w - keep] &= top_mask(nbases)
+    return out
+
+
+def _shl2_span(words: torch.Tensor, x=0) -> torch.Tensor:
+    """(W, J) span value << 2, base x shifted in (no mask)."""
+    low = torch.zeros_like(words[:1]) | x  # what enters the last word
+    return (words << 2) | torch.cat([K.shr(words[1:], 62), low])
+
+
+def _walk_batch_span_plain(nodes, budgets, slots, sat, stash_k64, stash_sat, stash_v,
+                           salt: int, log_size: int, k: int, steps: int):
+    """Plain version of K7: the step of the JAX span walker as tensor ops
+    over all lanes, on (Wk, J) words. It stops early once no lane is live,
+    as _walk_batch_plain does."""
+    from ..ops import span_device as SD
+
+    qm = X.QMapSpan(slots, sat, log_size, salt, stash_k64, stash_sat, stash_v)
+    wk = nodes.shape[1]
+    wq = SD.span_width(k - 1)
+    nib = torch.arange(16, device=nodes.device)
+    pop4 = X._popcount4(nib)
+    base_of = ((nib >> 1) & 1) + 2 * ((nib >> 2) & 1) + 3 * ((nib >> 3) & 1)
+    # each payload byte seen from the other strand (_oriented as a table)
+    byte = torch.arange(256, device=nodes.device)
+    flip8 = X._shuffle02(byte >> 4) | (X._shuffle02(byte & 0xF) << 4)
+
+    def ext_pre_of(words):
+        """(ext, pre) of each node's (k-1)-suffix as read."""
+        q = _mask_top_span(words[wk - wq:], k - 1)
+        cq, is_c = SD.canonical_span(q, k - 1)
+        pay8 = X.lookup_q_span(qm, cq) & 0xFF
+        ep = torch.where(is_c, pay8, flip8[pay8])
+        return ep & 0xF, ep >> 4
+
+    node = nodes.T.clone()  # (Wk, J)
+    ext, pre = ext_pre_of(node)
+    lanes = nodes.shape[0]
+    n_app = torch.zeros_like(budgets)
+    status = torch.zeros(lanes, dtype=torch.uint8, device=nodes.device)
+    bases = torch.full((lanes, steps), NO_BASE, dtype=torch.uint8, device=nodes.device)
+    for s in range(steps):
+        live = (status == STATUS_RUNNING) & (n_app < budgets)
+        if s % _LIVE_CHECK == 0 and not bool(live.any()):
+            break
+        cnt_out = pop4[ext]
+        tip = cnt_out == 0
+        fork = cnt_out > 1
+        x = base_of[ext]  # with exactly one bit set: its index
+        nxt = _mask_top_span(_shl2_span(node, x), k)
+        merge = pop4[pre] != 1  # predecessors(nxt) != 1
+        ext2, pre2 = ext_pre_of(nxt)
+        branch2 = pop4[ext2] != 1  # successors(nxt) != 1
+
+        stop_tip = live & tip
+        stop_event = live & ~tip & (fork | merge | branch2)
+        append = live & ~tip & ~fork & ~merge & ~branch2
+        bases[:, s] = torch.where(append, x, NO_BASE).to(torch.uint8)
+        status = torch.where(stop_tip, STATUS_TIP, status)
+        status = torch.where(stop_event, STATUS_EVENT, status)
+        node = torch.where(append[None, :], nxt, node)
+        ext = torch.where(append, ext2, ext)
+        pre = torch.where(append, pre2, pre)
+        n_app = n_app + append.to(n_app.dtype)
+    return bases, n_app, node.T.contiguous(), status
+
+
+_WALK_SPAN_LIB = None
+
+
+def _walk_span_lib():
+    global _WALK_SPAN_LIB
+    if _WALK_SPAN_LIB is None:
+        from .._build import cuda_library
+
+        lib = cuda_library("walk_span.cu", "libmtg_walk_span.so")
+        lib.walk_span_launch.restype = ctypes.c_int
+        lib.walk_span_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        _WALK_SPAN_LIB = lib
+    return _WALK_SPAN_LIB
+
+
+def walk_batch_span_cuda(nodes, budgets, slots, sat, stash_k64, stash_sat, stash_v,
+                         salt: int, log_size: int, k: int, steps: int):
+    """K7 (csrc/walk_span.cu): the same outputs as _walk_batch_span_plain,
+    one thread per lane with the node's words in registers. Counts its
+    launches in `walk_batch_span_cuda.launches`."""
+    from ..ops.span_device import span_width
+
+    check_kernel_tensor(nodes, "nodes", torch.int64, 2)
+    check_kernel_tensor(budgets, "budgets", torch.int32, 1)
+    X.check_span_tables(slots, sat, stash_k64, stash_sat, stash_v, log_size, k)
+    lanes = nodes.shape[0]
+    if nodes.shape[1] != span_width(k) or budgets.shape[0] != lanes or lanes < 1 or steps < 1:
+        raise ValueError(f"nodes must be [lanes >= 1, {span_width(k)}] words with a budget each, and steps >= 1")
+    dev = nodes.device
+    bases = torch.full((lanes, steps), NO_BASE, dtype=torch.uint8, device=dev)
+    n_app = torch.empty(lanes, dtype=torch.int32, device=dev)
+    end_nodes = torch.empty_like(nodes)
+    status = torch.empty(lanes, dtype=torch.uint8, device=dev)
+    err = _walk_span_lib().walk_span_launch(
+        nodes.data_ptr(), budgets.data_ptr(),
+        slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
+        stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
+        stash_k64.shape[0], k, steps, lanes,
+        bases.data_ptr(), n_app.data_ptr(), end_nodes.data_ptr(), status.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"span walk kernel launch failed: CUDA error {err}")
+    walk_batch_span_cuda.launches += 1
+    return bases, n_app, end_nodes, status
+
+
+walk_batch_span_cuda.launches = 0
+
+
+def walk_batch_span(nodes, budgets, slots, sat, stash_k64, stash_sat, stash_v,
+                    salt: int, log_size: int, k: int, steps: int):
+    """Advance J simple-path walks by up to `steps` bases each, 32 < k <= 256.
+
+    nodes:   int64[J, Wk] current k-mers (u64 words, word 0 most
+             significant, forward orientation)
+    budgets: int32[J] remaining per-job base budgets
+    the map: the int64 tables of QMapSpan.to, its salt and log_size
+
+    Returns (bases u8[J, steps] — appended base codes, NO_BASE padding;
+    n_appended i32[J]; end_nodes int64[J, Wk]; status u8[J]). On a CUDA
+    tensor this runs the kernel K7; on a CPU tensor its plain version."""
+    fn = walk_batch_span_cuda if nodes.is_cuda else _walk_batch_span_plain
+    return fn(nodes, budgets, slots, sat, stash_k64, stash_sat, stash_v, salt, log_size, k, steps)
+
+
 class BatchWalker:
     """Host driver: satisfies batches of ("walk", node, budget) requests
-    with walk_batch, re-invoking in `steps`-sized chunks until every lane
-    has stopped. Each call takes only the walks still live, one lane each
-    (at least `min_lanes`, the rest with a budget of 0), so that K5's
+    with walk_batch (k <= 32, a QMap or QMapB) or walk_batch_span (32 < k
+    <= 256, a QMapSpan), re-invoking in `steps`-sized chunks until every
+    lane has stopped. Each call takes only the walks still live, one lane
+    each (at least `min_lanes`, the rest with a budget of 0), so that K5's
     look-ahead depth follows the live walks; the step count starts at 256
-    and doubles to 2048, as in the JAX walker."""
+    and doubles to 2048, as in the JAX walker. Span nodes travel as rows of
+    Wk int64 words and come back as python ints."""
 
     def __init__(self, qmap, k: int, device, min_lanes: int = 8, steps: int = 256,
                  max_steps: int = 2048, mesh=None):
         if mesh is not None:
             raise NotYetPorted("the walker's device mesh")
-        if not isinstance(qmap, (X.QMap, X.QMapB)):
-            raise NotYetPorted("the span walker (-fill-engine device with -kmer-size above 32)")
         self.k = k
         self.device = torch.device(device)
-        self.layout = "bucket" if isinstance(qmap, X.QMapB) else "cuckoo"
+        if isinstance(qmap, X.QMapSpan):
+            from ..ops.span_device import span_width
+
+            self.layout = "span"
+            self.wk = span_width(k)
+        else:
+            self.layout = "bucket" if isinstance(qmap, X.QMapB) else "cuckoo"
+            self.wk = 1
         self.log_size = qmap.log_nb if self.layout == "bucket" else qmap.log_size
         self.tables = qmap.to(self.device)
         self.min_lanes = min_lanes
@@ -230,8 +392,27 @@ class BatchWalker:
 
     def _call_device(self, nodes, budgets, steps: int):
         t = self.tables
+        if self.layout == "span":
+            return walk_batch_span(nodes, budgets, t.slots, t.sat, t.stash_key64, t.stash_sat,
+                                   t.stash_payload, t.salt, self.log_size, self.k, steps)
         return walk_batch(nodes, budgets, t.slots, t.stash_keys, t.stash_payload,
                           self.log_size, self.k, steps, self.layout)
+
+    def _rows(self, ints) -> np.ndarray:
+        """Python-int nodes as u64 rows [n, Wk] (word 0 most significant)."""
+        wk = self.wk
+        rows = np.zeros((len(ints), wk), np.uint64)
+        for i, v in enumerate(ints):
+            v = int(v)
+            for w in range(wk):
+                rows[i, wk - 1 - w] = (v >> (64 * w)) & 0xFFFFFFFFFFFFFFFF
+        return rows
+
+    def _int(self, row) -> int:
+        v = 0
+        for word in row:
+            v = (v << 64) | int(word)
+        return v
 
     def walk_many(self, requests):
         """requests: list of (node:int, budget:int). Returns a list of
@@ -239,7 +420,7 @@ class BatchWalker:
         n = len(requests)
         if n == 0:
             return []
-        nodes = np.array([node for node, _ in requests], np.uint64)
+        nodes = self._rows([node for node, _ in requests])
         remaining = np.array([max(budget, 0) for _, budget in requests], np.int32)
         status = np.zeros(n, np.uint8)
         out_bases: list[list[int]] = [[] for _ in range(n)]
@@ -250,10 +431,12 @@ class BatchWalker:
                 break
             # only the live walks go to the device (at least min_lanes lanes)
             lanes = max(self.min_lanes, idx.size)
-            lane_nodes = np.zeros(lanes, np.uint64)
+            lane_nodes = np.zeros((lanes, self.wk), np.uint64)
             lane_budgets = np.zeros(lanes, np.int32)
             lane_nodes[: idx.size] = nodes[idx]
             lane_budgets[: idx.size] = remaining[idx]
+            if self.layout != "span":
+                lane_nodes = lane_nodes[:, 0]
             bases, n_app, end_nodes, st = self._call_device(
                 torch.from_numpy(K.as_i64(lane_nodes)).to(self.device),
                 torch.from_numpy(lane_budgets).to(self.device),
@@ -265,7 +448,8 @@ class BatchWalker:
             for row, i in enumerate(idx):
                 if n_app[row]:
                     out_bases[i].extend(int(b) for b in bases[row, : n_app[row]])
-            nodes[idx] = K.as_u64(end_nodes)[: idx.size]  # k = 32 nodes may have the top bit set
+            # words with the top bit set come back as negative int64
+            nodes[idx] = K.as_u64(end_nodes).reshape(-1, self.wk)[: idx.size]
             remaining[idx] -= n_app
             status[idx] = st[: idx.size].cpu().numpy()
             self.n_walked += int(n_app.sum())
@@ -275,7 +459,7 @@ class BatchWalker:
         for i in range(n):
             st = int(status[i])
             reason = "tip" if st == STATUS_TIP else ("event" if st == STATUS_EVENT else "budget")
-            results.append((out_bases[i], int(nodes[i]), reason))
+            results.append((out_bases[i], self._int(nodes[i]), reason))
         return results
 
 

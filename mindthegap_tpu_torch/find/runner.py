@@ -2,11 +2,13 @@
 
 Builds or loads the de Bruijn graph (counted on the host, or on the device
 with -count-engine device: kernels K3 and K4), builds the
-reference-repeat set and the pair-coalesced scan map on the host, then
-scans every reference sequence on the device (find/scan_device.py, kernel
-K1 on CUDA) and replays the class stream in the native automaton
-(native/automaton.cpp), which writes `<out>.breakpoints` +
-`<out>.othervariants.vcf`. Mode flags follow src/Finder.cpp:320-398.
+reference-repeat set and the scan map on the host, then scans every
+reference sequence on the device (find/scan_device.py) and replays the
+stream in the native automaton (native/automaton.cpp), which writes
+`<out>.breakpoints` + `<out>.othervariants.vcf`. At k <= 32 the map is
+pair-coalesced and the device sends a class stream (kernel K1 on CUDA); at
+32 < k <= 256 it is the multi-word span map and the device sends payload
+bytes with strand bits (kernel K6). Mode flags follow src/Finder.cpp:320-398.
 """
 
 from __future__ import annotations
@@ -87,7 +89,10 @@ class FindStats:
 
 
 _VALID_SCAN_ENGINES = ("auto", "host", "device", "device-qp", "device-qb", "sharded", "sharded-mem")
-_PORTED_SCAN_ENGINES = ("auto", "device-qp")
+# the engines ported: at k <= 32 `auto` and `device-qp` take the pair map;
+# at 32 < k <= 256 `auto`, `device` and `device-qp` all take the span map,
+# as in the JAX package
+_PORTED_SCAN_ENGINES = ("auto", "device", "device-qp")
 
 
 def _validate_scan_engine(engine: str):
@@ -98,6 +103,16 @@ def _validate_scan_engine(engine: str):
         )
     if engine not in _PORTED_SCAN_ENGINES:
         raise NotYetPorted(f"-scan-engine {engine}")
+
+
+def _check_scan_k(engine: str, k: int):
+    """What stays unported at this k: the two-probe cuckoo plane path
+    (`-scan-engine device` at k <= 32) and the host automaton the JAX
+    package takes above k = 256."""
+    if k > 256:
+        raise NotYetPorted("find with -kmer-size above 256")
+    if engine == "device" and k <= 32:
+        raise NotYetPorted("-scan-engine device with -kmer-size up to 32")
 
 
 def _check_table_fits(nbytes: int, device: torch.device):
@@ -115,20 +130,75 @@ def _check_table_fits(nbytes: int, device: torch.device):
         )
 
 
+def _upload(part: np.ndarray, k: int, device: torch.device):
+    """One window's bases, padded with invalid bases to a multiple of 8 (the
+    bad-bit packing) and to at least k + 8, 2-bit packed on `device`."""
+    from .scan_device import pack_codes_host
+
+    wlen = max(-(-part.shape[0] // 8) * 8, -(-(k + 8) // 8) * 8)
+    row = np.full(wlen, 255, np.uint8)
+    row[: part.shape[0]] = part
+    packed, bad = pack_codes_host(row)
+    return torch.from_numpy(packed).to(device), torch.from_numpy(bad).to(device)
+
+
+def _to_host(res: dict, device: torch.device):
+    """Queue the copies of a window's results behind its kernel: (the host
+    tensors, the event the host waits on before reading them, or None on
+    the CPU)."""
+    on_cuda = device.type == "cuda"
+    host = {key: v.to("cpu", non_blocking=on_cuda) for key, v in res.items()}
+    done = None
+    if on_cuda:
+        done = torch.cuda.Event()
+        done.record()
+    return host, done
+
+
+def _window_feed(k: int, window: int, dispatch, emit):
+    """`codes -> iterator of chunks` over windows of `window` bases (halo
+    k-1; the last one cut to the sequence). Window g is dispatched before
+    window g-1 is emitted: CUDA launches and the device->host copies are
+    asynchronous, so the device computes g while the host replays g-1.
+    emit(pending, n_feed) gets what dispatch returned and the window's
+    share of the sequence's npos + 1 payload entries."""
+    step = window - (k - 1)
+
+    def feed(codes):
+        npos = codes.shape[0] - k + 1
+        if npos <= 0:
+            return
+        nwin = -(-npos // step)
+
+        def n_feed(w):
+            # the final window contributes its take + 1
+            return min(step, npos - w * step) + (1 if w == nwin - 1 else 0)
+
+        pending = None
+        for w in range(nwin):
+            res = dispatch(codes[w * step : w * step + window])
+            if pending is not None:
+                yield from emit(pending, n_feed(w - 1))
+            pending = res
+        yield from emit(pending, n_feed(nwin - 1))
+
+    return feed
+
+
 def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device,
                       window: int = 1 << 22, exc_cap: int | None = None):
-    """Class-stream scan feed for the native automaton: returns a factory
-    `codes -> iterator of chunks` for NativeScanner.scan_sequence_pay.
+    """Class-stream scan feed for the native automaton (k <= 32): returns a
+    factory `codes -> iterator of chunks` for NativeScanner.scan_sequence_pay.
 
-    Windows of `window` bases (halo k-1; the last one cut to the sequence)
-    go up 2-bit packed; the device returns the 2-bit class stream plus the
-    exception payloads (scan_cls_qp). A window with more exceptions than
-    its cap (default 12.5% of its payload entries) is re-dispatched dense
-    (scan_pay_qp). Window g is dispatched before window g-1 is replayed:
-    CUDA launches and the device->host copies are asynchronous, so the
-    device computes g while the host replays g-1."""
+    Windows of `window` bases go up 2-bit packed; the device returns the
+    2-bit class stream plus the exception payloads (scan_cls_qp). A window
+    with more exceptions than its cap (default 12.5% of its payload
+    entries) is re-dispatched dense (scan_pay_qp). At 32 < k <= 256 the
+    span feed (_make_span_feed_fn) takes its place."""
+    if k > 32:
+        return _make_span_feed_fn(graph, repeat_set, k, device)
     from ..ops import extmap as X
-    from .scan_device import pack_codes_host, scan_cls_qp, scan_pay_qp, unpack_codes
+    from .scan_device import scan_cls_qp, scan_pay_qp, unpack_codes
 
     qp = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers)
     _check_table_fits(qp.nbytes, device)
@@ -136,61 +206,69 @@ def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device,
     targs = (tables.slots, tables.stash_keys, tables.stash_l, tables.stash_r)
     log_size = qp.log_size
     del qp, tables  # only the device copy is used from here
-    halo = k - 1
-    step = window - halo
-    on_cuda = device.type == "cuda"
 
     def dispatch(part):
-        # a multiple of 8 bases (the bad-bit packing), at least k + 8
-        wlen = max(-(-part.shape[0] // 8) * 8, -(-(k + 8) // 8) * 8)
-        row = np.full(wlen, 255, np.uint8)
-        row[: part.shape[0]] = part
-        cap = exc_cap if exc_cap is not None else (wlen - k + 2 + 3) // 4 * 4 // 8
-        packed, bad = pack_codes_host(row)
-        packed = torch.from_numpy(packed).to(device)
-        bad = torch.from_numpy(bad).to(device)
+        packed, bad = _upload(part, k, device)
+        cap = exc_cap if exc_cap is not None else (packed.shape[0] * 4 - k + 2 + 3) // 4 * 4 // 8
         res = scan_cls_qp(packed, bad, *targs, log_size, k, cap)
-        # the copies are queued behind the kernel; the host waits on the
-        # event only when it replays this window
-        host = {key: v.to("cpu", non_blocking=on_cuda) for key, v in res.items()}
-        done = None
-        if on_cuda:
-            done = torch.cuda.Event()
-            done.record()
-        return host, done, packed, bad, cap
+        return _to_host(res, device) + (packed, bad, cap)
 
-    def feed(codes):
-        npos = codes.shape[0] - k + 1
-        if npos <= 0:
-            return
-        nwin = -(-npos // step)
-        takes = [min(step, npos - i * step) for i in range(nwin)]
+    def emit(pending, n_feed):
+        host, done, packed, bad, cap = pending
+        if done is not None:
+            done.synchronize()
+        n_exc = int(host["n_exc"])
+        if n_exc > cap:
+            # exception-heavy window: re-dispatch dense
+            r = scan_pay_qp(unpack_codes(packed, bad), *targs, log_size, k)
+            yield ("pay", r["pay8"].cpu().numpy()[:n_feed], r["rep8"].cpu().numpy(), None, n_feed)
+        else:
+            exc16 = host["exc16"].numpy().view(np.uint16)
+            yield ("cls", host["cls2"].numpy(), exc16, n_exc, n_feed)
 
-        def emit(w, pending):
-            host, done, packed, bad, cap = pending
-            if done is not None:
-                done.synchronize()
-            # the global payload stream has npos+1 entries; the final window
-            # contributes its take + 1
-            n_feed = takes[w] + (1 if w == nwin - 1 else 0)
-            n_exc = int(host["n_exc"])
-            if n_exc > cap:
-                # exception-heavy window: re-dispatch dense
-                r = scan_pay_qp(unpack_codes(packed, bad), *targs, log_size, k)
-                yield ("pay", r["pay8"].cpu().numpy()[:n_feed], r["rep8"].cpu().numpy(), None, n_feed)
-            else:
-                exc16 = host["exc16"].numpy().view(np.uint16)
-                yield ("cls", host["cls2"].numpy(), exc16, n_exc, n_feed)
+    return _window_feed(k, window, dispatch, emit)
 
-        pending = None
-        for w in range(nwin):
-            res = dispatch(codes[w * step : w * step + window])
-            if pending is not None:
-                yield from emit(w - 1, pending)
-            pending = res
-        yield from emit(nwin - 1, pending)
 
-    return feed
+def _build_span_map(graph, repeat_set, k: int):
+    """QMapSpan over the solid and repeat sets (32 < k <= 256)."""
+    from ..ops import extmap as X
+    from ..ops.span import Span
+
+    sp = Span(k)
+    spm1 = Span(k - 1)
+    solid_rows = sp.from_keys(graph.solid.keys)
+    if repeat_set.span is None:  # k = 33: the (k-1)-mer set is plain u64
+        rep_rows = np.asarray(repeat_set.keys, np.uint64).reshape(-1, 1)
+    else:
+        rep_rows = spm1.from_keys(repeat_set.keys)
+    return X.build_fused_span(solid_rows, k, rep_rows)
+
+
+def _make_span_feed_fn(graph, repeat_set, k: int, device: torch.device, window: int = 1 << 21):
+    """Payload scan feed for the native automaton at 32 < k <= 256: windows
+    of `window` bases go up 2-bit packed; the device returns each (k-1)-mer's
+    payload byte with its repeat and strand bits packed (scan_pay_q_span,
+    kernel K6 on CUDA), and the automaton orients each payload by its
+    strand bit."""
+    from .scan_device import scan_pay_q_span
+
+    qms = _build_span_map(graph, repeat_set, k)
+    _check_table_fits(qms.nbytes, device)
+    t = qms.to(device)
+    targs = (t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size)
+    del qms, t  # only the device copy is used from here
+
+    def dispatch(part):
+        packed, bad = _upload(part, k, device)
+        return _to_host(scan_pay_q_span(packed, bad, *targs, k), device)
+
+    def emit(pending, n_feed):
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        yield ("pay", host["pay8"].numpy()[:n_feed], host["rep8"].numpy(), host["str8"].numpy(), n_feed)
+
+    return _window_feed(k, window, dispatch, emit)
 
 
 def run_find(opts: dict, out=None) -> Properties:
@@ -218,8 +296,8 @@ def run_find(opts: dict, out=None) -> Properties:
     _validate_scan_engine(scan_engine)
     if opts.get("automaton", "auto") not in ("auto", "native"):
         raise NotYetPorted(f"-automaton {opts['automaton']}")
-    if has_in and int(opts.get("kmer-size", 31)) > 32:  # checked before the graph build
-        raise NotYetPorted("find with -kmer-size above 32")
+    if has_in:  # checked before the graph build
+        _check_scan_k(scan_engine, int(opts.get("kmer-size", 31)))
 
     from ..utils.phases import PhaseTimer, maybe_trace
 
@@ -247,8 +325,7 @@ def run_find(opts: dict, out=None) -> Properties:
         with phases.phase("graph load"):
             graph = dbg.Graph.load(opts["graph"])
             k = graph.k
-    if k > 32:  # a loaded graph
-        raise NotYetPorted("find with -kmer-size above 32")
+    _check_scan_k(scan_engine, k)  # a loaded graph
 
     bed_file = opts.get("bed", "")
 

@@ -13,7 +13,9 @@ positions) and ships it to the native automaton in one of two forms:
 Every function here is plain PyTorch and runs on any device, except
 scan_cls_qp, which on a CUDA tensor runs the hand kernel K1
 (csrc/scan_qp.cu: payloads, classes and the exception compaction in one
-pass) and on a CPU tensor its plain version below.
+pass) and on a CPU tensor its plain version below. At 32 < k <= 256 the
+scan is scan_pay_q_span over the multi-word span map: the hand kernel K6
+(csrc/scan_span.cu) on CUDA, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -284,3 +286,104 @@ def scan_cls_qp(packed, badbits, slots2, stash_k, stash_l, stash_r,
     kernel K1; on a CPU tensor its plain version."""
     fn = scan_cls_qp_cuda if packed.is_cuda else _scan_cls_qp_plain
     return fn(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k, exc_cap)
+
+
+# ---------------------------------------------------------------------------
+# The span scan (32 < k <= 256) over the multi-word map (ops/extmap.py
+# QMapSpan): one lookup per (k-1)-mer, no pair coalescing. Its payload is
+# the canonical (k-1)-mer's, not oriented to the strand, so the strand bits
+# travel with it and the native automaton orients each payload itself.
+
+
+def _scan_pay_q_span_plain(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
+                           salt: int, log_size: int, k: int):
+    """Plain version of K6: roll, canonicalize and look up every (k-1)-mer
+    of the window (an invalid base reads as base 0), then pack."""
+    from ..ops import span_device as SD
+
+    codes = unpack_codes(packed, badbits)
+    qm = X.QMapSpan(slots, sat, log_size, salt, stash_k64, stash_sat, stash_v)
+    qwords, _valid = SD.rolling_span(codes, k - 1)
+    canon, is_canon = SD.canonical_span(qwords, k - 1)
+    pay = X.lookup_q_span(qm, canon)
+    n_pay = pay.shape[0]
+    n8 = -(-n_pay // 8) * 8
+    padded = torch.zeros(n8, dtype=torch.int64, device=codes.device)
+    padded[:n_pay] = pay
+    strand = torch.zeros(n8, dtype=torch.int64, device=codes.device)
+    strand[:n_pay] = is_canon.to(torch.int64)
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int64, device=codes.device)
+    rep8 = (((padded >> 8) & 1).reshape(-1, 8) * w).sum(dim=1).to(torch.uint8)
+    str8 = (strand.reshape(-1, 8) * w).sum(dim=1).to(torch.uint8)
+    return {"pay8": (pay & 0xFF).to(torch.uint8), "rep8": rep8, "str8": str8}
+
+
+_SPAN_LIB = None
+
+
+def _span_scan_lib():
+    global _SPAN_LIB
+    if _SPAN_LIB is None:
+        from .._build import cuda_library
+
+        lib = cuda_library("scan_span.cu", "libmtg_scan_span.so")
+        lib.scan_pay_q_span_launch.restype = ctypes.c_int
+        lib.scan_pay_q_span_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        _SPAN_LIB = lib
+    return _SPAN_LIB
+
+
+def scan_pay_q_span_cuda(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
+                         salt: int, log_size: int, k: int):
+    """K6 (csrc/scan_span.cu): the same {pay8, rep8, str8} as
+    _scan_pay_q_span_plain, a thread for each 8 consecutive (k-1)-mers,
+    from bases staged in shared memory. Counts one launch per window in
+    `scan_pay_q_span_cuda.launches`."""
+    check_kernel_tensor(packed, "packed", torch.uint8, 1)
+    check_kernel_tensor(badbits, "badbits", torch.uint8, 1)
+    X.check_span_tables(slots, sat, stash_k64, stash_sat, stash_v, log_size, k)
+    w = packed.shape[0] * 4
+    if badbits.shape[0] * 8 != w or w % 8:
+        raise ValueError("badbits must hold one bit per base of packed (window % 8 == 0)")
+    if w < k + 8 or w >= 1 << 31:
+        raise ValueError(f"the window must hold [k + 8, 2^31) bases, got {w} at k={k}")
+    dev = packed.device
+    n_pay = w - k + 2
+    n8 = -(-n_pay // 8)
+    pay8 = torch.empty(n_pay, dtype=torch.uint8, device=dev)
+    rep8 = torch.empty(n8, dtype=torch.uint8, device=dev)
+    str8 = torch.empty(n8, dtype=torch.uint8, device=dev)
+    err = _span_scan_lib().scan_pay_q_span_launch(
+        packed.data_ptr(), badbits.data_ptr(), w,
+        slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
+        stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
+        stash_k64.shape[0], k,
+        pay8.data_ptr(), rep8.data_ptr(), str8.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"scan_pay_q_span kernel launch failed: CUDA error {err}")
+    scan_pay_q_span_cuda.launches += 1
+    return {"pay8": pay8, "rep8": rep8, "str8": str8}
+
+
+scan_pay_q_span_cuda.launches = 0
+
+
+def scan_pay_q_span(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
+                    salt: int, log_size: int, k: int):
+    """Span payload scan of one window (32 < k <= 256), from 2-bit packed
+    codes and bad bits (pack_codes_host), over the int64 tables of
+    QMapSpan.to. For each of the n_pay = W - k + 2 (k-1)-mers (an invalid
+    base read as base 0): its canonical form's 9-bit payload, of which
+    pay8 u8[n_pay] holds the low byte, rep8 the repeat bit and str8 whether
+    the (k-1)-mer as read is canonical, both packed big-endian as
+    np.packbits (u8[ceil(n_pay / 8)], padding bits 0). On a CUDA tensor
+    this runs the kernel K6; on a CPU tensor its plain version."""
+    fn = scan_pay_q_span_cuda if packed.is_cuda else _scan_pay_q_span_plain
+    return fn(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v, salt, log_size, k)

@@ -1,5 +1,5 @@
 """Fused quotient maps over canonical (k-1)- and (k-2)-mers — the graph
-probe structures of the find scan and the fill walk (k <= 32).
+probe structures of the find scan and the fill walk (k <= 256).
 
 The find scan needs, per reference position: membership of kmer_i, its
 forward-strand in/out degrees and two (k-1)-mer repeat bits. All of it
@@ -11,11 +11,12 @@ rides in a 9-bit payload per canonical (k-1)-mer p:
 
 and one canonical entry serves both strands (ext_{rc(p)}[x] = pre_p[x^2],
 complement is code^2 in the A=0,C=1,T=2,G=3 alphabet). The tables are built
-on the host by the native builders (native/tables.cpp); the cuckoo hash
-`mix` is a bijection on u64, so a slot stores only the hash remainder plus
-which hash placed it and still identifies its key exactly.
+on the host, by the native builders (native/tables.cpp) or, for the span
+map, in numpy; the cuckoo hash `mix` is a bijection on u64, so a slot
+stores only the hash remainder plus which hash placed it and still
+identifies its key exactly.
 
-Two layouts are used here:
+The layouts used here:
 - QMap (cuckoo, one u64 slot per (k-1)-mer) and QMapB (16-slot buckets):
   the fill walk's probes, scalar on the host (fill/traversal.py GraphView)
   and batched on the device (lookup_q, lookup_qb; fill/walk_device.py,
@@ -23,7 +24,10 @@ Two layouts are used here:
 - QMapP (pair-coalesced): one 16-byte row per canonical (k-2)-mer r holding
   the payloads of all eight (k-1)-mers containing r, so ONE row lookup
   yields the payloads of two consecutive reference positions. The find
-  scan's device pass (find/scan_device.py, csrc/scan_qp.cu) reads it.
+  scan's device pass (find/scan_device.py, csrc/scan_qp.cu) reads it;
+- QMapSpan (32 < k <= 256): QMap's slots keyed by a 64-bit digest of the
+  multi-word (k-1)-mer, with the other words in satellite planes; the
+  span scan and the span walker read it (lookup_q_span; csrc/span_map.cuh).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import check_kernel_tensor
 from . import kmers as K
 
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -448,3 +453,334 @@ def pair_payload_stream(qp: QMapP, codes: np.ndarray, n_pay: int) -> np.ndarray:
     pay[0::2] = pay_even
     pay[1::2] = pay_odd
     return pay[:n_pay].astype(np.uint16)
+
+
+# ---------------------------------------------------------------------------
+# QMapSpan: the multi-word (32 < k <= 256) fused quotient map. Keys are
+# canonical (k-1)-mers of Wq = ceil((k-1)/32) words, exact through a 64-bit
+# residual digest:
+#
+#   key64 = w0 ^ G(w1..w_{Wq-1})        (ops/span_device.py digest64)
+#
+# The quotient slot pins mix(key64 ^ salt) fully (mix is a bijection), and
+# satellite planes store words 1..Wq-1 raw; equal digest and equal
+# satellites mean equal keys (w0 recovered by the xor). A probe reads one
+# slot and Wq-1 satellite words. `salt` keeps every salted digest off the
+# EMPTY sentinel (digests span the full u64 range). The slot encoding is
+# QMap's. The table is placed in numpy (_place), as in the JAX package,
+# whose native placer takes no row-index payloads: the same keys give the
+# same table slot for slot.
+
+
+@dataclass
+class _Placed:
+    """A 2-choice cuckoo placement: keys[slot] (EMPTY = free), payload[slot],
+    and the keys left over in the stash, sorted."""
+
+    keys: np.ndarray
+    payload: np.ndarray
+    log_size: int
+    stash_keys: np.ndarray
+    stash_payload: np.ndarray
+
+
+def _mix_np(keys, const):
+    h = (keys ^ (keys >> np.uint64(33))) * const
+    return h ^ (h >> np.uint64(29))
+
+
+def _place(keys: np.ndarray, values: np.ndarray, load_factor: float, min_log: int = 4) -> _Placed:
+    """2-choice cuckoo placement of unique u64 keys (numpy; the JAX
+    package's placement, step for step): parallel greedy rounds with
+    staggered forced evictions, then a sequential random-walk cleanup; at
+    most 64 keys go to the stash."""
+    n = max(int(keys.size), 1)
+    log_size = max(min_log, int(np.ceil(np.log2(n / load_factor))))
+    size = 1 << log_size
+    tab_k = np.full(size, EMPTY, np.uint64)
+    tab_v = np.zeros(size, values.dtype)
+    choice = np.zeros(size, np.uint8)
+
+    pend_k, pend_v = keys, values
+    ptry = np.zeros(pend_k.size, np.uint8)
+    attempts = np.zeros(pend_k.size, np.uint8)
+    consts = (_H1, _H2)
+
+    for rnd in range(300):
+        if pend_k.size == 0:
+            break
+        slots = np.empty(pend_k.size, np.int64)
+        for h in range(2):
+            m = ptry == h
+            if m.any():
+                slots[m] = (_mix_np(pend_k[m], consts[h]) >> np.uint64(64 - log_size)).astype(np.int64)
+        force = attempts >= 2
+        greedy = ~force & (tab_k[slots] == EMPTY)
+        gidx = np.nonzero(greedy)[0]
+        u, fi = np.unique(slots[gidx], return_index=True)
+        tab_k[u] = pend_k[gidx[fi]]
+        tab_v[u] = pend_v[gidx[fi]]
+        choice[u] = ptry[gidx[fi]]
+        placed = np.zeros(pend_k.size, bool)
+        placed[gidx[fi]] = True
+
+        ev_k = np.zeros(0, np.uint64)
+        ev_v = np.zeros(0, values.dtype)
+        ev_t = np.zeros(0, np.uint8)
+        fidx = np.nonzero(force)[0]
+        if fidx.size:
+            # stagger evictions (random ~25% per round, varying by round) to
+            # break symmetric eviction cycles between parallel force keys
+            gate = ((_mix_np(pend_k[fidx], np.uint64(0xA0761D6478BD642F + 2 * rnd + 1)) >> np.uint64(62)) == 0)
+            fidx = fidx[gate]
+        if fidx.size:
+            u, fi = np.unique(slots[fidx], return_index=True)
+            occ = tab_k[u] != EMPTY
+            ev_k, ev_v = tab_k[u][occ], tab_v[u][occ]
+            ev_t = (choice[u][occ] + 1) % 2
+            tab_k[u] = pend_k[fidx[fi]]
+            tab_v[u] = pend_v[fidx[fi]]
+            choice[u] = ptry[fidx[fi]]
+            placed[fidx[fi]] = True
+
+        rest = ~placed
+        pend_k = np.concatenate([pend_k[rest], ev_k])
+        pend_v = np.concatenate([pend_v[rest], ev_v])
+        ptry = np.concatenate([(ptry[rest] + 1) % 2, ev_t])
+        attempts = np.concatenate([attempts[rest] + 1, np.zeros(ev_k.size, np.uint8)])
+
+    # sequential random-walk cleanup
+    rng = np.random.default_rng(0xBEEF)
+    stuck_k, stuck_v = [], []
+    for key, val in zip(pend_k, pend_v):
+        cur_k, cur_v = np.uint64(key), values.dtype.type(val)
+        ch = 0
+        ok = False
+        for _ in range(500):
+            slot = int(_mix_np(cur_k[None], consts[ch])[0] >> np.uint64(64 - log_size))
+            if tab_k[slot] == EMPTY:
+                tab_k[slot], tab_v[slot], choice[slot] = cur_k, cur_v, ch
+                ok = True
+                break
+            cur_k, tab_k[slot] = tab_k[slot], cur_k
+            cur_v, tab_v[slot] = tab_v[slot], cur_v
+            oc = int(choice[slot])
+            choice[slot] = ch
+            ch = (oc + 1) % 2
+        if not ok:
+            stuck_k.append(int(cur_k))
+            stuck_v.append(int(cur_v))
+    if len(stuck_k) > 64:
+        raise ValueError(f"extmap build left {len(stuck_k)} keys unplaced")
+    order = np.argsort(np.array(stuck_k, np.uint64))
+    return _Placed(
+        tab_k, tab_v, log_size,
+        np.array(stuck_k, np.uint64)[order],
+        np.array(stuck_v, values.dtype)[order],
+    )
+
+
+def _quotient_encode(tab_keys: np.ndarray, tab_vals: np.ndarray, log_size: int) -> np.ndarray:
+    """Pack an explicit (key, payload) cuckoo table into quotient slots.
+
+    The hash choice per slot is recovered from the keys themselves: a key
+    sits either at its H1 or its H2 slot (when both coincide, H1 works)."""
+    shift = np.uint64(64 - log_size)
+    occ = tab_keys != EMPTY
+    sidx = np.arange(tab_keys.size, dtype=np.uint64)
+    h1 = _mix_np(tab_keys, _H1)
+    h2 = _mix_np(tab_keys, _H2)
+    use1 = (h1 >> shift) == sidx
+    ok = use1 | ((h2 >> shift) == sidx)
+    if not ok[occ].all():
+        raise AssertionError("quotient encode: slot not reachable by either hash")
+    h = np.where(use1, h1, h2)
+    rem_mask = (np.uint64(1) << shift) - np.uint64(1)
+    val = (
+        ((h & rem_mask) << np.uint64(_Q_SHIFT_PAY))
+        | np.uint64(_Q_VALID)
+        | np.where(use1, np.uint64(0), np.uint64(_Q_CHOICE))
+        | tab_vals.astype(np.uint64)
+    )
+    return np.where(occ, val, np.uint64(0))
+
+
+@dataclass
+class QMapSpan:
+    """Host tables are numpy arrays; `to(device)` gives the same tables as
+    int64 tensors (QMapP.to's layout)."""
+
+    slots: np.ndarray | torch.Tensor  # u64 [S]; 0 = empty
+    sat: np.ndarray | torch.Tensor  # u64 [Wq-1, S] satellite word planes
+    log_size: int
+    salt: int
+    stash_key64: np.ndarray | torch.Tensor  # u64 [n] (salted digests; EMPTY-padded)
+    stash_sat: np.ndarray | torch.Tensor  # u64 [n, Wq-1]
+    stash_payload: np.ndarray | torch.Tensor  # u16 [n]
+
+    @property
+    def nbytes(self):
+        return self.slots.nbytes + self.sat.nbytes
+
+    def to(self, device) -> "QMapSpan":
+        return QMapSpan(_up(self.slots, device), _up(self.sat, device), self.log_size, self.salt,
+                        _up(self.stash_key64, device), _up(self.stash_sat, device),
+                        _up(self.stash_payload, device))
+
+
+def check_span_tables(slots, sat, stash_k64, stash_sat, stash_v, log_size: int, k: int):
+    """Validate a span map's int64 tensors (QMapSpan.to on the card) for
+    the kernels K6 and K7, which read them through csrc/span_map.cuh."""
+    check_kernel_tensor(slots, "slots", torch.int64, 1)
+    check_kernel_tensor(sat, "sat", torch.int64, 2)
+    check_kernel_tensor(stash_k64, "stash_k64", torch.int64, 1)
+    check_kernel_tensor(stash_sat, "stash_sat", torch.int64, 2)
+    check_kernel_tensor(stash_v, "stash_v", torch.int64, 1)
+    if not 33 <= k <= 256:
+        raise ValueError(f"the span map serves 32 < k <= 256, got k={k}")
+    wq = -(-(k - 1) // 32)
+    n_stash = stash_k64.shape[0]
+    if not 12 <= log_size <= 40 or slots.shape[0] != 1 << log_size:
+        raise ValueError(f"slots must hold 2**log_size words with log_size in [12, 40], got {slots.shape[0]}")
+    if tuple(sat.shape) != (wq - 1, 1 << log_size):
+        raise ValueError(f"sat must be [{wq - 1}, 2**log_size] at k={k}, got {tuple(sat.shape)}")
+    if not 1 <= n_stash <= 64 or tuple(stash_sat.shape) != (n_stash, wq - 1) or stash_v.shape[0] != n_stash:
+        raise ValueError("the stash must hold 1..64 entries, each with Wq-1 satellite words and a payload")
+
+
+def build_fused_span(solid_rows: np.ndarray, k: int, repeat_rows: np.ndarray,
+                     load_factor: float = 0.35) -> QMapSpan:
+    """Fused (k-1)-mer map for k > 32: ext/pre bits from the multi-word solid
+    set (rows of ceil(k/32) words) plus the repeat bit from the (k-1)-mer
+    repeat rows, quotient-encoded with satellite word planes."""
+    from .span import Span
+    from .span_device import digest64
+
+    sp = Span(k)
+    spm1 = Span(k - 1)
+    wq = spm1.W
+    solid_rows = np.asarray(solid_rows, np.uint64).reshape(-1, sp.W)
+    repeat_rows = np.asarray(repeat_rows, np.uint64).reshape(-1, wq)
+
+    rows_parts, bits_parts = [], []
+    fwd = solid_rows
+    orientations = (fwd, sp.revcomp(fwd)) if fwd.size else (fwd,)
+    for F in orientations:
+        if F.shape[0] == 0:
+            continue
+        # prefix rule: p = (F >> 2) & mask(k-1), x = last base -> ext_p[x]
+        p = sp.low_bits(sp.shifted_right2(F), k - 1)
+        x = (F[:, -1] & np.uint64(3)).astype(np.uint8)
+        cp = spm1.canonical(p)
+        is_c = spm1.keys(p) == spm1.keys(cp)
+        bit = np.where(is_c, x, 4 + (x ^ 2))
+        rows_parts.append(cp)
+        bits_parts.append(np.left_shift(np.uint16(1), bit.astype(np.uint16)).astype(np.uint16))
+        # suffix rule: s = F & mask(k-1), y = first base -> pre_s[y]
+        s = sp.low_bits(F, k - 1)
+        top_bits = 2 * k - 64 * (sp.W - 1)
+        y = ((F[:, 0] >> np.uint64(top_bits - 2)) & np.uint64(3)).astype(np.uint8)
+        cs = spm1.canonical(s)
+        is_cs = spm1.keys(s) == spm1.keys(cs)
+        bit = np.where(is_cs, 4 + y, (y ^ 2))
+        rows_parts.append(cs)
+        bits_parts.append(np.left_shift(np.uint16(1), bit.astype(np.uint16)).astype(np.uint16))
+    if repeat_rows.shape[0]:
+        rows_parts.append(repeat_rows)
+        bits_parts.append(np.full(repeat_rows.shape[0], QREP_BIT, np.uint16))
+
+    if rows_parts:
+        rows_all = np.concatenate(rows_parts)
+        bits_all = np.concatenate(bits_parts)
+    else:
+        rows_all = np.zeros((0, wq), np.uint64)
+        bits_all = np.zeros(0, np.uint16)
+
+    # dedup by void keys, OR the payload bits
+    keys_v = spm1.keys(rows_all)
+    order = np.argsort(keys_v, kind="stable")
+    kv, bv = keys_v[order], bits_all[order]
+    uniq = np.empty(kv.size, bool)
+    if kv.size:
+        uniq[0] = True
+        uniq[1:] = kv[1:] != kv[:-1]
+        group = np.cumsum(uniq) - 1
+        merged = np.zeros(int(group[-1]) + 1, np.uint16)
+        np.bitwise_or.at(merged, group, bv)
+        rows = spm1.from_keys(kv[uniq])
+        vals = merged
+    else:
+        rows = rows_all
+        vals = bits_all
+
+    dig = digest64(rows.T) if rows.shape[0] else np.zeros(0, np.uint64)
+    salt = np.uint64(0)
+    rng = np.random.default_rng(0xD1CE)
+    while rows.shape[0] and bool(((dig ^ salt) == EMPTY).any()):
+        salt = np.uint64(rng.integers(0, 1 << 63, dtype=np.uint64))
+    dig_s = dig ^ salt
+
+    em = _place(dig_s, np.arange(max(rows.shape[0], 1), dtype=np.uint32)[: rows.shape[0]]
+                if rows.shape[0] else np.zeros(0, np.uint32),
+                load_factor, min_log=12)
+    size = 1 << em.log_size
+    occ = em.keys != EMPTY
+    idx = em.payload.astype(np.int64)
+    pay_slot = np.where(occ, vals[np.minimum(idx, max(vals.size - 1, 0))] if vals.size else 0, 0).astype(np.uint16)
+    slots = _quotient_encode(em.keys, pay_slot, em.log_size)
+    sat = np.zeros((wq - 1, size), np.uint64)
+    if rows.shape[0]:
+        occ_idx = np.nonzero(occ)[0]
+        for i in range(1, wq):
+            sat[i - 1, occ_idx] = rows[idx[occ_idx], i]
+
+    n_st = em.stash_keys.size
+    stash_key64 = em.stash_keys if n_st else np.array([EMPTY], np.uint64)
+    if n_st:
+        sidx = em.stash_payload.astype(np.int64)
+        stash_sat = rows[sidx][:, 1:] if wq > 1 else np.zeros((n_st, 0), np.uint64)
+        stash_pay = vals[sidx].astype(np.uint16)
+    else:
+        stash_sat = np.zeros((1, wq - 1), np.uint64)
+        stash_pay = np.zeros(1, np.uint16)
+    return QMapSpan(slots, sat, em.log_size, int(salt), stash_key64, stash_sat, stash_pay)
+
+
+def span_probe(qms: QMapSpan, words: torch.Tensor):
+    """Both cuckoo probes of multi-word keys (qms from QMapSpan.to; words:
+    (Wq, P) canonical (k-1)-mers), row 0 under H1 and row 1 under H2:
+    (the salted digests [P], the slot words [2, P], whether each slot holds
+    the key's digest — remainder, valid bit and choice — [2, P], and
+    whether it holds the key, its satellite words equal too, [2, P])."""
+    from .span_device import digest64
+
+    shift = 64 - qms.log_size
+    dig = digest64(words) ^ K.i64(qms.salt)
+    consts = torch.tensor([[K.i64(_H1)], [K.i64(_H2)]], device=words.device)
+    h = (dig ^ K.shr(dig, 33))[None] * consts  # _mix, under both constants
+    h = h ^ K.shr(h, 29)
+    slot = K.shr(h, shift)
+    v = qms.slots[slot]
+    choice = torch.tensor([[_Q_VALID], [_Q_VALID | _Q_CHOICE]], device=words.device)
+    here = (v & ~QPAY_MASK) == (((h & ((1 << shift) - 1)) << _Q_SHIFT_PAY) | choice)
+    hit = here & (qms.sat[:, slot] == words[1:, None]).all(0) if words.shape[0] > 1 else here
+    return dig, v, here, hit
+
+
+def lookup_q_span(qms: QMapSpan, words: torch.Tensor) -> torch.Tensor:
+    """Fused payload lookup of multi-word keys on int64 tensors (qms from
+    QMapSpan.to): per probe one slot and Wq-1 satellite gathers, for both
+    hash choices (span_probe), then the stash, whose hit is ORed in.
+    words: (Wq, P) canonical (k-1)-mers. Returns the 9-bit payloads (0 for
+    absent keys)."""
+    dig, v, _here, hit = span_probe(qms, words)
+    # a key sits in one place; the second choice's hit is taken over the first's
+    out = torch.where(hit[1], v[1], torch.where(hit[0], v[0], 0)) & QPAY_MASK
+    # the stash: its rows are unique, so at most one entry matches; the
+    # EMPTY padding carries payload 0, so a digest equal to it adds nothing
+    for s in range(qms.stash_key64.shape[0]):
+        eq = dig == qms.stash_key64[s]
+        if words.shape[0] > 1:
+            eq = eq & (words[1:] == qms.stash_sat[s][:, None]).all(0)
+        out = out | torch.where(eq, qms.stash_payload[s], 0)
+    return out

@@ -11,8 +11,8 @@ from mindthegap_tpu_torch.find import scan_device as S
 from mindthegap_tpu_torch.ops import extmap as X
 from mindthegap_tpu_torch.ops import kmers as K
 from mindthegap_tpu_torch.ops import nw_device as ND
-from torch_tables import (SCAN_EDGE_NAMES, edge_walk_case, key_edge_batches, merge_edge_cases, move_to_stash,
-                          scan_edge_windows)
+from torch_tables import (SCAN_EDGE_NAMES, SPAN_EDGE_NAMES, edge_walk_case, edge_walk_span_case, key_edge_batches,
+                          merge_edge_cases, move_to_stash, scan_edge_windows, span_edge_windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +207,69 @@ def test_nw_kernel_matches_plain(cuda):
     assert ND.nw_matches_cuda.launches == before + 1
     want = ND._nw_matches_plain(seq.to(cuda), off.to(cuda))
     assert torch.equal(got.cpu(), want.cpu())
+
+
+def _span_args(qms, t, codes, device):
+    packed, bad = (torch.from_numpy(a).to(device) for a in S.pack_codes_host(codes))
+    return (packed, bad, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size)
+
+
+@pytest.mark.parametrize("k", [33, 45, 64, 96, 128, 256])
+@pytest.mark.parametrize("name", SPAN_EDGE_NAMES)
+def test_span_scan_kernel_edge_cases(cuda, name, k):
+    """K6 against its plain version on its edges (tests/torch_tables.py
+    span_edge_windows): Ns across tiles, stash hits, an unrelated window,
+    invalid bases only, the shortest window; one launch a call."""
+    qms, cases = span_edge_windows(k)
+    t = qms.to(cuda)
+    args = _span_args(qms, t, cases[name], cuda) + (k,)
+    want = S._scan_pay_q_span_plain(*args)
+    before = S.scan_pay_q_span_cuda.launches
+    got = S.scan_pay_q_span_cuda(*args)
+    torch.cuda.synchronize()
+    assert S.scan_pay_q_span_cuda.launches == before + 1
+    for key in ("pay8", "rep8", "str8"):
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("k", [33, 45, 65, 96, 128, 256])
+def test_span_scan_kernel_matches_plain(cuda, k):
+    """K6 against its plain version on a 2^16-base window of a genome whose
+    k-mers fill the map (with a repeat set), with isolated Ns."""
+    from mindthegap_tpu_torch.ops.span import Span
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 100_000, dtype=np.uint8)
+    sp, spm1 = Span(k), Span(k - 1)
+    fwd, _ = sp.from_codes(genome[:80_000])
+    solid = sp.from_keys(np.unique(sp.keys(sp.canonical(fwd))))
+    q, _ = spm1.from_codes(genome)
+    rep = spm1.from_keys(np.unique(spm1.keys(spm1.canonical(q[::30]))))
+    qms = X.build_fused_span(solid, k, rep)
+    codes = genome[10_000:10_000 + 65_536].copy()
+    codes[rng.integers(0, codes.size, 40)] = 255
+    args = _span_args(qms, qms.to(cuda), codes, cuda) + (k,)
+    got = S.scan_pay_q_span_cuda(*args)
+    want = S._scan_pay_q_span_plain(*args)
+    torch.cuda.synchronize()
+    for key in ("pay8", "rep8", "str8"):
+        assert torch.equal(got[key], want[key]), key
+    assert (want["pay8"] != 0).float().mean() > 0.8
+
+
+@pytest.mark.parametrize("k,lanes", [(33, 48), (45, 37), (45, 1), (64, 8), (65, 100), (96, 64), (128, 40), (256, 33)])
+def test_span_walk_kernel_edge_cases(cuda, k, lanes):
+    """K7 against its plain version on its edges (tests/torch_tables.py
+    edge_walk_span_case): budgets of 0, tips, forks and merges, budget and
+    step stops, stash hits; one launch a call."""
+    from mindthegap_tpu_torch.fill import walk_device as W
+
+    _qms, args = edge_walk_span_case(k, lanes, cuda)
+    want = W._walk_batch_span_plain(*args)
+    before = W.walk_batch_span_cuda.launches
+    got = W.walk_batch_span_cuda(*args)
+    torch.cuda.synchronize()
+    assert W.walk_batch_span_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[1].max()) == 64 or lanes <= 8  # some lanes walk every step

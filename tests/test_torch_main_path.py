@@ -197,31 +197,25 @@ def test_fill_device_engine_without_gpu_raises(runs, tmp_path, monkeypatch):
     ["-automaton", "host"],
     ["-count-engine", "sharded"],
     ["-profile-trace", "trace_dir"],
-    ["-kmer-size", "45"],
-], ids=lambda e: e[0] + "=" + e[1])
+    ["-scan-engine", "device-qb", "-kmer-size", "45"],
+    ["-scan-engine", "device"],
+], ids=lambda e: " ".join(f"{a}={b}" for a, b in zip(e[0::2], e[1::2])))
 def test_unported_find_options_raise(runs, tmp_path, extra):
+    """What find does not run yet raises before the graph build: the plane
+    path (-scan-engine device at k = 31, device-qb at any k), the host scan
+    and automaton, the sharded engines and the trace."""
     root, _ = runs
+    opts = {"in": str(root / "reads_1.fa"), "ref": str(root / "ref.fa"), "out": "u", "device": "cpu"}
+    opts.update((name.lstrip("-"), value) for name, value in zip(extra[0::2], extra[1::2]))
     with _cwd(tmp_path):
         with pytest.raises(NotYetPorted):
-            port_find({"in": str(root / "reads_1.fa"), "ref": str(root / "ref.fa"), "out": "u",
-                       "device": "cpu", extra[0].lstrip("-"): extra[1]}, out=io.StringIO())
+            port_find(opts, out=io.StringIO())
         # through the CLI the same failure is reported, and the run fails
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
             rc = cli.main(["find", "-in", str(root / "reads_1.fa"), "-ref", str(root / "ref.fa"),
                            "-out", "u", "-device", "cpu", *extra])
         assert rc == 1 and "not yet ported" in report.getvalue()
-
-
-@pytest.mark.parametrize("engine", ["device", "device-qb"])
-def test_unported_fill_engines_raise(runs, tmp_path, engine):
-    """The device walker covers k <= 32: at k = 45 (the span walker) it
-    raises before the graph is built."""
-    root, _ = runs
-    with _cwd(tmp_path), pytest.raises(NotYetPorted):
-        port_fill({"in": str(root / "reads_1.fa"), "bkpt": str(root / "port" / "t.breakpoints"),
-                   "out": "u", "fill-engine": engine, "kmer-size": "45", "device": "cpu"},
-                  out=io.StringIO())
 
 
 def test_find_without_gpu_raises(runs, tmp_path, monkeypatch):

@@ -187,14 +187,22 @@ def test_run_jobs_batched_interleaves():
 
 
 def test_span_and_mesh_walkers_raise():
+    """The device mesh raises "not yet ported"; a span map (k > 32) now
+    gives a span-mode walker instead of raising."""
     from mindthegap_tpu_torch import NotYetPorted
+    from mindthegap_tpu_torch.ops.span import Span
 
     solid = _random_solid(3, 15)
     qm = _table("cuckoo", solid, 15)
     with pytest.raises(NotYetPorted):
         PW.BatchWalker(qm, 15, "cpu", mesh=object())
+    sp = Span(45)
+    rows, _ = sp.from_codes(np.random.default_rng(3).integers(0, 4, 500, dtype=np.uint8))
+    qms = PX.build_fused_span(sp.canonical(rows), 45, np.zeros((0, 2), np.uint64))
+    walker = PW.BatchWalker(qms, 45, "cpu")
+    assert walker.layout == "span" and walker.wk == 2
     with pytest.raises(NotYetPorted):
-        PW.BatchWalker(None, 45, "cpu")
+        PW.BatchWalker(qms, 45, "cpu", mesh=object())
 
 
 def test_walk_kernel_wrapper_takes_cuda_tensors_only():

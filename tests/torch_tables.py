@@ -231,3 +231,144 @@ def key_edge_batches(seed: int = 0):
             small[-1] = 255
         cases[f"smallest-k{k}"] = (small, k)
     return cases
+
+
+# ---------------------------------------------------------------------------
+# the span map (32 < k <= 256): K6's windows and K7's walks
+
+
+def move_to_stash_span(qms: X.QMapSpan, rows) -> X.QMapSpan:
+    """Copy of host span map `qms` with the slots of `rows` (canonical
+    (k-1)-mer rows [n, Wq] present in the table) cleared and their salted
+    digests, satellite words and payloads added to the stash."""
+    from mindthegap_tpu_torch.ops.span_device import digest64
+
+    slots, sat = qms.slots.copy(), qms.sat.copy()
+    shift = 64 - qms.log_size
+    rem_mask = (1 << shift) - 1
+    wq = sat.shape[0] + 1
+    stash = [(int(k), tuple(int(x) for x in s), int(v))
+             for k, s, v in zip(qms.stash_key64, qms.stash_sat, qms.stash_payload) if int(k) != _EMPTY]
+    rows = np.asarray(rows, np.uint64).reshape(-1, wq)
+    for row, dig in zip(rows, digest64(rows.T)):
+        dig = int(dig) ^ qms.salt
+        for i, const in enumerate((int(X._H1), int(X._H2))):
+            h = _mix(dig, const)
+            slot = h >> shift
+            v = int(slots[slot])
+            sats = tuple(int(x) for x in sat[:, slot])
+            if (v >> 10) & 1 and (v >> 9) & 1 == i and v >> 11 == h & rem_mask and sats == tuple(int(x) for x in row[1:]):
+                stash.append((dig, sats, v & 0x1FF))
+                slots[slot] = 0
+                sat[:, slot] = 0
+                break
+        else:
+            raise KeyError(f"{row} is not in the table")
+    assert len(stash) <= 64
+    stash.sort()
+    sk = np.array([k for k, _, _ in stash], np.uint64)
+    ss = np.array([s for _, s, _ in stash], np.uint64).reshape(len(stash), wq - 1)
+    sv = np.array([v for _, _, v in stash], np.uint16)
+    return X.QMapSpan(slots, sat, qms.log_size, qms.salt, sk, ss, sv)
+
+
+def _span_rows(codes: np.ndarray, k: int):
+    """(forward rows [P, W], canonical rows [P, W]) of every k-mer of `codes`."""
+    from mindthegap_tpu_torch.ops.span import Span
+
+    sp = Span(k)
+    fwd, _ = sp.from_codes(codes)
+    return fwd, sp.canonical(fwd)
+
+
+def _unique_rows(rows: np.ndarray, k: int) -> np.ndarray:
+    from mindthegap_tpu_torch.ops.span import Span
+
+    sp = Span(k)
+    return sp.from_keys(np.unique(sp.keys(rows)))
+
+
+SPAN_EDGE_NAMES = ("genome-ns-stash", "unrelated", "all-invalid", "shortest")
+
+
+def span_edge_windows(k: int, seed: int = 0):
+    """(host span map with 30 entries moved to its stash, {name: codes u8[w]})
+    for K6 at 32 < k <= 256, over the map of a 40 kb genome's k-mers (the
+    first 30 kb) with a repeat set of every 40th (k-1)-mer: 8,256 bases of
+    the genome (four full tiles of 2,048 (k-1)-mers and a partial one) with
+    N runs across the tile boundaries and isolated Ns, whose (k-1)-mers hit
+    the stash; a window unrelated to the map; a window of invalid bases
+    only (every (k-1)-mer reads as all-A); and the shortest window the feed
+    sends (k + 8 bases rounded up to 8). n_pay = w - k + 2 is a multiple of
+    8 only where k = 2 mod 8, so the last byte of rep8 and str8 is partial
+    at the k the tests use."""
+    from mindthegap_tpu_torch.ops.span import Span
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 40_000, dtype=np.uint8)
+    _fwd, canon = _span_rows(genome[:30_000], k)
+    solid = _unique_rows(canon, k)
+    _qf, qcanon = _span_rows(genome, k - 1)
+    repeat = _unique_rows(qcanon[::40], k - 1)
+    host = X.build_fused_span(solid, k, repeat)
+    _sf, scanon = _span_rows(genome[12_000:12_300], k - 1)
+    stash = _unique_rows(scanon, k - 1)[:30]
+    qms = move_to_stash_span(host, stash)
+
+    window = genome[10_000:10_000 + 8256].copy()
+    for lo, hi in ((2030, 2070), (4090, 4100), (6100, 6100 + k)):
+        window[lo:hi] = 255
+    window[rng.integers(0, window.size, 12)] = 255
+    cases = {
+        "genome-ns-stash": window,
+        "unrelated": rng.integers(0, 4, 4096, dtype=np.uint8),
+        "all-invalid": np.full(256 + 8 * (k // 8), 255, np.uint8),
+        "shortest": genome[10_000:10_000 + -(-(k + 8) // 8) * 8].copy(),
+    }
+    assert tuple(cases) == SPAN_EDGE_NAMES and Span(k - 1).W == qms.sat.shape[0] + 1
+    return qms, cases
+
+
+def walk_span_edge_inputs(k: int, lanes: int, seed: int):
+    """(solid canonical k-mer rows, start rows u64[lanes, Wk], budgets
+    i32[lanes], stash (k-1)-mer rows) for K7: a genome with a planted
+    repeat (forks and merges), starts 1..16 steps before the repeat's ends
+    on both strands, the two dead ends of the genome (tips), budgets of
+    0..7 among the first 64 lanes, and stash keys 1..3 steps ahead of some
+    starts."""
+    from mindthegap_tpu_torch.ops.span import Span
+
+    rng = np.random.default_rng(seed)
+    n = 20_000
+    genome = rng.integers(0, 4, n, dtype=np.uint8)
+    a, b, r = n // 5, 3 * n // 5, 300
+    genome[b : b + r] = genome[a : a + r]
+    fwd, canon = _span_rows(genome, k)
+    rev, _ = _span_rows(genome[::-1] ^ 2, k)
+    solid = _unique_rows(canon, k)
+    near = [a + r - k - d for d in range(1, 17)] + [b - k - d for d in range(1, 17)]
+    starts = [fwd[-1], rev[-1]] + [fwd[p] for p in near] + [rev[n - k - p] for p in near[:16]]
+    starts += list(fwd[rng.integers(0, fwd.shape[0], max(lanes - len(starts), 0))])
+    nodes = np.array(starts[:lanes], np.uint64)
+    budgets = np.full(lanes, 10_000, np.int32)
+    budgets[: min(lanes, 64)][3::4] = np.arange(len(budgets[: min(lanes, 64)][3::4])) % 8
+    ahead = fwd[[p + d for p in near[::3] for d in (1, 2, 3)]]
+    sp, spm1 = Span(k), Span(k - 1)
+    stash = _unique_rows(spm1.canonical(sp.low_bits(ahead, k - 1)), k - 1)[:40]
+    return solid, nodes, budgets, stash
+
+
+def edge_walk_span_case(k: int, lanes: int, device):
+    """A span map with stashed look-ahead nodes and the starts of
+    walk_span_edge_inputs, as walk_batch_span's arguments on `device` (64
+    steps)."""
+    import torch
+
+    from mindthegap_tpu_torch.ops import kmers as K
+    from mindthegap_tpu_torch.ops.span import Span
+
+    solid, nodes, budgets, stash = walk_span_edge_inputs(k, lanes, seed=k + lanes)
+    qms = move_to_stash_span(X.build_fused_span(solid, k, np.zeros((0, Span(k - 1).W), np.uint64)), stash)
+    t = qms.to(device)
+    return qms, (torch.from_numpy(K.as_i64(nodes)).to(device), torch.from_numpy(budgets).to(device),
+                 t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size, k, 64)
