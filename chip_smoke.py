@@ -23,9 +23,10 @@ Phases, each of which must pass (any failure exits non-zero):
      chain latency), both layouts, and on its look-ahead edge cases at
      every depth; K6 on a full 2^21-base window at k = 45 over the span map
      of the donor's k-mers (made from the donor directly, without
-     counting), and on its edge windows at k 33 to 256; K7 on donor
-     k-mers at k = 45 with a budget of 10,000 and 2,048 steps at 4,096,
-     128 and 1 lanes, and on its edge cases at k 33 to 256. The edge cases
+     counting), and on its edge windows at k 33 to 256; K7 on donor k-mers at k = 45 with a budget of
+     10,000 and 2,048 steps at 4,096, 128 and 1 lanes (each at the
+     look-ahead depth its rule picks), and on its edge cases at k 33 to 256
+     at every depth. The edge cases
      come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
      merge_edge_cases, edge_walk_case, span_edge_windows,
      edge_walk_span_case), the generators the CUDA tests use, so the smoke and
@@ -54,7 +55,9 @@ Phases, each of which must pass (any failure exits non-zero):
      because host span counting takes ~0.7 ms a read), in-process: `find
      -kmer-size 45` (the span scan, K6), the native fill, `fill
      -fill-engine device` and `device-qb` (the span walker, K7); then a
-     `find -graph -device cpu` rerun;
+     `find -graph -device cpu` rerun; then `find -graph` (the span map's
+     build and upload, K6) and the two device fills again under
+     torch.profiler, for the device time of the k = 45 path;
   7. check the results: every kernel launched on its path; the find
      artifacts equal a `-device cpu` rerun on the same graph (at k = 31
      and k = 45); the device-count graph, breakpoints and VCF records
@@ -523,11 +526,11 @@ def check_span_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int
     sectors = span_scan_sectors(packed, bad, t, k)
     bound = _bytes_bound_ms(sectors * SECTOR_BYTES + _nbytes(packed, bad, *(got[key] for key in keys)))
     n_pay = window - k + 2
-    print(f"K6 scan_pay_q_span: window {window}, k {k}, solid {solid.shape[0]}, table {qms.nbytes >> 20} MB "
-          f"(built in {build_s:.1f} s on the host), stash {int(qms.stash_key64.size)}, "
+    print(f"K6 scan_pay_q_span: window {window}, k {k}, solid {solid.shape[0]}, table "
+          f"{qms.nbytes >> 20} MB (built in {build_s:.1f} s on the host), stash {int(qms.stash_key64.size)}, "
           f"{int((want['pay8'] != 0).sum())} of {n_pay} payloads non-zero, max_abs_err {errs[0]} (tolerance 0: "
           f"exact), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms (bytes: "
-          f"{sectors} sectors for {n_pay} probes)")
+          f"{sectors} sectors needed for {n_pay} probes, and loaded by the kernel)")
     for kk in (33, 45, 64, 65, 96, 128, 256):
         eq, cases = span_edge_windows(kk)
         te = eq.to("cuda")
@@ -547,13 +550,15 @@ def check_span_walk_kernel(fwd: np.ndarray, qms, k: int, seed: int) -> dict:
     """K7 on donor k-mers with a budget of 10,000 for the walker's largest
     step count, over the span map of K6's check, at 4,096 lanes (the
     record's `ms`, `plain_ms` and `bound_ms`), 128 lanes (the fill's shape)
-    and 1 lane (the chain latency), each exact against the plain version
-    and listed under "shapes"; then on its edge cases at k 33 to 256."""
+    and 1 lane (the chain latency), each at the look-ahead depth its rule
+    picks, exact against the plain version and listed under "shapes"; then
+    on its edge cases at k 33 to 256 at every depth."""
     import torch
 
     from mindthegap_tpu_torch.bounds import walk_span_bound_ms
     from mindthegap_tpu_torch.fill import walk_device as W
     from mindthegap_tpu_torch.ops import kmers as K
+    from mindthegap_tpu_torch.ops.span_device import span_width
     from torch_tables import edge_walk_span_case
 
     rng = np.random.default_rng(seed)
@@ -574,18 +579,23 @@ def check_span_walk_kernel(fwd: np.ndarray, qms, k: int, seed: int) -> dict:
         errs.append(_max_abs_err(zip(got, want)))
         ms = _cuda_ms(lambda: W.walk_batch_span_cuda(*args), iters=10 if lanes < 4096 else 5)
         walked = int(got[1].max())
-        row = {"lanes": lanes, "ms": ms, "plain_ms": plain_ms, "us_per_step": ms * 1e3 / max(walked, 1),
+        row = {"lanes": lanes, "depth": W.lookahead_depth(lanes, "span", span_width(k - 1)), "ms": ms,
+               "plain_ms": plain_ms, "us_per_step": ms * 1e3 / max(walked, 1),
                "bound_ms": walk_span_bound_ms(got[1], got[3], lanes, steps, k)}
         shapes.append(row)
-        print(f"K7 walk_batch_span: {lanes} lanes, {steps} steps, k {k}, {int(got[1].sum())} bases appended, "
+        print(f"K7 walk_batch_span: {lanes} lanes, {steps} steps, k {k}, D = {row['depth']}, "
+              f"{int(got[1].sum())} bases appended, "
               f"max_abs_err {errs[-1]} (tolerance 0: exact), kernel {ms:.4f} ms ({row['us_per_step']:.4f} us "
               f"per step), plain {plain_ms:.1f} ms (one call), bound {row['bound_ms']:.4f} ms (bytes)")
     for kk, lanes in ((33, 48), (45, 37), (64, 8), (65, 100), (96, 64), (128, 40), (256, 33)):
         _q, eargs = edge_walk_span_case(kk, lanes, "cuda")
-        g, w = W.walk_batch_span_cuda(*eargs), W._walk_batch_span_plain(*eargs)
-        torch.cuda.synchronize()
-        errs.append(_max_abs_err(zip(g, w)))
-        print(f"K7 edge case (k {kk}, {lanes} lanes): max_abs_err {errs[-1]}")
+        w = W._walk_batch_span_plain(*eargs)
+        for depth in W.DEPTHS:
+            g = W.walk_batch_span_cuda(*eargs, depth=depth)
+            torch.cuda.synchronize()
+            errs.append(_max_abs_err(zip(g, w)))
+        print(f"K7 edge case (k {kk}, {lanes} lanes, depths {W.DEPTHS}, rule "
+              f"{W.lookahead_depth(lanes, 'span', span_width(kk - 1))}): max_abs_err {max(errs[-len(W.DEPTHS):])}")
     big = shapes[0]
     return {"max_abs_err": max(errs), "ms": big["ms"], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "shapes": shapes}
@@ -612,7 +622,8 @@ def _same(a: str, b: str) -> bool:
 
 # kernels by name in a device trace: (label, substrings of the kernel names)
 _TRACED = (("K3", ("kmer_keys",)), ("K4", ("partition_kernel", "merge_fold_kernel", "pad_kernel")),
-           ("K5", ("walk_kernel",)), ("sort", ("radix", "Sort")))
+           ("K5", ("walk_kernel",)), ("K6", ("scan_span_kernel",)), ("K7", ("walk_span_kernel",)),
+           ("sort", ("radix", "Sort")))
 
 
 def _device_ms(fn):
@@ -812,7 +823,9 @@ def span_path(work: str, seed: int) -> dict:
     with 22 insertions, 11 SNPs and 11 deletions, 30x): `find -kmer-size
     45` (K6 on CUDA), the native fill, `fill -fill-engine device` and
     `device-qb` (K7), all in-process; a `find -graph -device cpu` rerun as
-    a subprocess. Returns the kernel launch counts of the run."""
+    a subprocess; then `find -graph` and the two device fills again under
+    torch.profiler (the device time of the path; its walls are the first
+    run's). Returns the kernel launch counts of the first run."""
     sub = os.path.join(work, "span")
     os.makedirs(sub)
     ref, donor, insertions = make_case(SPAN_GENOME, n_ins=22, n_snp=11, n_del=11, seed=seed + 7)
@@ -832,6 +845,12 @@ def span_path(work: str, seed: int) -> dict:
                                "-verbose", "0"])
         times = {out: fill(out, engine) for out, engine in (("sn", "native"), ("sd", "device"), ("sq", "device-qb"))}
         counts = launches()
+        # the device time of the path: the graph is built, so find -graph
+        # redoes all of find's device work (the span map's upload and K6)
+        dev = {"find": _device_ms(lambda: _cli(["find", "-graph", "s.h5", "-ref", "ref.fa", "-out", "ps",
+                                                "-verbose", "0"]))[1]}
+        for out, engine in (("sd", "device"), ("sq", "device-qb")):
+            dev[out] = _device_ms(lambda: fill("p" + out, engine))[1]
     finally:
         os.chdir(cwd)
     cpu_s = _run([sys.executable, "-m", "mindthegap_tpu_torch", "find", "-graph", "s.h5", "-ref", "ref.fa",
@@ -865,6 +884,9 @@ def span_path(work: str, seed: int) -> dict:
         for out, engine in (("sn", "native"), ("sd", "device"), ("sq", "device-qb"))))
     print(f"device and device-qb fill artifacts equal the native fill's at k = {k}; insertion recall "
           f"{recall:.4f} ({round(recall * len(insertions))}/{len(insertions)})")
+    print(f"device time of the k = {k} path (torch.profiler, a second pass, ms): " + "; ".join(
+        f"{name} " + ", ".join(f"{label} {ms:.3f}" for label, ms in dev[key].items() if ms or label == "all")
+        for key, name in (("find", "find -graph"), ("sd", "fill device"), ("sq", "fill device-qb"))))
     print(f"kernel launches on the k = {k} path: {counts}")
     if recall < 0.9:
         raise AssertionError(f"insertion recall {recall:.4f} is below 0.9 on the k = {k} path")

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 
@@ -61,6 +62,32 @@ def nvcc_path() -> str:
     if os.path.exists(default):
         return default
     raise BuildError("nvcc not found: the CUDA toolkit is needed to build the GPU kernels")
+
+
+def ptxas_usage(src_name: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill store bytes) of every kernel that
+    `csrc/<src_name>` instantiates, from nvcc -Xptxas -v (the object file
+    is thrown away); kernel is the mangled name, template arguments
+    included."""
+    src = os.path.join(CSRC_DIR, src_name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    obj = os.path.join(BUILD_DIR, f"ptxas_{src_name}.{os.getpid()}.o")
+    cmd = [nvcc_path(), *CUDA_ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-c", "-o", obj, src]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if os.path.exists(obj):
+        os.remove(obj)
+    if r.returncode != 0:
+        raise BuildError(f"build failed: {' '.join(cmd)}\n{r.stdout}{r.stderr}")
+    out, name, spill = [], None, 0
+    for line in (r.stdout + r.stderr).splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spill = m.group(1), 0
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spill = int(m.group(1))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 @functools.cache

@@ -76,7 +76,7 @@ def span_scan_sectors(packed: torch.Tensor, badbits: torch.Tensor, qms: X.QMapSp
     """The random sectors K6's function needs on one window (packed and
     badbits as scan_pay_q_span takes them): span_probe_sectors over the
     canonical (k-1)-mer of every position, as the plain version forms
-    them."""
+    them. K6 loads exactly these."""
     qwords, _ = SD.rolling_span(S.unpack_codes(packed, badbits), k - 1)
     canon, _ = SD.canonical_span(qwords, k - 1)
     return span_probe_sectors(qms, canon)

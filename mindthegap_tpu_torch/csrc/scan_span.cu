@@ -10,27 +10,56 @@
 // For each of the n_pay = w - k + 2 (k-1)-mers of the window (bases read
 // from the 2-bit packed codes, an invalid base as base 0): its WQ =
 // ceil((k-1)/32) words, their canonical form, whose 9-bit payload comes
-// from one probe of the span map (span_map.cuh lookup). Outputs: pay8, the
+// from one probe of the span map (span_map.cuh). Outputs: pay8, the
 // payload's low byte per (k-1)-mer; rep8 and str8, its repeat bit and
 // whether it was canonical as read, packed big-endian as np.packbits, the
 // bits past n_pay 0.
 //
 // Bound on this card: the probes, random 32-byte sectors of a table of
 // 2^log_size * 8 bytes and of its WQ-1 satellite planes (together ~100-300
-// MB for a bacterial solid set, above the 50 MB L2): each (k-1)-mer reads
+// MB for a bacterial solid set, above the 50 MB L2): each (k-1)-mer needs
 // its first slot, its satellite words where the slot's remainder matches,
 // and its second slot (with its satellites) after a miss
 // (mindthegap_tpu_torch/bounds.py span_scan_sectors), against 1.6 bytes of
 // inputs and outputs per base.
 //
-// The design, simple first: a block of 256 threads takes 2,048 consecutive
-// (k-1)-mers and stages their bases, with a halo of up to 255 bases, in
-// shared memory (packed_window.cuh, as K1 and K3 do). Each thread owns 8
-// consecutive (k-1)-mers: it builds the first from 64-bit reads of the
-// staged stream, shifts in the next 7 bases one at a time, and writes its 8
-// pay8 bytes and one byte each of rep8 and str8, so no cross-thread
-// packing is needed. The stash sits in shared memory. The word count is a
-// template parameter, so the words stay in registers.
+// The design: a block of 256 threads takes 256 PER consecutive (k-1)-mers
+// and stages their bases, with a halo of up to 255 bases, in shared memory
+// (packed_window.cuh, as K1 and K3 do). Each thread owns PER consecutive
+// (k-1)-mers and keeps all of their probes in flight together:
+//   1. it builds every key (the first from 64-bit reads of the staged
+//      stream, each next one by shifting in a base), its canonical words
+//      and its digest;
+//   2. it issues every key's first slot word at once;
+//   3. it scans the stash (shared memory) for every key while those loads
+//      are in flight;
+//   4. round by round it tests what arrived and issues every key's next
+//      load together: the satellite words of a slot that holds the key's
+//      digest, the second slot after a miss, that slot's satellites;
+//   5. it packs: PER pay8 bytes in one store, and its PER bits of rep8 and
+//      str8, ORed with the other threads of their byte by shuffles (8 / PER
+//      lanes a byte).
+// A thread so waits two round trips for a key in its first slot, three in
+// its second, where probing its keys one after another cost up to 3 PER,
+// and it loads exactly the sectors bounds.span_scan_sectors counts. The
+// keys' words and the loads in flight live in registers, so PER is fixed
+// by WQ (launch, below): 4 up to WQ = 4, then 2. The stash sits in shared
+// memory; the word count and PER are template parameters.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (kernel_bench.py, one
+// 2^21-base window over a 256 MB map, in turns with the earlier kernel,
+// which probed a thread's 8 keys one after another): at k = 45 0.1413-
+// 0.1414 ms against 0.1398-0.1409, at k = 128 0.2601-0.2628 against
+// 0.2620-0.2628: equal. Both load the same 4.50 M (k = 45) and 8.66 M
+// (k = 128) sectors, 32-33 G sectors a second whatever the probes in
+// flight, against the ~38 G of K5 (walk.cu); what sets that rate was not
+// measured. Tried and lost, with builds not kept: PER 2 / 4 / 8 at k = 45
+// took 0.1407 / 0.1397 / 0.1426 ms, at k = 128 0.2702 / 0.2617 / 0.2696;
+// loading the first slot's satellite words with it (one round trip less
+// for a key in its first slot) read 7% (k = 45) and 11% (k = 128) more
+// sectors and took 0.152-0.165 ms and 0.289-0.321 ms. nvcc -Xptxas -v
+// (kernel_bench.py): 48-94 registers a thread, no spill but 4 bytes at
+// WQ = 8.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,18 +74,27 @@ using packed_window::rev2;
 using namespace span_map;
 
 constexpr int THREADS = 256;
-constexpr int PER = 8;                  // (k-1)-mers per thread
-constexpr int TILE = THREADS * PER;     // (k-1)-mers per block
-// the tile's bases, its halo of up to 255 and the words the last 64-bit
-// read touches, in chunks of 64 bases
-constexpr int N_CHUNKS = (TILE + 255 + 64) / 64 + 1;
 
-template <int WQ>
+// a key's next load: its first slot word, that slot's satellite words, the
+// second slot word, its satellite words, or none (its payload is known)
+enum Step { SLOT0, SAT0, SLOT1, SAT1, DONE };
+
+// the unsigned type of PER bytes (one store of a thread's pay8 bytes)
+template <int PER> struct Bytes;
+template <> struct Bytes<2> { typedef uint16_t T; };
+template <> struct Bytes<4> { typedef uint32_t T; };
+
+template <int WQ, int PER>
 __global__ void __launch_bounds__(THREADS) scan_span_kernel(
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad, int64_t w, bool aligned,
     Map m, int k, int64_t n_pay,
     uint8_t* __restrict__ pay8, uint8_t* __restrict__ rep8, uint8_t* __restrict__ str8)
 {
+    constexpr int TILE = THREADS * PER;  // (k-1)-mers per block
+    // the tile's bases, its halo of up to 255 and the words the last 64-bit
+    // read touches, in chunks of 64 bases
+    constexpr int N_CHUNKS = (TILE + 255 + 64) / 64 + 1;
+    static_assert(8 % PER == 0, "a thread's bits lie in one byte of rep8 and str8");
     __shared__ uint32_t s_code[4 * N_CHUNKS], s_bad[2 * N_CHUNKS];
     __shared__ u64 s_sk[MAX_STASH], s_ssat[MAX_STASH * (MAX_WQ - 1)], s_sv[MAX_STASH];
     stage_stash<WQ>(m, s_sk, s_ssat, s_sv);
@@ -66,19 +104,23 @@ __global__ void __launch_bounds__(THREADS) scan_span_kernel(
 
     const int o = threadIdx.x * PER;  // the thread's first (k-1)-mer, in the tile
     const int64_t j0 = b0 + o;
-    if (j0 >= n_pay) return;
-    const int nb = k - 1;                  // bases per key
-    const int tb = nb - 32 * (WQ - 1);     // bases in word 0, 1..32
+    // the thread's (k-1)-mers in the window, 0..PER; a thread past the end
+    // still takes part in the shuffles below
+    const int n = n_pay - j0 >= PER ? PER : n_pay > j0 ? (int)(n_pay - j0) : 0;
+    const int nb = k - 1;               // bases per key
+    const int tb = nb - 32 * (WQ - 1);  // bases in word 0, 1..32
     const u64 top = top_mask(nb, WQ);
+    const int bit0 = 7 - (o & 7);       // the first key's bit in its byte of rep8 / str8
+
+    // 1. every key's canonical words and salted digest
+    u64 cq[PER][WQ], dig[PER];
+    unsigned str = 0;
     u64 q[WQ];
     q[0] = rev2(bits64(s_code, 2 * o)) >> (64 - 2 * tb);
 #pragma unroll
     for (int i = 1; i < WQ; i++) q[i] = rev2(bits64(s_code, 2 * (o + tb + 32 * (i - 1))));
-
-    u64 pays = 0;
-    unsigned rep = 0, str = 0;
-    const int n = n_pay - j0 < PER ? (int)(n_pay - j0) : PER;
-    for (int p = 0; p < n; p++) {
+#pragma unroll
+    for (int p = 0; p < PER; p++) {
         if (p > 0) {  // shift in the key's last base
             const int ob = o + p + nb - 1;
             const u64 c = (s_code[ob >> 4] >> (2 * (ob & 15))) & 3;
@@ -87,31 +129,100 @@ __global__ void __launch_bounds__(THREADS) scan_span_kernel(
             q[WQ - 1] = (q[WQ - 1] << 2) | c;
             q[0] &= top;
         }
-        u64 cq[WQ];
         bool is_canon;
-        canonical<WQ>(q, nb, cq, is_canon);
-        const unsigned pay = lookup<WQ>(m, cq);
-        pays |= (u64)(pay & 0xFF) << (8 * p);
-        rep |= ((pay >> 8) & 1) << (7 - p);
-        str |= (unsigned)is_canon << (7 - p);
+        canonical<WQ>(q, nb, cq[p], is_canon);
+        str |= (unsigned)(is_canon && p < n) << (bit0 - p);
+        dig[p] = digest<WQ>(cq[p]) ^ m.salt;
     }
-    if (n == PER && ((uintptr_t)(pay8 + j0) & 7) == 0) {
-        *reinterpret_cast<u64*>(pay8 + j0) = pays;
+
+    // 2. every first slot word in flight at once
+    Slot<WQ> s[PER];
+    int next[PER];  // each key's next load: a Step
+#pragma unroll
+    for (int p = 0; p < PER; p++) {
+        next[p] = p < n ? SLOT0 : DONE;
+        if (p < n) s[p].v = load_word(m, mix(dig[p], H1));
+    }
+    // 3. the stash while they are in flight
+    unsigned pay[PER];
+#pragma unroll
+    for (int p = 0; p < PER; p++) pay[p] = p < n ? stash_pay<WQ>(m, dig[p], cq[p]) : 0u;
+    // 4. round by round: test what arrived, then issue every key's next
+    // load together (satellites where a slot holds the digest, the second
+    // slot after a miss)
+    for (;;) {
+        bool pending = false;
+#pragma unroll
+        for (int p = 0; p < PER; p++) {
+            const int i = next[p] == SLOT1 || next[p] == SAT1;  // the choice
+            const u64 h = mix(dig[p], i ? H2 : H1);
+            if (next[p] == SLOT0 || next[p] == SLOT1) {
+                if (slot_here(m, s[p].v, h, i)) {
+                    if (WQ > 1) {
+                        next[p] = i ? SAT1 : SAT0;
+                    } else {
+                        pay[p] |= (unsigned)(s[p].v & PAY_MASK);
+                        next[p] = DONE;
+                    }
+                } else {
+                    next[p] = i ? DONE : SLOT1;
+                }
+            } else if (next[p] != DONE) {
+                if (sat_equal<WQ>(s[p], cq[p])) {
+                    pay[p] |= (unsigned)(s[p].v & PAY_MASK);
+                    next[p] = DONE;
+                } else {
+                    next[p] = i ? DONE : SLOT1;  // the digest's other key: the second slot
+                }
+            }
+            pending |= next[p] != DONE;
+        }
+        if (!pending) break;
+#pragma unroll
+        for (int p = 0; p < PER; p++) {
+            if (next[p] == SLOT1) s[p].v = load_word(m, mix(dig[p], H2));
+            if (next[p] == SAT0 || next[p] == SAT1) load_sat<WQ>(m, mix(dig[p], next[p] == SAT1 ? H2 : H1), s[p]);
+        }
+    }
+
+    typedef typename Bytes<PER>::T Word;
+    Word pays = 0;
+    unsigned rep = 0;
+#pragma unroll
+    for (int p = 0; p < PER; p++) {
+        pays |= (Word)(pay[p] & 0xFF) << (8 * p);
+        rep |= ((pay[p] >> 8) & 1) << (bit0 - p);
+    }
+    // the other threads of this byte of rep8 and str8 (aligned groups of 8 / PER lanes)
+#pragma unroll
+    for (int x = 1; x < 8 / PER; x *= 2) {
+        rep |= __shfl_xor_sync(0xFFFFFFFFu, rep, x);
+        str |= __shfl_xor_sync(0xFFFFFFFFu, str, x);
+    }
+    if (n == 0) return;
+    if (n == PER && ((uintptr_t)(pay8 + j0) % PER) == 0) {
+        *reinterpret_cast<Word*>(pay8 + j0) = pays;
     } else {
         for (int p = 0; p < n; p++) pay8[j0 + p] = (uint8_t)(pays >> (8 * p));
     }
-    rep8[j0 / PER] = (uint8_t)rep;
-    str8[j0 / PER] = (uint8_t)str;
+    if ((o & 7) == 0) {
+        rep8[j0 / 8] = (uint8_t)rep;
+        str8[j0 / 8] = (uint8_t)str;
+    }
 }
 
+// PER, the (k-1)-mers a thread, falls as WQ grows (registers; see above):
+// 4 was the fastest of 2, 4 and 8 at WQ = 2 and 4, and past WQ = 4 it
+// takes 108-184 registers a thread
 template <int WQ>
 cudaError_t launch(const uint8_t* packed, const uint8_t* bad, int64_t w, bool aligned, const Map& m, int k,
                    uint8_t* pay8, uint8_t* rep8, uint8_t* str8, cudaStream_t st)
 {
+    constexpr int PER = WQ <= 4 ? 4 : 2;
     const int64_t n_pay = w - k + 2;
-    const int64_t blocks = (n_pay + TILE - 1) / TILE;
-    scan_span_kernel<WQ><<<(unsigned)blocks, THREADS, 0, st>>>(packed, bad, w, aligned, m, k, n_pay,
-                                                               pay8, rep8, str8);
+    const int64_t blocks = (n_pay + THREADS * PER - 1) / (THREADS * PER);
+    scan_span_kernel<WQ, PER><<<(unsigned)blocks, THREADS, 0, st>>>(packed, bad, w, aligned, m, k, n_pay,
+                                                                    pay8, rep8, str8);
     return cudaGetLastError();
 }
 
@@ -129,17 +240,7 @@ extern "C" int scan_pay_q_span_launch(
     void* pay8, void* rep8, void* str8, void* stream)
 {
     if (k < 33 || k > 256 || n_stash < 1 || n_stash > MAX_STASH || w < k + 8 || w % 8) return (int)cudaErrorInvalidValue;
-    Map m;
-    m.slots = (const u64*)slots;
-    m.sat = (const u64*)sat;
-    m.size = 1ll << log_size;
-    m.shift = 64 - log_size;
-    m.rem_mask = (1ull << m.shift) - 1;
-    m.salt = (u64)salt;
-    m.stash_k = (const u64*)stash_k;
-    m.stash_sat = (const u64*)stash_sat;
-    m.stash_v = (const u64*)stash_v;
-    m.n_stash = n_stash;
+    const Map m = make_map(slots, sat, log_size, salt, stash_k, stash_sat, stash_v, n_stash);
     const bool aligned = (uintptr_t)packed % 16 == 0 && (uintptr_t)bad % 8 == 0;
     const uint8_t *p = (const uint8_t*)packed, *b = (const uint8_t*)bad;
     uint8_t *o1 = (uint8_t*)pay8, *o2 = (uint8_t*)rep8, *o3 = (uint8_t*)str8;

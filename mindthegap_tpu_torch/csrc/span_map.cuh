@@ -1,7 +1,8 @@
 // The multi-word span map's probe, for keys of WQ <= 8 words held in
-// registers: the canonical form of a (k-1)-mer, its digest and its lookup.
-// Shared by K6 (scan_span.cu) and K7 (walk_span.cu), so both probe with the
-// same code.
+// registers: the canonical form of a (k-1)-mer, its digest, and its lookup
+// in two halves, issue and resolve, so that a caller puts many probes in
+// flight before it waits on any. Shared by K6 (scan_span.cu) and K7
+// (walk_span.cu), so both probe with the same code.
 //
 // The map is mindthegap_tpu_torch/ops/extmap.py QMapSpan (its int64 tensors
 // from QMapSpan.to): `slots` u64[S], S = 2^log_size, in QMap's quotient
@@ -11,15 +12,34 @@
 // of payload 0. Words are u64, word 0 most significant, the value right
 // aligned (ops/span_device.py).
 //
-// lookup() computes extmap.lookup_q_span for one key:
+// A probe computes extmap.lookup_q_span for one key:
 //   - the digest chain of span_device.digest64, then the salt;
 //   - the two slots from H1 and H2 (mix is a bijection on u64, so a slot's
 //     remainder and choice bit name one digest);
-//   - the slot test, then the satellite compare;
+//   - the slot test (remainder, valid bit, choice bit), then the satellite
+//     compare; the second choice's hit is taken over the first's, as in the
+//     plain version (a key sits in one place, so at most one hits);
 //   - the stash compare, whose payload is ORed into the result.
-// Two shortcuts change nothing in the result and cut the sectors read:
-// the satellites are read only after the slot's remainder matches, and the
-// second slot only after the first misses (a key sits in one place).
+//
+// Issue (load_word, load_sat, load_slot) computes a choice's slot index
+// from the digest and loads the slot word and, where WQ > 1, its WQ-1
+// satellite words. The satellite address depends only on the slot index,
+// so the satellites can go out with the slot word: every slot index is <
+// S, so those speculative loads stay in range; at WQ = 1 `sat` is null and
+// none is formed. Resolve (slot_here, sat_equal, slot_holds, stash_pay)
+// does the tests; the stash compare reads shared memory, so a caller runs
+// it while the table loads are in flight. Two ways to issue, one per
+// kernel's bound:
+//   - eager (Eager, issue_eager / resolve_eager): both choices with all
+//     their words at once, 2 WQ sectors and one round trip a probe. K7's
+//     walk is a chain of dependent probes, latency bound, and takes this.
+//   - lazy, with many keys in flight: a caller issues the first slot word
+//     of every key it holds at once, then round by round each key's next
+//     load (the satellites where the slot holds the digest, the second
+//     slot after a miss), so it reads only the sectors the lookup needs.
+//     K6 runs at the card's rate of random sectors and takes this; loading
+//     the first slot's satellites with it read 7-11% more sectors and was
+//     slower (scan_span.cu).
 
 #pragma once
 
@@ -113,8 +133,26 @@ struct Map {
     int n_stash;
 };
 
+// the map of a launch's arguments (the tables of QMapSpan.to, stash in
+// device memory until stage_stash)
+__host__ inline Map make_map(const void* slots, const void* sat, int log_size, int64_t salt,
+                             const void* stash_k, const void* stash_sat, const void* stash_v, int n_stash) {
+    Map m;
+    m.slots = (const u64*)slots;
+    m.sat = (const u64*)sat;
+    m.size = 1ll << log_size;
+    m.shift = 64 - log_size;
+    m.rem_mask = (1ull << m.shift) - 1;
+    m.salt = (u64)salt;
+    m.stash_k = (const u64*)stash_k;
+    m.stash_sat = (const u64*)stash_sat;
+    m.stash_v = (const u64*)stash_v;
+    m.n_stash = n_stash;
+    return m;
+}
+
 // copy the stash into the block's shared memory and point `m` at it; the
-// caller synchronises the block before the first lookup
+// caller synchronises the block before the first probe
 template <int WQ>
 __device__ __forceinline__ void stage_stash(Map& m, u64* s_k, u64* s_sat, u64* s_v) {
     for (int s = threadIdx.x; s < m.n_stash; s += blockDim.x) {
@@ -127,25 +165,59 @@ __device__ __forceinline__ void stage_stash(Map& m, u64* s_k, u64* s_sat, u64* s
     m.stash_v = s_v;
 }
 
-// the 9-bit payload of canonical key w (0 when absent)
+// one choice's loads: the slot word and its WQ-1 satellite words
 template <int WQ>
-__device__ __forceinline__ unsigned lookup(const Map& m, const u64 (&w)[WQ]) {
-    const u64 dig = digest<WQ>(w) ^ m.salt;
+struct Slot {
+    u64 v;
+    u64 sat[WQ > 1 ? WQ - 1 : 1];
+};
+
+// issue: the slot word that hash h names
+__device__ __forceinline__ u64 load_word(const Map& m, u64 h) {
+    return __ldg(m.slots + (int64_t)(h >> m.shift));
+}
+
+// issue: the satellite words of the slot that hash h names
+template <int WQ>
+__device__ __forceinline__ void load_sat(const Map& m, u64 h, Slot<WQ>& s) {
+    const int64_t slot = (int64_t)(h >> m.shift);
+#pragma unroll
+    for (int j = 0; j < WQ - 1; j++) s.sat[j] = __ldg(m.sat + (int64_t)j * m.size + slot);
+}
+
+// issue: all the loads of the slot that hash h names at once
+template <int WQ>
+__device__ __forceinline__ void load_slot(const Map& m, u64 h, Slot<WQ>& s) {
+    s.v = load_word(m, h);
+    load_sat<WQ>(m, h, s);
+}
+
+// resolve: whether slot word v (choice i, hash h) holds the key's digest:
+// its remainder, valid bit and choice bit
+__device__ __forceinline__ bool slot_here(const Map& m, u64 v, u64 h, int i) {
+    return (v >> Q_SHIFT_PAY) == (h & m.rem_mask) && (v & Q_VALID) && (((v & Q_CHOICE) != 0) == (i == 1));
+}
+
+// resolve: whether the satellite words equal words 1..WQ-1 of key w
+template <int WQ>
+__device__ __forceinline__ bool sat_equal(const Slot<WQ>& s, const u64 (&w)[WQ]) {
+    bool eq = true;
+#pragma unroll
+    for (int j = 1; j < WQ; j++) eq = eq && s.sat[j - 1] == w[j];
+    return eq;
+}
+
+// resolve: whether slot s (choice i, hash h) holds key w
+template <int WQ>
+__device__ __forceinline__ bool slot_holds(const Map& m, const Slot<WQ>& s, u64 h, int i, const u64 (&w)[WQ]) {
+    return slot_here(m, s.v, h, i) && sat_equal<WQ>(s, w);
+}
+
+// resolve: the payload the stash holds for key w of salted digest dig (0
+// when none); reads shared memory only
+template <int WQ>
+__device__ __forceinline__ unsigned stash_pay(const Map& m, u64 dig, const u64 (&w)[WQ]) {
     unsigned pay = 0;
-#pragma unroll
-    for (int i = 0; i < 2; i++) {
-        const u64 h = mix(dig, i ? H2 : H1);
-        const int64_t slot = (int64_t)(h >> m.shift);
-        const u64 v = __ldg(m.slots + slot);
-        bool hit = (v >> Q_SHIFT_PAY) == (h & m.rem_mask) && (v & Q_VALID) && (((v & Q_CHOICE) != 0) == (i == 1));
-#pragma unroll
-        for (int j = 1; j < WQ; j++)
-            hit = hit && __ldg(m.sat + (int64_t)(j - 1) * m.size + slot) == w[j];
-        if (hit) {
-            pay = (unsigned)(v & PAY_MASK);
-            break;
-        }
-    }
     for (int s = 0; s < m.n_stash; s++) {
         if (m.stash_k[s] != dig) continue;
         bool eq = true;
@@ -154,6 +226,36 @@ __device__ __forceinline__ unsigned lookup(const Map& m, const u64 (&w)[WQ]) {
         if (eq) pay |= (unsigned)m.stash_v[s];
     }
     return pay;
+}
+
+// an eager probe in flight: the salted digest, both hashes, both slots
+template <int WQ>
+struct Eager {
+    u64 dig, h[2];
+    Slot<WQ> s[2];
+};
+
+// issue both choices of canonical key w, 2 WQ loads in one round trip
+template <int WQ>
+__device__ __forceinline__ void issue_eager(const Map& m, const u64 (&w)[WQ], Eager<WQ>& p) {
+    p.dig = digest<WQ>(w) ^ m.salt;
+#pragma unroll
+    for (int i = 0; i < 2; i++) {
+        p.h[i] = mix(p.dig, i ? H2 : H1);
+        load_slot<WQ>(m, p.h[i], p.s[i]);
+    }
+}
+
+// the 9-bit payload of an eager probe of w (0 when absent): the stash
+// first, from shared memory while the table loads arrive
+template <int WQ>
+__device__ __forceinline__ unsigned resolve_eager(const Map& m, const u64 (&w)[WQ], const Eager<WQ>& p) {
+    const unsigned stash = stash_pay<WQ>(m, p.dig, w);
+    unsigned tbl = 0;
+#pragma unroll
+    for (int i = 0; i < 2; i++)
+        if (slot_holds<WQ>(m, p.s[i], p.h[i], i, w)) tbl = (unsigned)(p.s[i].v & PAY_MASK);
+    return stash | tbl;
 }
 
 // bitmap positions b -> b^2 (the other strand's view of a 4-bit set)

@@ -21,8 +21,8 @@ Appended bases occupy the first n_appended slots of each job's row.
 walk_batch (k <= 32) runs the hand kernel K5 (csrc/walk.cu: a team of
 threads per lane, probing several steps ahead per DRAM round trip) on CUDA
 tensors, and walk_batch_span (32 < k <= 256, multi-word nodes over the
-span map) the hand kernel K7 (csrc/walk_span.cu: a thread per lane); each
-runs its plain PyTorch version on CPU tensors.
+span map) the hand kernel K7 (csrc/walk_span.cu: the same team look-ahead
+over multi-word nodes); each runs its plain PyTorch version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -128,18 +128,23 @@ def _walk_lib():
 # trip, the probe rate sets the time and a deeper round only probes more.
 # So D falls as the lanes grow, and sooner for the cuckoo map, whose probe
 # is two random sectors, than for the bucket map, whose probe is one line.
-# The thresholds are measured (python -m mindthegap_tpu_torch.kernel_bench
-# on an H100, 2,048 steps, 1 to 65,536 lanes): D = 3 is the fastest up to
-# _MAX_LANES[layout][3] lanes, D = 2 up to _MAX_LANES[layout][2], D = 1
-# beyond. Lanes count as walks: a lane with a budget of 0 probes nothing,
-# and BatchWalker sends only the walks still live.
-DEPTHS = (1, 2, 3)  # the depths csrc/walk.cu is built for
-_MAX_LANES = {"cuckoo": {3: 1024, 2: 6144}, "bucket": {3: 1536, 2: 10240}}
+# K7 ("span") probes eagerly, both cuckoo slots with their satellite words,
+# 2 Wq sectors a probe, so its thresholds hold lanes x Wq. The thresholds
+# are measured (python -m mindthegap_tpu_torch.kernel_bench on an H100,
+# 2,048 steps; K5 at 1 to 65,536 lanes, K7 at k = 45 and k = 128): D = 3 is
+# the fastest up to _MAX_LANES[layout][3] lanes (lane-words for "span"),
+# D = 2 up to _MAX_LANES[layout][2], D = 1 beyond. Lanes count as walks: a
+# lane with a budget of 0 probes nothing, and BatchWalker sends only the
+# walks still live.
+DEPTHS = (1, 2, 3)  # the depths csrc/walk.cu and csrc/walk_span.cu are built for
+_MAX_LANES = {"cuckoo": {3: 1024, 2: 6144}, "bucket": {3: 1536, 2: 10240}, "span": {3: 1024, 2: 8192}}
 
 
-def lookahead_depth(lanes: int, layout: str) -> int:
-    """K5's look-ahead depth D for `lanes` live walks in `layout` (see above)."""
-    return next((d for d in (3, 2) if lanes <= _MAX_LANES[layout][d]), 1)
+def lookahead_depth(lanes: int, layout: str, words: int = 1) -> int:
+    """K5's or K7's look-ahead depth D for `lanes` live walks in `layout`
+    ("cuckoo", "bucket" or "span", whose probes read `words` = Wq sectors
+    a slot; see above)."""
+    return next((d for d in (3, 2) if lanes * words <= _MAX_LANES[layout][d]), 1)
 
 
 def walk_batch_cuda(nodes, budgets, slots, stash_k, stash_v, log_size: int, k: int,
@@ -300,7 +305,7 @@ def _walk_span_lib():
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         _WALK_SPAN_LIB = lib
@@ -308,10 +313,11 @@ def _walk_span_lib():
 
 
 def walk_batch_span_cuda(nodes, budgets, slots, sat, stash_k64, stash_sat, stash_v,
-                         salt: int, log_size: int, k: int, steps: int):
+                         salt: int, log_size: int, k: int, steps: int, depth: int | None = None):
     """K7 (csrc/walk_span.cu): the same outputs as _walk_batch_span_plain,
-    one thread per lane with the node's words in registers. Counts its
-    launches in `walk_batch_span_cuda.launches`."""
+    one team of threads per lane probing `depth` steps ahead per round trip
+    (lookahead_depth(lanes, "span", Wq); an explicit 1..3 is for measuring
+    the rule). Counts its launches in `walk_batch_span_cuda.launches`."""
     from ..ops.span_device import span_width
 
     check_kernel_tensor(nodes, "nodes", torch.int64, 2)
@@ -320,6 +326,9 @@ def walk_batch_span_cuda(nodes, budgets, slots, sat, stash_k64, stash_sat, stash
     lanes = nodes.shape[0]
     if nodes.shape[1] != span_width(k) or budgets.shape[0] != lanes or lanes < 1 or steps < 1:
         raise ValueError(f"nodes must be [lanes >= 1, {span_width(k)}] words with a budget each, and steps >= 1")
+    depth = lookahead_depth(lanes, "span", span_width(k - 1)) if depth is None else depth
+    if depth not in DEPTHS:
+        raise ValueError(f"depth must be one of {DEPTHS}, got {depth}")
     dev = nodes.device
     bases = torch.full((lanes, steps), NO_BASE, dtype=torch.uint8, device=dev)
     n_app = torch.empty(lanes, dtype=torch.int32, device=dev)
@@ -329,7 +338,7 @@ def walk_batch_span_cuda(nodes, budgets, slots, sat, stash_k64, stash_sat, stash
         nodes.data_ptr(), budgets.data_ptr(),
         slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
         stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
-        stash_k64.shape[0], k, steps, lanes,
+        stash_k64.shape[0], k, steps, lanes, depth,
         bases.data_ptr(), n_app.data_ptr(), end_nodes.data_ptr(), status.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -364,9 +373,9 @@ class BatchWalker:
     <= 256, a QMapSpan), re-invoking in `steps`-sized chunks until every
     lane has stopped. Each call takes only the walks still live, one lane
     each (at least `min_lanes`, the rest with a budget of 0), so that K5's
-    look-ahead depth follows the live walks; the step count starts at 256
-    and doubles to 2048, as in the JAX walker. Span nodes travel as rows of
-    Wk int64 words and come back as python ints."""
+    and K7's look-ahead depth follows the live walks; the step count starts
+    at 256 and doubles to 2048, as in the JAX walker. Span nodes travel as
+    rows of Wk int64 words and come back as python ints."""
 
     def __init__(self, qmap, k: int, device, min_lanes: int = 8, steps: int = 256,
                  max_steps: int = 2048, mesh=None):

@@ -341,8 +341,9 @@ def _span_scan_lib():
 def scan_pay_q_span_cuda(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
                          salt: int, log_size: int, k: int):
     """K6 (csrc/scan_span.cu): the same {pay8, rep8, str8} as
-    _scan_pay_q_span_plain, a thread for each 8 consecutive (k-1)-mers,
-    from bases staged in shared memory. Counts one launch per window in
+    _scan_pay_q_span_plain, a thread for each 4 consecutive (k-1)-mers (2
+    past 128 bases) with all of their probes in flight, from bases staged
+    in shared memory. Counts one launch per window in
     `scan_pay_q_span_cuda.launches`."""
     check_kernel_tensor(packed, "packed", torch.uint8, 1)
     check_kernel_tensor(badbits, "badbits", torch.uint8, 1)

@@ -1,8 +1,9 @@
 """Times the port's kernels on one GPU against another checkout of this
 repository, in one process on the same card and inputs: K1 (the whole
 scan_cls_qp), K2 (the NW match counts), K3 (k-mer keys, and sort_batch
-around it), K4 (the counting merge) and K5 (the fill walker, with a sweep
-of its look-ahead depth).
+around it), K4 (the counting merge), K5 (the fill walker, with a sweep
+of its look-ahead depth), K6 (the span scan) and K7 (the
+span walker, with a sweep of its look-ahead depth).
 
     python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE]
 
@@ -11,10 +12,11 @@ example `git archive <commit> mindthegap_tpu_torch native | tar -x -C DIR`
 into the gitignored `mindthegap_tpu_torch/_build/`). That package is
 imported under another name, builds its kernels into its own `_build/`, and
 is called through its own entry points, `scan_cls_qp`, `nw_matches_cuda`,
-`kmer_keys_cuda`, `sort_batch`, `merge_sorted_cuda` and `walk_batch_cuda`,
-whose signatures this checkout keeps. Each pair of versions is timed in
-turns (earlier, current, current, earlier) by CUDA events, and their
-outputs must be equal.
+`kmer_keys_cuda`, `sort_batch`, `merge_sorted_cuda`, `walk_batch_cuda`,
+`scan_pay_q_span_cuda` and `walk_batch_span_cuda`, whose signatures this
+checkout keeps (`depth` is a keyword added since). Each pair of
+versions is timed in turns (earlier, current, current, earlier) by CUDA
+events, and their outputs must be equal.
 
 The inputs: a seeded random genome of 4,641,652 bp (the length of E. coli
 K-12 MG1655), k = 31, its canonical k-mers as the solid set. K1 scans a
@@ -28,9 +30,15 @@ a budget of 0 issue no probe), at every look-ahead depth the kernel takes
 and at the depth `lookahead_depth` picks. K4 merges 2^23 sorted k-mers
 sampled from both strands into an accumulator of the solid set in 2^23
 slots. K2 aligns 256 seeded pairs of 50 to 10,000 bp, made as
-chip_smoke.py's K2 check makes them. Prints the card, one line per shape
-and, last, one JSON object of every time. Exits non-zero without a CUDA
-device.
+chip_smoke.py's K2 check makes them. K6 and K7 run over the span map of
+the genome's k = 45 k-mers (built as chip_smoke.py builds the donor's,
+with a repeat set of every 50th (k-1)-mer of the scanned window) and of a
+2,200,000 bp genome's k = 128 k-mers: K6 scans a 2^21-base window with N
+runs and isolated Ns, K7 walks from the genome's k-mers with a budget of
+10,000 and 2,048 steps at every look-ahead depth (k = 45: 1 to 16,384
+lanes; k = 128: 1 to 4,096), each against the earlier kernel in turns. The registers and spills of every K6 and K7 instantiation come
+first (nvcc -Xptxas -v). Prints the card, one line per shape and, last,
+one JSON object of every time. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,13 +48,16 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 
 import numpy as np
 import torch
 
-from .bounds import NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, bytes_ms, nw_bound_ms, scan_probe_sectors, walk_bound_ms
+from ._build import ptxas_usage
+from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, SECTOR_BYTES, bytes_ms, nw_bound_ms, scan_probe_sectors,
+                     span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
 from .device import cuda_ms
 from .fill import walk_device as W
 from .find import scan_device as S
@@ -54,6 +65,8 @@ from .ops import counting_device as C
 from .ops import extmap as X
 from .ops import kmers as K
 from .ops import nw_device as ND
+from .ops.span import Span
+from .ops.span_device import span_width
 
 GENOME_LEN = 4_641_652
 STEPS = 2048
@@ -62,6 +75,9 @@ BUDGET = 10_000
 # whose other lanes are done
 WALK_SHAPES = tuple((n, n) for n in (1, 128, 512, 1024, 1536, 2048, 4096, 6144, 8192, 10240, 12288, 16384, 65536)) \
     + ((4096, 128), (65536, 2048))
+SPAN_WALK_LANES = {45: (1, 128, 512, 768, 1024, 2048, 4096, 6144, 8192, 16384),
+                   128: (1, 128, 256, 512, 1024, 2048, 4096)}
+SPAN_GENOME_128 = 2_200_000  # a smaller genome than E. coli, above one 2^21-base window
 
 
 def load_checkout(root: str, alias: str = "prev_mindthegap_tpu_torch"):
@@ -228,6 +244,84 @@ def bench_merge(rng, fwd, solid, k, prev_c):
     return row
 
 
+def span_map(genome, k: int, window: int):
+    """(forward k-mer rows of the genome, its span map): the genome's
+    canonical k-mers as the solid set, a repeat set of every 50th (k-1)-mer
+    of its first `window` bases."""
+    sp, spm1 = Span(k), Span(k - 1)
+    fwd, _ = sp.from_codes(genome)
+    solid = sp.from_keys(np.unique(sp.keys(sp.canonical(fwd))))
+    q, _ = spm1.from_codes(genome[:window])
+    repeat = spm1.from_keys(np.unique(spm1.keys(spm1.canonical(q[::50]))))
+    return fwd, X.build_fused_span(solid, k, repeat)
+
+
+def bench_span_scan(rng, genome, qms, k, prev_s):
+    window = 1 << 21
+    t = qms.to("cuda")
+    codes = genome[:window].copy()
+    codes[1000:1100] = 255
+    codes[rng.integers(0, window, 64)] = 255
+    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    args = (packed, bad, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size, k)
+    want = prev_s.scan_pay_q_span_cuda(*args)
+    sectors = span_scan_sectors(packed, bad, t, k)
+    io_bytes = packed.numel() + bad.numel() + sum(v.numel() for v in want.values())
+    row = {"k": k, "window": window, "table_mb": qms.nbytes >> 20, "probes": window - k + 2, "sectors": sectors,
+           "bound_ms": bytes_ms(sectors * SECTOR_BYTES + io_bytes)}
+    if not _equal(S.scan_pay_q_span_cuda(*args), want):
+        raise AssertionError(f"K6 differs from the earlier kernel (k = {k})")
+    row["prev_ms"], row["new_ms"] = _in_turns(lambda: prev_s.scan_pay_q_span_cuda(*args),
+                                              lambda: S.scan_pay_q_span_cuda(*args), 20)
+    print(f"K6 scan_pay_q_span, k = {k}, 2^21-base window, table {row['table_mb']} MB: in turns, "
+          f"earlier {row['prev_ms']} ms, current {row['new_ms']} ms; bound {row['bound_ms']:.4f} ms ({sectors} sectors needed, and loaded, for {row['probes']} probes)")
+    return row
+
+
+def bench_span_walk(rng, fwd, qms, k, prev_w):
+    out = {}
+    t = qms.to("cuda")
+    lane_counts = SPAN_WALK_LANES[k]
+    picks = fwd[rng.integers(0, fwd.shape[0], max(lane_counts))]
+    for lanes in lane_counts:
+        nodes = torch.from_numpy(K.as_i64(picks[:lanes])).cuda()
+        budgets = torch.full((lanes,), BUDGET, dtype=torch.int32, device="cuda")
+        args = (nodes, budgets, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt,
+                qms.log_size, k, STEPS)
+        want = prev_w.walk_batch_span_cuda(*args)
+        walked = max(int(want[1].max()), 1)
+        iters = 20 if lanes <= 128 else 5
+        row = {"k": k, "lanes": lanes, "steps_walked": walked,
+               "rule_depth": W.lookahead_depth(lanes, "span", span_width(k - 1)),
+               "bound_ms": walk_span_bound_ms(want[1], want[3], lanes, STEPS, k)}
+        for depth in W.DEPTHS:
+            if not _equal(W.walk_batch_span_cuda(*args, depth=depth), want):
+                raise AssertionError(f"K7 at D = {depth} differs from the earlier kernel (k = {k}, {lanes} lanes)")
+            row[f"d{depth}_ms"] = cuda_ms(lambda: W.walk_batch_span_cuda(*args, depth=depth), iters)
+        row["prev_ms"], row["rule_ms"] = _in_turns(lambda: prev_w.walk_batch_span_cuda(*args),
+                                                   lambda: W.walk_batch_span_cuda(*args), iters)
+        print(f"K7 k = {k}, {lanes} lanes x {STEPS} steps ({walked} walked): "
+              + ", ".join(f"D = {d} {row[f'd{d}_ms']:.4f} ms ({row[f'd{d}_ms'] * 1e3 / walked:.4f} us/step)"
+                          for d in W.DEPTHS)
+              + f"; in turns, earlier {row['prev_ms']} ms, current (D = {row['rule_depth']}) {row['rule_ms']} ms"
+              + f"; bound {row['bound_ms']:.4f} ms (bytes)")
+        out[f"{k}_{lanes}"] = row
+    return out
+
+
+def span_registers() -> dict:
+    """Registers and spill bytes of every K6 and K7 instantiation."""
+    out = {}
+    for src in ("scan_span.cu", "walk_span.cu"):
+        for name, regs, spill in ptxas_usage(src):
+            args = ",".join(re.findall(r"Li(\d+)E", name))
+            kernel = "K6" if "scan_span_kernel" in name else "K7"
+            out[f"{kernel}<{args}>"] = {"registers": regs, "spill_bytes": spill}
+    print("registers (spill bytes) by instantiation, K6 <Wq,PER>, K7 <Wq,Wk,D>: "
+          + ", ".join(f"{key} {v['registers']} ({v['spill_bytes']})" for key, v in out.items()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", required=True, help="directory of an earlier checkout (see above)")
@@ -246,7 +340,17 @@ def main(argv=None) -> int:
     genome = rng.integers(0, 4, GENOME_LEN, dtype=np.uint8)
     fwd, _ = K.kmers_from_codes(genome, k)
     solid = np.unique(K.canonical_u64(fwd, k))
+    registers = span_registers()
+    srng = np.random.default_rng(args.seed + 1)  # the span stages' own draws
+    fwd45, qms45 = span_map(genome, 45, 1 << 21)
+    genome128 = srng.integers(0, 4, SPAN_GENOME_128, dtype=np.uint8)
+    fwd128, qms128 = span_map(genome128, 128, 1 << 21)
     record = {"device": smi,
+              "span_registers": registers,
+              "span_scan": [bench_span_scan(srng, genome, qms45, 45, prev_s),
+                            bench_span_scan(srng, genome128, qms128, 128, prev_s)],
+              "span_walk": {**bench_span_walk(srng, fwd45, qms45, 45, prev_w),
+                            **bench_span_walk(srng, fwd128, qms128, 128, prev_w)},
               "nw": bench_nw(args.seed, prev_nd),
               "scan": bench_scan(rng, genome, solid, k, prev_s),
               "keys": bench_keys(rng, genome, k, prev_c),

@@ -214,12 +214,14 @@ def _span_args(qms, t, codes, device):
     return (packed, bad, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size)
 
 
-@pytest.mark.parametrize("k", [33, 45, 64, 96, 128, 256])
+@pytest.mark.parametrize("k", [33, 45, 64, 65, 96, 128, 256])
 @pytest.mark.parametrize("name", SPAN_EDGE_NAMES)
 def test_span_scan_kernel_edge_cases(cuda, name, k):
     """K6 against its plain version on its edges (tests/torch_tables.py
     span_edge_windows): Ns across tiles, stash hits, an unrelated window,
-    invalid bases only, the shortest window; one launch a call."""
+    invalid bases only, the shortest window; PER 4 (k <= 129) and 2 (past
+    it) spread a byte of rep8 and str8 over 2 and 4 threads; one launch a
+    call."""
     qms, cases = span_edge_windows(k)
     t = qms.to(cuda)
     args = _span_args(qms, t, cases[name], cuda) + (k,)
@@ -261,15 +263,17 @@ def test_span_scan_kernel_matches_plain(cuda, k):
 def test_span_walk_kernel_edge_cases(cuda, k, lanes):
     """K7 against its plain version on its edges (tests/torch_tables.py
     edge_walk_span_case): budgets of 0, tips, forks and merges, budget and
-    step stops, stash hits; one launch a call."""
+    step stops, stash hits; at the rule's look-ahead depth and at every
+    depth the kernel is built for; one launch a call."""
     from mindthegap_tpu_torch.fill import walk_device as W
 
     _qms, args = edge_walk_span_case(k, lanes, cuda)
     want = W._walk_batch_span_plain(*args)
-    before = W.walk_batch_span_cuda.launches
-    got = W.walk_batch_span_cuda(*args)
-    torch.cuda.synchronize()
-    assert W.walk_batch_span_cuda.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for depth in (None, *W.DEPTHS):
+        before = W.walk_batch_span_cuda.launches
+        got = W.walk_batch_span_cuda(*args, depth=depth)
+        torch.cuda.synchronize()
+        assert W.walk_batch_span_cuda.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), depth
     assert int(want[1].max()) == 64 or lanes <= 8  # some lanes walk every step

@@ -5,7 +5,11 @@ version of K6 (the span scan) against scan_pay_device_q_span, the plain
 version of K7 (the span walker) against walk_batch_device_span, the span
 mode of BatchWalker against the JAX BatchWalker and the host walk, and the
 span feed's windows through the native automaton against the JAX host
-scan. Inputs are seeded numpy; words include ones with the top bit set."""
+scan; and K7's look-ahead round schedule, emulated word for word, against
+the plain span walker. Inputs are seeded numpy; words include ones with the
+top bit set."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -203,6 +207,191 @@ def test_span_walk_matches_jax(k, lanes):
     assert status[0] == status[1] == PW.STATUS_TIP  # the genome's two dead ends
     assert (n_app == 64).any() and ((status == PW.STATUS_RUNNING) & (n_app < 64) & (n_app > 0)).any()
     assert (_u(args[0]) >> np.uint64(63)).any() or k == 33
+
+
+# ---------------------------------------------------------------------------
+# K7's round schedule, emulated in numpy word for word as csrc/walk_span.cu
+# computes it: a team probes every node the next D steps can reach (the
+# successor n1, its 4 children, their 16 grandchildren), each candidate's
+# (k-1)-suffix from the node's words shifted by its L + 1 bases, canonical,
+# digested and probed eagerly (both slots with their satellite words, the
+# second hit over the first, the stash ORed in), its payload oriented; the
+# team then resolves the round step by step under the stop rules.
+
+_U = np.uint64
+_H1, _H2, _H3 = _U(0x9E3779B97F4A7C15), _U(0xC2B2AE3D27D4EB4F), _U(0xD6E8FEB86659FD93)
+
+
+def _mix(x, c):
+    h = (x ^ (x >> _U(33))) * c
+    return h ^ (h >> _U(29))
+
+
+def _revcomp_word(x):
+    x = x ^ _U(0xAAAAAAAAAAAAAAAA)
+    for sh, m in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F), (8, 0x00FF00FF00FF00FF),
+                  (16, 0x0000FFFF0000FFFF)):
+        x = ((x >> _U(sh)) & _U(m)) | ((x & _U(m)) << _U(sh))
+    return (x >> _U(32)) | (x << _U(32))
+
+
+def _top_mask(nb: int, w: int):
+    bits = 2 * nb - 64 * (w - 1)
+    return _U(0xFFFFFFFFFFFFFFFF) if bits >= 64 else _U((1 << bits) - 1)
+
+
+def _canonical_words(q: list, nb: int):
+    """span_map.cuh canonical: (the canonical words, whether q itself was)."""
+    wq = len(q)
+    rc = [_revcomp_word(q[wq - 1 - i]) for i in range(wq)]
+    s = 64 * wq - 2 * nb
+    if s:
+        for i in range(wq - 1, 0, -1):
+            rc[i] = (rc[i] >> _U(s)) | (rc[i - 1] << _U(64 - s))
+        rc[0] = rc[0] >> _U(s)
+    take_f = np.ones(q[0].shape, bool)
+    decided = np.zeros(q[0].shape, bool)
+    for i in range(wq):
+        d = ~decided & (q[i] != rc[i])
+        take_f = np.where(d, q[i] < rc[i], take_f)
+        decided |= d
+    return [np.where(take_f, q[i], rc[i]) for i in range(wq)], take_f
+
+
+def _eager_payload(qms: PX.QMapSpan, w: list):
+    """span_map.cuh issue_eager + resolve_eager of canonical words w."""
+    g = np.zeros(w[0].shape, np.uint64)
+    for i in range(1, len(w)):
+        g = _mix(w[1] if i == 1 else g ^ w[i], _H3)
+    dig = w[0] ^ g ^ _U(qms.salt)
+    shift = 64 - qms.log_size
+    tbl = np.zeros(dig.shape, np.uint64)
+    for i, c in enumerate((_H1, _H2)):
+        h = _mix(dig, c)
+        slot = (h >> _U(shift)).astype(np.int64)
+        v = qms.slots[slot]
+        hit = ((v >> _U(11)) == (h & _U((1 << shift) - 1))) & ((v >> _U(10)) & _U(1) == 1) & ((v >> _U(9)) & _U(1) == i)
+        for j in range(1, len(w)):
+            hit &= qms.sat[j - 1, slot] == w[j]
+        tbl = np.where(hit, v & _U(0x1FF), tbl)
+    stash = np.zeros(dig.shape, np.uint64)
+    for s in range(qms.stash_key64.size):
+        eq = dig == qms.stash_key64[s]
+        for j in range(1, len(w)):
+            eq &= qms.stash_sat[s, j - 1] == w[j]
+        stash |= np.where(eq, _U(int(qms.stash_payload[s])), _U(0))
+    return ((stash | tbl) & _U(0xFF)).astype(np.int64)
+
+
+def _probe_ep(qms, node: np.ndarray, s: np.ndarray, low: np.ndarray, k: int, wq: int):
+    """walk_span.cu probe_ep for rows of node words [n, Wk], each shifted
+    left by s bits (0..6) with `low` shifted in: (ext | pre << 4) of the
+    (k-1)-suffix, oriented as read."""
+    wk = node.shape[1]
+    q = []
+    for i in range(wq):
+        w = wk - wq + i
+        inbits = (node[:, w + 1] >> _U(1)) >> (_U(63) - s) if w + 1 < wk else low
+        q.append((node[:, w] << s) | inbits)
+    q[0] = q[0] & _top_mask(k - 1, wq)
+    cq, is_canon = _canonical_words(q, k - 1)
+    pay = _eager_payload(qms, cq)
+    ext_c, pre_c = pay & 0xF, pay >> 4
+    return np.where(is_canon, ext_c | pre_c << 4, PX._shuffle02(pre_c) | PX._shuffle02(ext_c) << 4)
+
+
+def _emulate_span_walk(qms, nodes: np.ndarray, budgets: np.ndarray, k: int, steps: int, depth: int):
+    """K7's outputs as its teams compute them at look-ahead `depth`."""
+    wq, wk = PSD.span_width(k - 1), nodes.shape[1]
+    n_cand = (4 ** depth - 1) // 3
+    level = np.array([lv for lv in range(depth) for _ in range(4 ** lv)])
+    offset = np.array([o for lv in range(depth) for o in range(4 ** lv)], np.uint64)
+    top_k = _top_mask(k, wk)
+    node = nodes.copy()
+    lanes = node.shape[0]
+    lim = np.minimum(budgets, steps)
+    n_app = np.zeros(lanes, np.int32)
+    status = np.zeros(lanes, np.uint8)
+    bases = np.full((lanes, steps), PW.NO_BASE, np.uint8)
+    ep = np.zeros(lanes, np.int64)
+    go = lim > 0
+    zero = np.zeros(int(go.sum()), np.uint64)
+    ep[go] = _probe_ep(qms, node[go], zero, zero, k, wq)  # the start node
+    popc = [bin(b).count("1") for b in range(16)]
+    while True:
+        for j in np.nonzero(go)[0]:  # the top of a round: tip, fork, merge
+            ext, pre = ep[j] & 0xF, ep[j] >> 4
+            if n_app[j] >= lim[j]:
+                go[j] = False
+            elif popc[ext] == 0 or popc[ext] > 1 or popc[pre] != 1:
+                status[j] = PW.STATUS_TIP if popc[ext] == 0 else PW.STATUS_EVENT
+                go[j] = False
+        live = np.nonzero(go)[0]
+        if live.size == 0:
+            break
+        x1 = np.array([int(ep[j] & 0xF).bit_length() - 1 for j in live], np.uint64)
+        # every candidate of every live lane: n1 shifted by its level's bases
+        rows = np.repeat(node[live], n_cand, axis=0)
+        s = np.tile(2 * (level + 1), live.size).astype(np.uint64)
+        low = (np.repeat(x1, n_cand) << np.tile(2 * level, live.size).astype(np.uint64)) | np.tile(offset, live.size)
+        mine = _probe_ep(qms, rows, s, low, k, wq).reshape(live.size, n_cand)
+        for r, j in enumerate(live):
+            off, base, width = 0, 0, 1
+            for lv in range(depth):
+                ext = ep[j] & 0xF
+                if lv > 0:
+                    if n_app[j] >= lim[j]:
+                        go[j] = False
+                        break
+                    if popc[ep[j] >> 4] != 1:
+                        status[j], go[j] = PW.STATUS_EVENT, False
+                        break
+                    base, width = base + width, width * 4
+                    off = off * 4 + int(ext).bit_length() - 1
+                e2 = mine[r, base + off]
+                if popc[e2 & 0xF] != 1:
+                    status[j], go[j] = PW.STATUS_EVENT, False
+                    break
+                x = int(ext).bit_length() - 1
+                bases[j, n_app[j]] = x
+                n_app[j] += 1
+                node[j, :-1] = (node[j, :-1] << _U(2)) | (node[j, 1:] >> _U(62))
+                node[j, -1] = (node[j, -1] << _U(2)) | _U(x)
+                node[j, 0] &= top_k
+                ep[j] = e2
+    return bases, n_app, node, status
+
+
+_SCHEDULE_LANES = {33: 48, 45: 37, 65: 100, 128: 40, 256: 33}
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_span_walk(k: int):
+    qms, args = edge_walk_span_case(k, _SCHEDULE_LANES[k], "cpu")
+    return qms, args, PW._walk_batch_span_plain(*args)
+
+
+@pytest.mark.parametrize("k", sorted(_SCHEDULE_LANES))
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_span_lookahead_schedule_matches_plain(depth, k):
+    """K7's team round schedule at look-ahead D (candidate indexing, each
+    candidate's words, canonical form, eager probe, payload orientation and
+    the step-by-step stops), emulated in numpy, equals the plain span
+    walker on K7's edge walks: budgets of 0, tips, forks and merges, budget
+    and step stops, stash hits."""
+    qms, args, want = _plain_span_walk(k)
+    nodes, budgets, steps = _u(args[0]), args[1].numpy(), args[-1]
+    got = _emulate_span_walk(qms, nodes, budgets, k, steps, depth)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    np.testing.assert_array_equal(got[2], _u(want[2]))
+    np.testing.assert_array_equal(got[3], want[3].numpy())
+    n_app, status = got[1], got[3]
+    assert {PW.STATUS_RUNNING, PW.STATUS_TIP, PW.STATUS_EVENT} <= set(status.tolist())
+    assert (n_app[budgets == 0] == 0).all() and (n_app == steps).any()
+    if depth > 1:  # stops inside a round, not only at its first step
+        ev = n_app[status == PW.STATUS_EVENT]
+        assert len(set((ev % depth).tolist())) > 1
 
 
 @pytest.mark.parametrize("k", [45, 65])

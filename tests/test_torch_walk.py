@@ -258,3 +258,21 @@ def test_lookahead_depth_rule():
         assert depths == sorted(depths, reverse=True) and set(depths) == set(PW.DEPTHS)
     assert PW.lookahead_depth(1536, "cuckoo") == 2 and PW.lookahead_depth(1536, "bucket") == 3
     assert PW.lookahead_depth(8192, "cuckoo") == 1 and PW.lookahead_depth(8192, "bucket") == 2
+
+
+def test_span_lookahead_depth_rule():
+    """K7's look-ahead depth ("span", measured at k = 45 and 128): the
+    thresholds hold lanes x Wq, since an eager span probe reads 2 Wq
+    sectors. At k = 45 (Wq = 2): 3 up to 512 lanes (the fill's counts), 2
+    up to 4,096, 1 beyond; at k = 128 (Wq = 4) half those lanes. Never
+    deeper for more lanes or more words, and always a depth the kernel is
+    built for."""
+    assert PW.lookahead_depth(1, "span", 2) == PW.lookahead_depth(512, "span", 2) == 3
+    assert PW.lookahead_depth(513, "span", 2) == PW.lookahead_depth(4096, "span", 2) == 2
+    assert PW.lookahead_depth(4097, "span", 2) == PW.lookahead_depth(16384, "span", 2) == 1
+    assert PW.lookahead_depth(256, "span", 4) == 3 and PW.lookahead_depth(2048, "span", 4) == 2
+    assert PW.lookahead_depth(4096, "span", 4) == 1 and PW.lookahead_depth(128, "span", 8) == 3
+    for words in range(1, 9):
+        depths = [PW.lookahead_depth(n, "span", words) for n in range(1, 1 << 15, 97)]
+        assert depths == sorted(depths, reverse=True) and set(depths) == set(PW.DEPTHS)
+        assert all(d <= PW.lookahead_depth(n, "span", words - 1 or 1) for n, d in zip(range(1, 1 << 15, 97), depths))
