@@ -6,14 +6,18 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. print the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build the CUDA kernels from the checkout, one nvcc per source, all
-     started together, and time the build: K1 (csrc/scan_qp.cu), K2
-     (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu), K5
-     (csrc/walk.cu), K6 (csrc/scan_span.cu) and K7 (csrc/walk_span.cu);
+     started together, and time the build: K1 and K10 (csrc/scan_qp.cu),
+     K2 (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu),
+     K5 (csrc/walk.cu), K6 (csrc/scan_span.cu), K7 (csrc/walk_span.cu),
+     K8 and K9 (csrc/scan_planes.cu);
   3. hold each kernel against its plain PyTorch version on the card, exactly,
      at the main path's shapes, and time both sides: K1 (the whole
      scan_cls_qp, its exception compaction included) on a full 2^22-base
      window over the pair map of a bacterial-size solid set, and on its
-     compaction edge cases; K2 on 256 seeded pairs of 50 to 10,000 bp
+     compaction edge cases; K8 (cuckoo map), K9 (bucket map) and K10
+     (the pair map's dense stream) on the same window over the maps of the
+     same set, and on their edge windows at k 2 (K10: 3), 3, 31 and 32;
+     K2 on 256 seeded pairs of 50 to 10,000 bp
      (also against the native nw.cpp); K3 (+ the sort) on one default
      counting batch of 2^23 bases of the reads, and on its edge batches
      (k 1 to 32); K4 merging that batch into an accumulator of the donor's
@@ -29,7 +33,7 @@ Phases, each of which must pass (any failure exits non-zero):
      at every depth. The edge cases
      come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
      merge_edge_cases, edge_walk_case, span_edge_windows,
-     edge_walk_span_case), the generators the CUDA tests use, so the smoke and
+     edge_walk_span_case, plane_edge_windows), the generators the CUDA tests use, so the smoke and
      tests/test_torch_cuda.py check the same inputs; the script needs the
      checkout's tests/ directory for them.
      Each kernel's bound is the
@@ -50,18 +54,30 @@ Phases, each of which must pass (any failure exits non-zero):
      `-fill-engine device-qb` (and the native fill, for its time); then the
      same device runs again under torch.profiler, for the device time of
      K3, K4, K5 and the sort without the profiler in the wall times;
-  6. drive the k = 45 path on a case of its own (1,000,000 bp, 22
+  6. drive the plane path on the main path's graph (t.h5), in-process:
+     `find -graph -scan-engine device` (K8) and `device-qb` (K9) over the
+     whole reference; `-scan-engine host` and `-automaton host` (K10, then
+     the Python automaton) over its first 1,000,000 bases, beside a
+     default run there (the cut keeps the numpy oracle and the Python
+     automaton within the time limit); K1's feed at exc_cap 0, every
+     window re-dispatched dense through K10, into the native automaton;
+     then the `auto` gate's timings (the host plane route against the
+     default feed, at the graph's solid-set size and on a 1/16 cut);
+  7. drive the k = 45 path on a case of its own (1,000,000 bp, 22
      insertions, 11 SNPs, 11 deletions, 30x: cut from the E. coli size
      because host span counting takes ~0.7 ms a read), in-process: `find
      -kmer-size 45` (the span scan, K6), the native fill, `fill
      -fill-engine device` and `device-qb` (the span walker, K7); then a
      `find -graph -device cpu` rerun; then `find -graph` (the span map's
      build and upload, K6) and the two device fills again under
-     torch.profiler, for the device time of the k = 45 path;
-  7. check the results: every kernel launched on its path; the find
+     torch.profiler, for the device time of the k = 45 path; then `find
+     -graph -scan-engine device-qb` and `-automaton host` (K6, then
+     planes_from_pay_span);
+  8. check the results: every kernel launched on its path; the find
      artifacts equal a `-device cpu` rerun on the same graph (at k = 31
      and k = 45); the device-count graph, breakpoints and VCF records
-     equal the host-count run's; the device fills' artifacts equal the
+     equal the host-count run's; every plane-path run's records equal the
+     default run's (at both k); the device fills' artifacts equal the
      native fill's (at both k); insertion recall >= 90% on every path.
 
 The line before the last holds the per-kernel JSON record; the last line is
@@ -211,11 +227,12 @@ def _bytes_bound_ms(n_bytes: float) -> dict:
     return {"bound_ms": bytes_ms(n_bytes), "bound_by": "bytes", "library_ms": None}
 
 
-def check_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int) -> dict:
+def check_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int):
     """K1, the whole scan_cls_qp (classes and the exception compaction),
     against its plain version on one full 2^22-base window of the reference
     at the feed's default exception cap, over the pair map of the donor's
-    solid set; then on its compaction edges."""
+    solid set; then on its compaction edges. Returns (the kernel record,
+    the host pair map, so that K10's check reuses it)."""
     import torch
 
     from mindthegap_tpu_torch.bounds import SECTOR_BYTES, bytes_ms, scan_probe_sectors
@@ -224,18 +241,12 @@ def check_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int) -> 
     from mindthegap_tpu_torch.ops import kmers as K
     from torch_tables import scan_edge_windows
 
-    rng = np.random.default_rng(seed)
     rfwd, _ = K.kmers_from_codes(ref, k - 1)
     repeat = np.unique(K.canonical_u64(rfwd[::50], k - 1))  # exercise the REP class
     qp = X.build_fused_pair(solid, k, repeat)
     t = qp.to("cuda")
     window = 1 << 22
-    codes = ref[:window].copy()
-    codes[1000:1100] = 255
-    codes[rng.integers(0, window, 64)] = 255
-    packed, bad = S.pack_codes_host(codes)
-    packed = torch.from_numpy(packed).cuda()
-    bad = torch.from_numpy(bad).cuda()
+    packed, bad = _smoke_window(ref, window, seed)
     cap = (window - k + 2 + 3) // 4 * 4 // 8
     args = (packed, bad, t.slots, t.stash_keys, t.stash_l, t.stash_r, t.log_size, k, cap)
     keys = ("cls2", "exc16", "n_exc")
@@ -268,10 +279,98 @@ def check_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int) -> 
         errs.append(_max_abs_err((g[key], w[key]) for key in keys))
         print(f"K1 edge case {name}: window {ecodes.size}, cap {ecap}, n_exc {int(w['n_exc'])}, "
               f"max_abs_err {errs[-1]}")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound,
-            "row_sectors": sectors, "bound_ms_two_sector": two_sector_ms,
-            "ms_covers": "the whole scan_cls_qp: classes and exception compaction "
-                         "(records of the earlier kernel timed its core alone)"}
+    return ({"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound,
+             "row_sectors": sectors, "bound_ms_two_sector": two_sector_ms,
+             "ms_covers": "the whole scan_cls_qp: classes and exception compaction "
+                          "(records of the earlier kernel timed its core alone)"}, qp)
+
+
+def _smoke_window(ref: np.ndarray, window: int, seed: int):
+    """The first `window` bases of the reference with an N run and 64
+    isolated Ns, 2-bit packed on the card (K1's, K8's, K9's and K10's
+    window)."""
+    import torch
+
+    from mindthegap_tpu_torch.find import scan_device as S
+
+    rng = np.random.default_rng(seed)
+    codes = ref[:window].copy()
+    codes[1000:1100] = 255
+    codes[rng.integers(0, window, 64)] = 255
+    return tuple(torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+
+
+def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: int) -> dict:
+    """K8 (scan_planes_q, over the cuckoo map), K9 (scan_planes_qb, over the
+    bucket map) and K10 (scan_pay_qp, over K1's pair map `qp`) against
+    their plain versions on K1's full 2^22-base window of the reference,
+    over the maps of the donor's solid set with K1's repeat set; then on
+    their edge windows (tests/torch_tables.py plane_edge_windows) at k 2,
+    3, 31 and 32 (K10 from 3). Returns {name: kernel record}."""
+    import torch
+
+    from mindthegap_tpu_torch.bounds import (PLANE_BYTES_PER_POSITION, SECTOR_BYTES, plane_scan_sectors,
+                                             scan_probe_sectors)
+    from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.ops import extmap as X
+    from mindthegap_tpu_torch.ops import kmers as K
+    from torch_tables import plane_edge_windows
+
+    window = 1 << 22
+    rfwd, _ = K.kmers_from_codes(ref, k - 1)
+    repeat = np.unique(K.canonical_u64(rfwd[::50], k - 1))  # K1's repeat set
+    packed, bad = _smoke_window(ref, window, seed)
+    n_pos = window - k + 1
+    kernels = {"scan_planes_q": ("K8", "cuckoo", S.scan_planes_q_cuda, S._scan_planes_q_plain),
+               "scan_planes_qb": ("K9", "bucket", S.scan_planes_qb_cuda, S._scan_planes_qb_plain),
+               "scan_pay_qp": ("K10", "pair", S.scan_pay_qp_cuda, S._scan_pay_qp_plain)}
+    out = {}
+    for name, (label, layout, kernel, plain) in kernels.items():
+        t0 = time.perf_counter()
+        host = {"cuckoo": lambda: X.build_fused(solid, k, repeat), "bucket": lambda: X.build_fused_bucket(solid, k, repeat),
+                "pair": lambda: qp}[layout]()
+        build_s = time.perf_counter() - t0
+        t = host.to("cuda")
+        if layout == "pair":
+            tables, log = (t.slots, t.stash_keys, t.stash_l, t.stash_r), host.log_size
+        else:
+            tables, log = (t.slots, t.stash_keys, t.stash_payload), host.log_nb if layout == "bucket" else host.log_size
+        args = (packed, bad, *tables, log, k)
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        errs = [_max_abs_err((got[key], want[key]) for key in want)]
+        ms = _cuda_ms(lambda: kernel(*args), iters=20, warmup=2)
+        plain_ms = _cuda_ms(lambda: plain(*args), iters=3)
+        io_bytes = _nbytes(packed, bad, *got.values())
+        if layout == "pair":
+            sectors, what = scan_probe_sectors(packed, bad, t, k), f"row sectors for {(window - k + 3) // 2} pairs"
+        else:
+            sectors, what = plane_scan_sectors(packed, bad, t, k), f"sectors for {n_pos + 1} probes"
+        bound = _bytes_bound_ms(sectors * SECTOR_BYTES + io_bytes)
+        print(f"{label} {name} ({layout} map): window {window}, k {k}, table {host.nbytes >> 20} MB "
+              f"(built in {build_s:.1f} s), stash {int(np.asarray(host.stash_keys).size)}, max_abs_err {errs[0]} "
+              f"(tolerance 0: exact), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"(bytes: {sectors} {what}, {io_bytes} bytes in and out), share {bound['bound_ms'] / ms:.4f}")
+        del t, tables, args, got, want
+        for kk in (2, 3, 31, 32):
+            if layout == "pair" and kk < 3:
+                continue  # the pair map needs k >= 3
+            eq, cases = plane_edge_windows(kk, layout)
+            te = eq.to("cuda")
+            if layout == "pair":
+                etables, elog = (te.slots, te.stash_keys, te.stash_l, te.stash_r), eq.log_size
+            else:
+                etables, elog = (te.slots, te.stash_keys, te.stash_payload), eq.log_nb if layout == "bucket" else eq.log_size
+            for codes in cases.values():
+                ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+                g, w = kernel(ep, eb, *etables, elog, kk), plain(ep, eb, *etables, elog, kk)
+                torch.cuda.synchronize()
+                errs.append(_max_abs_err((g[key], w[key]) for key in w))
+            print(f"{label} edge cases (k {kk}: {', '.join(cases)}): max_abs_err {max(errs[-len(cases):])}")
+        out[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound, "sectors": sectors,
+                     "map_build_s": build_s,
+                     "plane_bytes": n_pos * PLANE_BYTES_PER_POSITION if layout != "pair" else None}
+    return out
 
 
 def make_pairs(n_pairs: int, lo: int, hi: int, seed: int):
@@ -674,7 +773,8 @@ def _reset_launches():
     wrappers = {"scan_cls_qp": S.scan_cls_qp_cuda, "nw_matches": ND.nw_matches_cuda,
                 "kmer_keys": C.kmer_keys_cuda, "merge_sorted": C.merge_sorted_cuda,
                 "walk_batch": W.walk_batch_cuda, "scan_pay_q_span": S.scan_pay_q_span_cuda,
-                "walk_batch_span": W.walk_batch_span_cuda}
+                "walk_batch_span": W.walk_batch_span_cuda, "scan_planes_q": S.scan_planes_q_cuda,
+                "scan_planes_qb": S.scan_planes_qb_cuda, "scan_pay_qp": S.scan_pay_qp_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
@@ -851,6 +951,12 @@ def span_path(work: str, seed: int) -> dict:
                                                 "-verbose", "0"]))[1]}
         for out, engine in (("sd", "device"), ("sq", "device-qb")):
             dev[out] = _device_ms(lambda: fill("p" + out, engine))[1]
+        # the plane path at k = 45: K6, then planes_from_pay_span, into the
+        # native automaton (device-qb) and the Python one (-automaton host)
+        plane_launches = _reset_launches()
+        planes = {out: _find_graph(out, *extra, graph="s.h5") for out, extra in (
+            ("sqb", ("-scan-engine", "device-qb")), ("sah", ("-automaton", "host")))}
+        plane_counts = plane_launches()
     finally:
         os.chdir(cwd)
     cpu_s = _run([sys.executable, "-m", "mindthegap_tpu_torch", "find", "-graph", "s.h5", "-ref", "ref.fa",
@@ -872,6 +978,11 @@ def span_path(work: str, seed: int) -> dict:
     for name in ("scan_pay_q_span", "walk_batch_span"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the k = 45 path")
+    for out in planes:
+        if not _equal_records(sub, "s", out):
+            raise AssertionError(f"find -kmer-size 45 ({out}) wrote other records than the default run")
+    if plane_counts["scan_pay_q_span"] <= 0:
+        raise AssertionError("kernel scan_pay_q_span was not launched on the k = 45 plane path")
     filled = filled_insertions(path("sd.insertions.fasta"))
     recall = insertion_recall(insertions, filled)
     n_bkpt = sum(1 for line in open(path("s.breakpoints")) if line.startswith(">")) // 2
@@ -888,9 +999,171 @@ def span_path(work: str, seed: int) -> dict:
         f"{name} " + ", ".join(f"{label} {ms:.3f}" for label, ms in dev[key].items() if ms or label == "all")
         for key, name in (("find", "find -graph"), ("sd", "fill device"), ("sq", "fill device-qb"))))
     print(f"kernel launches on the k = {k} path: {counts}")
+    print(f"k = {k} plane path (find -graph, equal to the default run's records): "
+          + ", ".join(f"{name} {planes[out][0]:.1f} s (setup + scan + replay {_scan_s(planes[out][1])[1]:.2f} s)"
+                      for out, name in (("sqb", "-scan-engine device-qb"), ("sah", "-automaton host")))
+          + f"; kernel launches {plane_counts}")
     if recall < 0.9:
         raise AssertionError(f"insertion recall {recall:.4f} is below 0.9 on the k = {k} path")
     return {"launches": counts}
+
+
+# the reference bases that `-scan-engine host` and `-automaton host` scan
+# (the numpy oracle takes ~12 us a position over 4.67 M keys, the Python
+# automaton ~4 us): a cut of the main path's 4.64 Mbp, over its whole graph
+PLANE_CUT = 1_000_000
+GATE_CUT = 16  # the auto gate's cut of the genome and its solid set: 1/16
+
+
+def _find_graph(out: str, *extra: str, ref: str = "ref.fa", graph: str = "t.h5"):
+    return _cli(["find", "-graph", graph, "-ref", ref, "-out", out, "-profile", "-verbose", "0", *extra])
+
+
+def _scan_s(report: str) -> tuple[float, float]:
+    """(seconds of the scan engine's setup, seconds from the end of the
+    graph load to the records: the setup, the scan and the replay, fused
+    or not)."""
+    names = ("scan engine setup", "scan+replay (fused)", "scan planes", "automaton replay")
+    total = sum(_phase(report, n) for n in names if re.search(rf"^\s*{re.escape(n)}\s*:", report, re.M))
+    return _phase(report, "scan engine setup"), total
+
+
+def _equal_records(work: str, a: str, b: str) -> bool:
+    return (_same(os.path.join(work, a + ".breakpoints"), os.path.join(work, b + ".breakpoints"))
+            and _records(os.path.join(work, a + ".othervariants.vcf"))
+            == _records(os.path.join(work, b + ".othervariants.vcf")))
+
+
+def _gate_case(ref: np.ndarray, donor: np.ndarray, k: int, cut: int):
+    """(graph, repeat set, codes) of the first len/cut bases: the donor's
+    k-mers there as the solid set (what error-free reads give)."""
+    from mindthegap_tpu_torch.graph import dbg
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    n = ref.size // cut
+    fwd, _ = K.kmers_from_codes(donor[:n], k)
+    graph = dbg.Graph(dbg.SolidSet(np.unique(K.canonical_u64(fwd, k)), k))
+    q, _ = K.kmers_from_codes(ref[:n], k - 1)
+    keys, counts = np.unique(K.canonical_u64(q, k - 1), return_counts=True)
+    return graph, dbg.SolidSet(keys[counts >= 2], k - 1), ref[:n]
+
+
+def _scan_route(graph, repeat_set, codes, k: int, route: str) -> tuple[float, str]:
+    """One sequence through the scan engine's setup, the scan and the
+    native automaton, as run_find drives them: route "host" (the host
+    plane oracle, compute_planes) or "device" (the default feed: the pair
+    map and K1). (Seconds, the breakpoint text.)"""
+    import torch
+
+    from mindthegap_tpu_torch.device import resolve_device
+    from mindthegap_tpu_torch.find import native_scan
+    from mindthegap_tpu_torch.find import runner as R
+
+    device = resolve_device(None)
+    seq = LETTERS[codes].tobytes().decode()
+    t0 = time.perf_counter()
+    sc = native_scan.NativeScanner(graph, repeat_set, k, max_repeat=5, snp_min_val=5, branching_threshold=15,
+                                   homo_only=False, snp=True, deletion=True, small_homo=True, homo_insert=True,
+                                   backup=False, hete_insert=True)
+    if route == "host":
+        sc.scan_sequence(CHROM, seq, R._make_plane_fn("host", graph, repeat_set, k, device)(codes))
+    else:
+        sc.scan_sequence_pay(CHROM, seq, R._make_pay_feed_fn(graph, repeat_set, k, device)(codes))
+    torch.cuda.synchronize()
+    bkpt = sc.results()[0]
+    sc.close()
+    return time.perf_counter() - t0, bkpt
+
+
+def plane_path(work: str, ref: np.ndarray, donor: np.ndarray) -> dict:
+    """The plane path of find on the main path's graph (t.h5, so nothing is
+    counted again), in-process: `-scan-engine device` (K8) and `device-qb`
+    (K9) over the whole reference, each held to the main path's records
+    (t.breakpoints, the VCF records); `-scan-engine host` (the host oracle)
+    and `-automaton host` (K10's dense stream, planes_from_pay, the Python
+    automaton) over its first PLANE_CUT bases, held to a default run (K1)
+    there; K1's feed at exc_cap 0 (every window re-dispatched through
+    K10) into the native automaton over the whole reference; then the
+    `auto` gate: the host plane route against the default feed, at the
+    graph's solid-set size (the runs on the cut) and on a 1/GATE_CUT cut
+    of the genome and its solid set. Returns the kernel launch counts of
+    the run and the gate's times."""
+    from mindthegap_tpu_torch.device import resolve_device
+    from mindthegap_tpu_torch.find import native_scan
+    from mindthegap_tpu_torch.find import runner as R
+    from mindthegap_tpu_torch.graph import dbg
+    from mindthegap_tpu_torch.io.bank import Bank
+    from mindthegap_tpu_torch.utils import dna
+
+    write_fasta(os.path.join(work, "ref_cut.fa"), CHROM, ref[:PLANE_CUT])
+    launches = _reset_launches()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        times = {out: _find_graph(out, *extra) for out, extra in (
+            ("pd", ("-scan-engine", "device")), ("pq", ("-scan-engine", "device-qb")))}
+        for out, extra in (("pcut", ()), ("ph", ("-scan-engine", "host")), ("pa", ("-automaton", "host"))):
+            times[out] = _find_graph(out, *extra, ref="ref_cut.fa")
+        t0 = time.perf_counter()
+        graph = dbg.Graph.load("t.h5")
+        k = graph.k
+        repeat_set = dbg.build_repeat_set("ref.fa", k - 1, 2)
+        feed = R._make_pay_feed_fn(graph, repeat_set, k, resolve_device(None), exc_cap=0)
+        sc = native_scan.NativeScanner(graph, repeat_set, k, max_repeat=5, snp_min_val=5, branching_threshold=15,
+                                       homo_only=False, snp=True, deletion=True, small_homo=True, homo_insert=True,
+                                       backup=False, hete_insert=True)
+        for rec in Bank.open("ref.fa"):
+            sc.scan_sequence_pay(rec.comment_short, rec.seq, feed(dna.seq_to_codes(rec.seq)))
+        dense_bkpt, dense_vcf, _ = sc.results()
+        sc.close()
+        dense_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = launches()
+    n_solid = len(graph.solid)
+    del graph, repeat_set, feed
+
+    for out in ("pd", "pq"):
+        if not _equal_records(work, "t", out):
+            raise AssertionError(f"find -graph ({out}) wrote other records than the main path's find")
+    for out in ("ph", "pa"):
+        if not _equal_records(work, "pcut", out):
+            raise AssertionError(f"find -graph ({out}) wrote other records than the default find on the cut")
+    with open(os.path.join(work, "t.breakpoints")) as f:
+        if dense_bkpt != f.read():
+            raise AssertionError("K1's feed at exc_cap 0 (K10 dense) wrote other .breakpoints than the main path")
+    if dense_vcf.splitlines(keepends=True) != _records(os.path.join(work, "t.othervariants.vcf")):
+        raise AssertionError("K1's feed at exc_cap 0 (K10 dense) wrote other VCF records than the main path")
+    for name in ("scan_planes_q", "scan_planes_qb", "scan_pay_qp"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the plane path")
+
+    def wall(out):
+        setup, scan = _scan_s(times[out][1])
+        return f"{times[out][0]:.1f} s (scan engine setup {setup:.2f} s, setup + scan + replay {scan:.2f} s)"
+
+    n_pa = sum(1 for line in open(os.path.join(work, "pa.breakpoints")) if line.startswith(">")) // 2
+    print("plane path on the main path's graph (find -graph, in-process), equal to the main path's records: "
+          f"-scan-engine device (K8) {wall('pd')}, -scan-engine device-qb (K9) {wall('pq')}")
+    print(f"on the first {PLANE_CUT} bases, equal to the default run there ({wall('pcut')}): -scan-engine host "
+          f"{wall('ph')}; -automaton host (K10, planes_from_pay, the Python automaton) {wall('pa')}, of which the "
+          f"Python automaton {_phase(times['pa'][1], 'automaton replay'):.2f} s, {n_pa} breakpoints")
+    print(f"K1's feed at exc_cap 0 (every window dense through K10), whole reference: {dense_s:.1f} s, equal to the "
+          "main path's records")
+    print(f"kernel launches on the plane path: {counts}")
+
+    gate = {"graph": {"solid": n_solid, "bases": min(PLANE_CUT, ref.size), "host_s": _scan_s(times["ph"][1])[1],
+                      "device_s": _scan_s(times["pcut"][1])[1]}}
+    graph, repeat_set, codes = _gate_case(ref, donor, k, GATE_CUT)
+    host_s, host_bkpt = _scan_route(graph, repeat_set, codes, k, "host")
+    dev_s, dev_bkpt = _scan_route(graph, repeat_set, codes, k, "device")
+    if host_bkpt != dev_bkpt:
+        raise AssertionError(f"the host and device scan routes disagree on the 1/{GATE_CUT} cut")
+    gate[f"1/{GATE_CUT}"] = {"solid": len(graph.solid), "bases": int(codes.size), "host_s": host_s, "device_s": dev_s}
+    print("auto gate, host plane route against the default feed (setup + scan + native replay, s): " + "; ".join(
+        f"{name}: {g['bases']} bases, solid {g['solid']}, host {g['host_s']:.2f}, device {g['device_s']:.2f}"
+        for name, g in gate.items()))
+    return {"launches": counts, "gate": gate}
 
 
 def build_kernels():
@@ -902,7 +1175,8 @@ def build_kernels():
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
 
-    loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib, S._span_scan_lib, W._walk_span_lib)
+    loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib, S._span_scan_lib, W._walk_span_lib,
+               S._planes_lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
@@ -926,7 +1200,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     build_kernels()
-    print(f"kernel build (nvcc, sm_90a, 7 sources in parallel): {time.perf_counter() - t0:.1f} s")
+    print(f"kernel build (nvcc, sm_90a, 8 sources in parallel): {time.perf_counter() - t0:.1f} s")
 
     seed = 20261016
     k = 31
@@ -934,7 +1208,9 @@ def main() -> int:
     ref, donor, insertions = case
     fwd, _ = K.kmers_from_codes(donor, k)
     solid = np.unique(K.canonical_u64(fwd, k))  # error-free reads: the donor's k-mers
-    k1 = check_scan_kernel(ref, solid, k, seed)
+    k1, qp = check_scan_kernel(ref, solid, k, seed)
+    planes = check_plane_kernels(ref, solid, qp, k, seed)
+    del qp
     k2 = check_nw_kernel(seed)
 
     work = os.path.join(REPO, ".smoke_work")
@@ -955,11 +1231,14 @@ def main() -> int:
         k6, qms = check_span_scan_kernel(ref, span_rows, SPAN_K, seed)
         k7 = check_span_walk_kernel(span_fwd, qms, SPAN_K, seed)
         del span_fwd, span_rows, qms
-        for name, r in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7)):
+        for name, r in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
+                        ("K8", planes["scan_planes_q"]), ("K9", planes["scan_planes_qb"]),
+                        ("K10", planes["scan_pay_qp"])):
             if r["max_abs_err"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
         run = main_path(work, insertions, reads)
         run2 = device_path(work, insertions, reads)
+        run4 = plane_path(work, ref, donor)
         run3 = span_path(work, seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -986,7 +1265,17 @@ def main() -> int:
         {"name": "walk_batch_span", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/walk_span.cu",
          "replaces": "mindthegap_tpu/fill/walk_device.py:157",
          "launches": run3["launches"]["walk_batch_span"], **k7},
+        {"name": "scan_planes_q", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_planes.cu",
+         "replaces": "mindthegap_tpu/find/scan_device.py:125",
+         "launches": run4["launches"]["scan_planes_q"], **planes["scan_planes_q"]},
+        {"name": "scan_planes_qb", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_planes.cu",
+         "replaces": "mindthegap_tpu/find/scan_device.py:163",
+         "launches": run4["launches"]["scan_planes_qb"], **planes["scan_planes_qb"]},
+        {"name": "scan_pay_qp", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_qp.cu",
+         "replaces": "mindthegap_tpu/find/scan_device.py:427",
+         "launches": run4["launches"]["scan_pay_qp"], **planes["scan_pay_qp"]},
     ]
+    print(f"auto gate record: {json.dumps(run4['gate'])}")
     print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

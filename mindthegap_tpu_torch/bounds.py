@@ -10,6 +10,7 @@ import torch
 from .fill import walk_device as W
 from .find import scan_device as S
 from .ops import extmap as X
+from .ops import kmers as K
 from .ops import span_device as SD
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -90,3 +91,24 @@ def walk_span_bound_ms(n_app, status, lanes: int, steps: int, k: int) -> float:
     probes = int(n_app.sum()) + int((n_app > 0).sum()) + int((status == W.STATUS_EVENT).sum())
     wq, wk = SD.span_width(k - 1), SD.span_width(k)
     return bytes_ms(probes * wq * SECTOR_BYTES + lanes * (steps + 16 * wk + 4 + 4 + 1))
+
+
+# the planes K8 and K9 write for each position: fwd 8 bytes, nb_in and
+# nb_out 4 each, valid, contains, suffix_rep and prefix_rep one each
+PLANE_BYTES_PER_POSITION = 20
+
+
+def plane_scan_sectors(packed: torch.Tensor, badbits: torch.Tensor, qm, k: int) -> int:
+    """The random sectors K8's or K9's function needs on one window (packed
+    and badbits as scan_planes_q / scan_planes_qb take them; qm from
+    QMap.to or QMapB.to on their device), one probe per (k-1)-mer of the
+    window as the plain version forms them (P + 1 of them): over the cuckoo
+    map each first-choice slot and the second-choice slot of each key that
+    is not in its first (in its second, in the stash or absent); over the
+    bucket map each key's 128-byte line, four sectors."""
+    q, _ = S.rolling_kmers(S.unpack_codes(packed, badbits), k - 1)
+    keys = K.canonical_u64(q, k - 1)
+    if isinstance(qm, X.QMapB):
+        return keys.shape[0] * 128 // SECTOR_BYTES
+    in_first, _ = X.q_probe(qm, keys, 0)
+    return keys.shape[0] + int((~in_first).sum())

@@ -325,6 +325,144 @@ cudaError_t launch(const Args& a, cudaStream_t st)
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K10: the dense payload stream of one window over the same map
+// (mindthegap_tpu_torch/find/scan_device.py _scan_pay_qp_plain, which it
+// must equal bit for bit).
+//
+// Replaces: mindthegap_tpu/find/scan_device.py scan_pay_device_qp (with its
+// core _pair_pay_device and lookup_qp), an XLA program on the TPU. The find
+// feed sends it a window whose exceptions overflow K1's cap, and
+// `find -automaton host` every window (the host turns the stream into
+// planes, planes_from_pay).
+//
+// Per pair m, K1's probe: the canonical (k-2)-mer at base 2m+1 (bad bases
+// and bases past the window read as A), its first-choice row, the second
+// only after a miss, the stash in shared memory. Outputs: pay8, the low
+// byte (ext | pre << 4, oriented as read) of entries 0 .. n_pay - 1, and
+// rep8, the repeat bits of entries 0 .. 2 * n_pairs - 1 packed big-endian
+// (np.packbits), zero past them. Bound on this card: K1's row sectors and
+// the 1.125 bytes a position written. A thread takes K1's P pairs (four
+// entries): one 4-byte store of pay8, and each even thread joins its odd
+// neighbour's four repeat bits by a shuffle into one byte of rep8.
+
+// the stash's (L36, R36) of `key`, OR-ed in: a lower bound over the 64
+// sorted slots then one compare, or a full scan of an unsorted stash
+__device__ __forceinline__ void stash_rows(const u64* s_k, const u64* s_l, const u64* s_r, int n_stash, bool sorted,
+                                           u64 key, u64& l36, u64& r36) {
+    if (sorted) {
+        int i = 0;
+#pragma unroll
+        for (int step = MAX_STASH / 2; step >= 1; step >>= 1)
+            if (s_k[i + step - 1] < key) i += step;
+        if (s_k[i] == key) {
+            l36 |= s_l[i];
+            r36 |= s_r[i];
+        }
+    } else {
+        for (int s = 0; s < n_stash; s++) {
+            if (s_k[s] == key) {
+                l36 |= s_l[s];
+                r36 |= s_r[s];
+            }
+        }
+    }
+}
+
+__global__ void __launch_bounds__(THREADS) scan_pay_qp_kernel(
+    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad, int64_t w, bool aligned,
+    const ulonglong2* __restrict__ slots, int log_size,
+    const u64* __restrict__ stash_k, const u64* __restrict__ stash_l, const u64* __restrict__ stash_r,
+    int n_stash, int k, uint8_t* __restrict__ pay8, uint8_t* __restrict__ rep8, bool vec)
+{
+    constexpr int N_CHUNKS = TP / 32 + 2;   // 2 * TP bases from base 2 * m0, and the k - 1 past them
+    constexpr int E = 2 * P;                // payload entries per thread
+    __shared__ uint32_t s_code[4 * N_CHUNKS], s_bad[2 * N_CHUNKS];
+    __shared__ u64 s_k[MAX_STASH], s_l[MAX_STASH], s_r[MAX_STASH];
+
+    const int tid = threadIdx.x;
+    for (int s = tid; s < MAX_STASH; s += THREADS) {
+        s_k[s] = s < n_stash ? stash_k[s] : ~0ull;  // the padding sorts last and equals no key
+        s_l[s] = s < n_stash ? stash_l[s] : 0;
+        s_r[s] = s < n_stash ? stash_r[s] : 0;
+    }
+    const int64_t m0 = (int64_t)blockIdx.x * TP;
+    stage(packed, bad, w, 2 * m0, N_CHUNKS, aligned, s_code, s_bad);
+    __syncthreads();
+    const bool sorted = !__syncthreads_or(tid + 1 < n_stash && s_k[tid] >= s_k[tid + 1]);
+
+    const int64_t n_pay = w - k + 2, n_pairs = (n_pay + 1) / 2, n_rep8 = (n_pay + 7) / 8;
+    const int shift = 64 - log_size;
+    const u64 rem_mask = (1ull << shift) - 1;
+
+    u64 key[P], h1[P], h2[P], y[P], x[P];
+    bool strand[P], live[P];
+#pragma unroll
+    for (int e = 0; e < P; e++) {
+        const int rel = 2 * (P * tid + e);     // base 2m, relative to 2 * m0
+        live[e] = m0 + P * tid + e < n_pairs;
+        const u64 win = bits64(s_code, 2 * rel);  // bases 2m .. 2m+31
+        y[e] = win & 3;
+        x[e] = bits32(s_code, 2 * (rel + k - 1)) & 3;
+        u64 fwd, rc;
+        kmer_words(win >> 2, k - 2, fwd, rc);   // the (k-2)-mer at base 2m+1
+        key[e] = fwd < rc ? fwd : rc;
+        strand[e] = fwd == key[e];
+        h1[e] = mix(key[e], H1);
+        h2[e] = mix(key[e], H2);
+    }
+    ulonglong2 row0[P];
+#pragma unroll
+    for (int e = 0; e < P; e++) row0[e] = live[e] ? __ldg(&slots[h1[e] >> shift]) : make_ulonglong2(0, 0);
+    uint16_t pay[E];
+#pragma unroll
+    for (int e = 0; e < P; e++) {
+        bool hit = row_hit(row0[e], h1[e], rem_mask, 0);
+        ulonglong2 row = row0[e];
+        if (!hit && live[e]) {  // the second choice, only after a miss
+            row = __ldg(&slots[h2[e] >> shift]);
+            hit = row_hit(row, h2[e], rem_mask, 1);
+        }
+        u64 l36 = hit ? ((row.x & 0xFF) << 28) | (row.y >> 36) : 0;
+        u64 r36 = hit ? row.y & QP_L36 : 0;
+        stash_rows(s_k, s_l, s_r, n_stash, sorted, key[e], l36, r36);
+        u64 pe = 0, po = 0;
+        if (live[e]) {
+            pe = strand[e] ? sub9(l36, y[e]) : flip9(sub9(r36, y[e] ^ 2));
+            po = strand[e] ? sub9(r36, x[e]) : flip9(sub9(l36, x[e] ^ 2));
+        }
+        pay[2 * e] = (uint16_t)pe;
+        pay[2 * e + 1] = (uint16_t)po;
+    }
+
+    const int64_t j0 = 2 * (m0 + P * tid);  // the thread's first entry; j0 % 8 is 0 or 4
+    if (vec && j0 + E <= n_pay) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int i = 0; i < E; i++) v |= (uint32_t)(pay[i] & 0xFF) << (8 * i);
+        *reinterpret_cast<uint32_t*>(pay8 + j0) = v;
+    } else {
+#pragma unroll
+        for (int i = 0; i < E; i++)
+            if (j0 + i < n_pay) pay8[j0 + i] = (uint8_t)pay[i];
+    }
+    unsigned nib = 0;  // entry j0 + i at bit 3 - i: np.packbits order within the byte's half
+#pragma unroll
+    for (int i = 0; i < E; i++) nib |= (unsigned)((pay[i] >> 8) & 1) << (E - 1 - i);
+    const unsigned low = __shfl_down_sync(FULL, nib, 1);
+    if ((tid & 1) == 0 && j0 / 8 < n_rep8) rep8[j0 / 8] = (uint8_t)(nib << 4 | low);
+}
+
+cudaError_t launch_pay(const Args& a, uint8_t* pay8, uint8_t* rep8, cudaStream_t st)
+{
+    const int64_t n_pairs = (a.w - a.k + 3) / 2;
+    const int64_t n_tiles = (n_pairs + TP - 1) / TP;
+    scan_pay_qp_kernel<<<(unsigned)n_tiles, THREADS, 0, st>>>(
+        a.packed, a.bad, a.w, a.aligned, a.slots, a.log_size, a.stash_k, a.stash_l, a.stash_r, a.n_stash, a.k,
+        pay8, rep8, (uintptr_t)pay8 % 4 == 0);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // pairs a block takes: the tile count sizes the look-back scratch
@@ -345,4 +483,20 @@ extern "C" int scan_cls_qp_launch(
                     (const u64*)stash_k, (const u64*)stash_l, (const u64*)stash_r, n_stash, k,
                     (uint8_t*)cls2, (int16_t*)exc16, (long long*)n_exc, out_len, (int16_t*)tail, (u64*)states};
     return (int)launch(a, (cudaStream_t)stream);
+}
+
+// K10: packed and bad as for K1; pay8: w - k + 2 bytes; rep8:
+// ceil((w - k + 2) / 8) bytes.
+extern "C" int scan_pay_qp_launch(
+    const void* packed, const void* bad, int64_t w,
+    const void* slots, int log_size,
+    const void* stash_k, const void* stash_l, const void* stash_r, int n_stash, int k,
+    void* pay8, void* rep8, void* stream)
+{
+    const Args a = {(const uint8_t*)packed, (const uint8_t*)bad, w,
+                    (uintptr_t)packed % 16 == 0 && (uintptr_t)bad % 8 == 0,
+                    (const ulonglong2*)slots, log_size,
+                    (const u64*)stash_k, (const u64*)stash_l, (const u64*)stash_r, n_stash, k,
+                    nullptr, nullptr, nullptr, 0, nullptr, nullptr};
+    return (int)launch_pay(a, (uint8_t*)pay8, (uint8_t*)rep8, (cudaStream_t)stream);
 }

@@ -61,44 +61,19 @@
 // even at one lane (2.15 ms against 1.03 ms cuckoo) with 42 registers and
 // no spills; the likely cause, not checked in its machine code, is that
 // its eight loads did not all issue before the first compare. Here they
-// are issued first.
+// are issued first. The probe's table primitives (the hash, the slot test,
+// the bucket line) live in qmap.cuh, shared with K8 and K9.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-typedef unsigned long long u64;
+#include "qmap.cuh"
 
 namespace {
 
-constexpr u64 H1 = 0x9E3779B97F4A7C15ull;
-constexpr u64 H2 = 0xC2B2AE3D27D4EB4Full;
-constexpr u64 PAY_MASK = 0x1FF;
-constexpr u64 Q_VALID = 1ull << 10;
-constexpr u64 Q_CHOICE = 1ull << 9;
-constexpr int Q_SHIFT_PAY = 11;
-constexpr u64 QB_VALID = 1ull << 9;
-constexpr int QB_SHIFT_PAY = 10;
-constexpr int MAX_STASH = 64;
+using namespace qmap;
+
 constexpr uint8_t STATUS_RUNNING = 0, STATUS_TIP = 1, STATUS_EVENT = 2;
-
-__device__ __forceinline__ u64 mix(u64 key, u64 c) {
-    u64 h = (key ^ (key >> 33)) * c;
-    return h ^ (h >> 29);
-}
-
-__device__ __forceinline__ u64 revcomp(u64 x, int k) {
-    x ^= 0xAAAAAAAAAAAAAAAAull;  // complement every base
-    x = ((x >> 2) & 0x3333333333333333ull) | ((x & 0x3333333333333333ull) << 2);
-    x = ((x >> 4) & 0x0F0F0F0F0F0F0F0Full) | ((x & 0x0F0F0F0F0F0F0F0Full) << 4);
-    x = ((x >> 8) & 0x00FF00FF00FF00FFull) | ((x & 0x00FF00FF00FF00FFull) << 8);
-    x = ((x >> 16) & 0x0000FFFF0000FFFFull) | ((x & 0x0000FFFF0000FFFFull) << 16);
-    x = (x >> 32) | (x << 32);
-    return x >> (64 - 2 * k);
-}
-
-__device__ __forceinline__ unsigned shuffle02(unsigned b) {  // bitmap positions b -> b^2
-    return ((b >> 2) & 3) | ((b & 3) << 2);
-}
 
 constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
 
@@ -139,18 +114,12 @@ __device__ __forceinline__ unsigned probe(const Ctx& cx, u64 root, int t, int nc
     const u64 cq = q < rc ? q : rc;
     // issue the probe's loads before anything waits on one: the bucket's
     // line as eight 16-byte loads, or the two cuckoo slots
-    constexpr int W = BUCKET ? 16 : 2;
+    constexpr int W = BUCKET ? QB_SLOTS : 2;
     u64 w[W], rem[BUCKET ? 1 : 2];
-    if (BUCKET) {
+    if constexpr (BUCKET) {
         const u64 h = mix(cq, H1);
         rem[0] = h & cx.rem_mask;
-        const ulonglong2* row = reinterpret_cast<const ulonglong2*>(cx.slots + (h >> cx.shift) * 16);
-#pragma unroll
-        for (int i = 0; i < 8; i++) {
-            const ulonglong2 v = __ldg(row + i);
-            w[2 * i] = v.x;
-            w[2 * i + 1] = v.y;
-        }
+        qb_line(cx.slots, h >> cx.shift, w);
     } else {
 #pragma unroll
         for (int i = 0; i < 2; i++) {
@@ -164,17 +133,12 @@ __device__ __forceinline__ unsigned probe(const Ctx& cx, u64 root, int t, int nc
     unsigned pay = 0;
     for (int s = 0; s < cx.n_stash; s++) pay += cx.s_keys[s] == cq ? cx.s_pay[s] : 0u;
     unsigned tbl = 0;
-    if (BUCKET) {  // the max over the 16 slots
-#pragma unroll
-        for (int i = 0; i < 16; i++) {
-            const unsigned p = (w[i] & QB_VALID) && (w[i] >> QB_SHIFT_PAY) == rem[0] ? (unsigned)(w[i] & PAY_MASK) : 0u;
-            tbl = tbl > p ? tbl : p;
-        }
+    if constexpr (BUCKET) {  // the max over the 16 slots
+        tbl = qb_payload(w, rem[0]);
     } else {  // the second choice's hit overrides the first's, as in the plain version
 #pragma unroll
         for (int i = 0; i < 2; i++)
-            if ((w[i] >> Q_SHIFT_PAY) == rem[i] && (w[i] & Q_VALID) && (((w[i] & Q_CHOICE) != 0) == (i == 1)))
-                tbl = (unsigned)(w[i] & PAY_MASK);
+            if (q_slot_hit(w[i], rem[i], i)) tbl = (unsigned)(w[i] & PAY_MASK);
     }
     pay = (pay | tbl) & 0xFF;
     const unsigned ext_c = pay & 0xF, pre_c = pay >> 4;

@@ -3,18 +3,29 @@
 Builds or loads the de Bruijn graph (counted on the host, or on the device
 with -count-engine device: kernels K3 and K4), builds the
 reference-repeat set and the scan map on the host, then scans every
-reference sequence on the device (find/scan_device.py) and replays the
-stream in the native automaton (native/automaton.cpp), which writes
-`<out>.breakpoints` + `<out>.othervariants.vcf`. At k <= 32 the map is
-pair-coalesced and the device sends a class stream (kernel K1 on CUDA); at
-32 < k <= 256 it is the multi-word span map and the device sends payload
-bytes with strand bits (kernel K6). Mode flags follow src/Finder.cpp:320-398.
+reference sequence and replays it in an automaton, which writes
+`<out>.breakpoints` + `<out>.othervariants.vcf`. Mode flags follow
+src/Finder.cpp:320-398.
+
+Two routes from the scan to the automaton, chosen as in the JAX package:
+- the payload feed into the native automaton (native/automaton.cpp), with
+  `-scan-engine auto|device-qp` (and `device` above k = 32): at k <= 32 the
+  pair map and a class stream (kernel K1 on CUDA; a window with too many
+  exceptions goes dense through K10); at 32 < k <= 256 the multi-word span
+  map and payload bytes with strand bits (K6);
+- the plane path: every window's planes (find/scan.py Planes) into the
+  native automaton's scan_sequence or, under `-automaton host`, the Python
+  automaton (find/automaton.py ScanContext and the observers). The planes
+  come from the host oracle (`-scan-engine host`, compute_planes), from
+  the cuckoo map (`device`, K8) or the bucket map (`device-qb`, K9) at
+  k <= 32, from the pair map's dense stream (K10, then planes_from_pay on
+  the host) for `auto|device-qp`, and at k > 32 from the span scan (K6,
+  then planes_from_pay_span).
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -26,6 +37,9 @@ from ..io.bank import Bank
 from ..utils import dna
 from ..utils.progress import Progress
 from ..utils.properties import Properties
+from . import observers as O
+from . import scan
+from .automaton import FindStats, ScanContext
 
 
 class FinderError(Exception):
@@ -72,27 +86,11 @@ def parse_bed_for_chrom(bed_path: str, chrom_name: str, k: int):
     return intervals
 
 
-@dataclass
-class FindStats:
-    homo_clean: int = 0
-    homo_fuzzy: int = 0
-    hetero_clean: int = 0
-    hetero_fuzzy: int = 0
-    fuzzy_deletion: int = 0
-    clean_deletion: int = 0
-    solo_snp: int = 0
-    multi_snp: int = 0
-    backup: int = 0
-    homo_clean_indel: int = 0
-    homo_fuzzy_indel: int = 0
-    hetero_indel: int = 0
-
-
 _VALID_SCAN_ENGINES = ("auto", "host", "device", "device-qp", "device-qb", "sharded", "sharded-mem")
-# the engines ported: at k <= 32 `auto` and `device-qp` take the pair map;
-# at 32 < k <= 256 `auto`, `device` and `device-qp` all take the span map,
-# as in the JAX package
-_PORTED_SCAN_ENGINES = ("auto", "device", "device-qp")
+# at k <= 32 `auto` and `device-qp` take the pair map, `device` the cuckoo
+# map and `device-qb` the bucket map; at 32 < k <= 256 every device engine
+# takes the span map, as in the JAX package
+_PORTED_SCAN_ENGINES = ("auto", "host", "device", "device-qp", "device-qb")
 
 
 def _validate_scan_engine(engine: str):
@@ -105,14 +103,11 @@ def _validate_scan_engine(engine: str):
         raise NotYetPorted(f"-scan-engine {engine}")
 
 
-def _check_scan_k(engine: str, k: int):
-    """What stays unported at this k: the two-probe cuckoo plane path
-    (`-scan-engine device` at k <= 32) and the host automaton the JAX
-    package takes above k = 256."""
+def _check_scan_k(k: int):
+    """What stays unported at this k: the JAX package's find above k = 256
+    (its host scan into the Python automaton)."""
     if k > 256:
         raise NotYetPorted("find with -kmer-size above 256")
-    if engine == "device" and k <= 32:
-        raise NotYetPorted("-scan-engine device with -kmer-size up to 32")
 
 
 def _check_table_fits(nbytes: int, device: torch.device):
@@ -132,14 +127,15 @@ def _check_table_fits(nbytes: int, device: torch.device):
 
 def _upload(part: np.ndarray, k: int, device: torch.device):
     """One window's bases, padded with invalid bases to a multiple of 8 (the
-    bad-bit packing) and to at least k + 8, 2-bit packed on `device`."""
+    bad-bit packing) and to at least k + 8: (packed, bad) 2-bit packed on
+    `device`, and the padded row on the host."""
     from .scan_device import pack_codes_host
 
     wlen = max(-(-part.shape[0] // 8) * 8, -(-(k + 8) // 8) * 8)
     row = np.full(wlen, 255, np.uint8)
     row[: part.shape[0]] = part
     packed, bad = pack_codes_host(row)
-    return torch.from_numpy(packed).to(device), torch.from_numpy(bad).to(device)
+    return torch.from_numpy(packed).to(device), torch.from_numpy(bad).to(device), row
 
 
 def _to_host(res: dict, device: torch.device):
@@ -160,8 +156,9 @@ def _window_feed(k: int, window: int, dispatch, emit):
     k-1; the last one cut to the sequence). Window g is dispatched before
     window g-1 is emitted: CUDA launches and the device->host copies are
     asynchronous, so the device computes g while the host replays g-1.
-    emit(pending, n_feed) gets what dispatch returned and the window's
-    share of the sequence's npos + 1 payload entries."""
+    emit(pending, take, last) gets what dispatch returned, the window's
+    number of positions of the sequence and whether it is the last one
+    (whose take + 1 payload entries end the sequence's npos + 1)."""
     step = window - (k - 1)
 
     def feed(codes):
@@ -169,64 +166,26 @@ def _window_feed(k: int, window: int, dispatch, emit):
         if npos <= 0:
             return
         nwin = -(-npos // step)
-
-        def n_feed(w):
-            # the final window contributes its take + 1
-            return min(step, npos - w * step) + (1 if w == nwin - 1 else 0)
-
         pending = None
         for w in range(nwin):
             res = dispatch(codes[w * step : w * step + window])
             if pending is not None:
-                yield from emit(pending, n_feed(w - 1))
-            pending = res
-        yield from emit(pending, n_feed(nwin - 1))
+                yield from emit(*pending)
+            pending = (res, min(step, npos - w * step), w == nwin - 1)
+        yield from emit(*pending)
 
     return feed
 
 
-def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device,
-                      window: int = 1 << 22, exc_cap: int | None = None):
-    """Class-stream scan feed for the native automaton (k <= 32): returns a
-    factory `codes -> iterator of chunks` for NativeScanner.scan_sequence_pay.
-
-    Windows of `window` bases go up 2-bit packed; the device returns the
-    2-bit class stream plus the exception payloads (scan_cls_qp). A window
-    with more exceptions than its cap (default 12.5% of its payload
-    entries) is re-dispatched dense (scan_pay_qp). At 32 < k <= 256 the
-    span feed (_make_span_feed_fn) takes its place."""
-    if k > 32:
-        return _make_span_feed_fn(graph, repeat_set, k, device)
+def _pair_tables(graph, repeat_set, k: int, device: torch.device):
+    """The pair map (k <= 32) on `device`: ((slots2, stash_keys, stash_l,
+    stash_r), log_size); only the device copy lives on."""
     from ..ops import extmap as X
-    from .scan_device import scan_cls_qp, scan_pay_qp, unpack_codes
 
     qp = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers)
     _check_table_fits(qp.nbytes, device)
-    tables = qp.to(device)
-    targs = (tables.slots, tables.stash_keys, tables.stash_l, tables.stash_r)
-    log_size = qp.log_size
-    del qp, tables  # only the device copy is used from here
-
-    def dispatch(part):
-        packed, bad = _upload(part, k, device)
-        cap = exc_cap if exc_cap is not None else (packed.shape[0] * 4 - k + 2 + 3) // 4 * 4 // 8
-        res = scan_cls_qp(packed, bad, *targs, log_size, k, cap)
-        return _to_host(res, device) + (packed, bad, cap)
-
-    def emit(pending, n_feed):
-        host, done, packed, bad, cap = pending
-        if done is not None:
-            done.synchronize()
-        n_exc = int(host["n_exc"])
-        if n_exc > cap:
-            # exception-heavy window: re-dispatch dense
-            r = scan_pay_qp(unpack_codes(packed, bad), *targs, log_size, k)
-            yield ("pay", r["pay8"].cpu().numpy()[:n_feed], r["rep8"].cpu().numpy(), None, n_feed)
-        else:
-            exc16 = host["exc16"].numpy().view(np.uint16)
-            yield ("cls", host["cls2"].numpy(), exc16, n_exc, n_feed)
-
-    return _window_feed(k, window, dispatch, emit)
+    t = qp.to(device)
+    return (t.slots, t.stash_keys, t.stash_l, t.stash_r), qp.log_size
 
 
 def _build_span_map(graph, repeat_set, k: int):
@@ -244,6 +203,62 @@ def _build_span_map(graph, repeat_set, k: int):
     return X.build_fused_span(solid_rows, k, rep_rows)
 
 
+def _span_tables(graph, repeat_set, k: int, device: torch.device):
+    """The span map on `device`, as scan_pay_q_span takes it after the
+    window: (slots, sat, stash_key64, stash_sat, stash_payload, salt,
+    log_size)."""
+    qms = _build_span_map(graph, repeat_set, k)
+    _check_table_fits(qms.nbytes, device)
+    t = qms.to(device)
+    return (t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size)
+
+
+def _feeds_payloads(engine: str, k: int) -> bool:
+    """Whether `engine` streams payloads into the native automaton (else it
+    takes the plane path): the pair map at k <= 32, the span map above,
+    as the JAX package's _make_pay_feed_fn gates them."""
+    return engine in (("auto", "device-qp") if k <= 32 else ("auto", "device", "device-qp"))
+
+
+def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device,
+                      window: int = 1 << 22, exc_cap: int | None = None):
+    """Class-stream scan feed for the native automaton (k <= 32): returns a
+    factory `codes -> iterator of chunks` for NativeScanner.scan_sequence_pay.
+
+    Windows of `window` bases go up 2-bit packed; the device returns the
+    2-bit class stream plus the exception payloads (scan_cls_qp, K1). A
+    window with more exceptions than its cap (default 12.5% of its payload
+    entries) is re-dispatched dense (scan_pay_qp, K10). At 32 < k <= 256
+    the span feed (_make_span_feed_fn) takes its place."""
+    if k > 32:
+        return _make_span_feed_fn(graph, repeat_set, k, device)
+    from .scan_device import scan_cls_qp, scan_pay_qp
+
+    targs, log_size = _pair_tables(graph, repeat_set, k, device)
+
+    def dispatch(part):
+        packed, bad, _row = _upload(part, k, device)
+        cap = exc_cap if exc_cap is not None else (packed.shape[0] * 4 - k + 2 + 3) // 4 * 4 // 8
+        res = scan_cls_qp(packed, bad, *targs, log_size, k, cap)
+        return _to_host(res, device) + (packed, bad, cap)
+
+    def emit(pending, take, last):
+        host, done, packed, bad, cap = pending
+        n_feed = take + last
+        if done is not None:
+            done.synchronize()
+        n_exc = int(host["n_exc"])
+        if n_exc > cap:
+            # exception-heavy window: re-dispatch dense
+            r = scan_pay_qp(packed, bad, *targs, log_size, k)
+            yield ("pay", r["pay8"].cpu().numpy()[:n_feed], r["rep8"].cpu().numpy(), None, n_feed)
+        else:
+            exc16 = host["exc16"].numpy().view(np.uint16)
+            yield ("cls", host["cls2"].numpy(), exc16, n_exc, n_feed)
+
+    return _window_feed(k, window, dispatch, emit)
+
+
 def _make_span_feed_fn(graph, repeat_set, k: int, device: torch.device, window: int = 1 << 21):
     """Payload scan feed for the native automaton at 32 < k <= 256: windows
     of `window` bases go up 2-bit packed; the device returns each (k-1)-mer's
@@ -252,23 +267,113 @@ def _make_span_feed_fn(graph, repeat_set, k: int, device: torch.device, window: 
     strand bit."""
     from .scan_device import scan_pay_q_span
 
-    qms = _build_span_map(graph, repeat_set, k)
-    _check_table_fits(qms.nbytes, device)
-    t = qms.to(device)
-    targs = (t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size)
-    del qms, t  # only the device copy is used from here
+    targs = _span_tables(graph, repeat_set, k, device)
 
     def dispatch(part):
-        packed, bad = _upload(part, k, device)
+        packed, bad, _row = _upload(part, k, device)
         return _to_host(scan_pay_q_span(packed, bad, *targs, k), device)
 
-    def emit(pending, n_feed):
+    def emit(pending, take, last):
         host, done = pending
+        n_feed = take + last
         if done is not None:
             done.synchronize()
         yield ("pay", host["pay8"].numpy()[:n_feed], host["rep8"].numpy(), host["str8"].numpy(), n_feed)
 
     return _window_feed(k, window, dispatch, emit)
+
+
+def _stitched(k: int, window: int, dispatch, emit, keys, host_fn):
+    """`codes -> Planes` over windows (_window_feed): each window's planes,
+    which emit yields as numpy arrays cut to the window's take, joined in
+    position order. A sequence shorter than k has no position: host_fn
+    gives its empty Planes."""
+    from .scan import Planes
+
+    feed = _window_feed(k, window, dispatch, emit)
+
+    def planes_fn(codes):
+        if codes.shape[0] < k:
+            return host_fn(codes)
+        parts = list(feed(codes))
+        return Planes(**{key: np.concatenate([part[key] for part in parts]) for key in keys})
+
+    return planes_fn
+
+
+def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device):
+    """`codes -> Planes` for the plane path: the host oracle for
+    `-scan-engine host`; at k <= 32 the cuckoo map's planes (`device`, K8
+    on CUDA), the bucket map's (`device-qb`, K9) or the pair map's dense
+    payload stream (`auto`, `device-qp`: K10, then planes_from_pay on the
+    host) over 2^22-base windows; at 32 < k <= 256 the span scan (K6, then
+    planes_from_pay_span) over 2^21-base windows. The planes are identical
+    whichever engine makes them."""
+    from .scan_device import PLANE_KEYS
+
+    def host_fn(codes):
+        return scan.compute_planes(codes, k, graph.solid.kmers, repeat_set.kmers)
+
+    if engine == "host":
+        return host_fn
+
+    def payload_route(window: int, scan_fn, to_planes, keys):
+        # the device's payload stream of each window, made into planes on
+        # the host
+        def dispatch(part):
+            packed, bad, row = _upload(part, k, device)
+            return _to_host(scan_fn(packed, bad), device) + (row,)
+
+        def emit(pending, take, _last):
+            host, done, row = pending
+            if done is not None:
+                done.synchronize()
+            pw = to_planes({key: v.numpy() for key, v in host.items()}, row)
+            yield {key: getattr(pw, key)[:take] for key in keys}
+
+        return _stitched(k, window, dispatch, emit, keys, host_fn)
+
+    if k > 32:
+        from .scan_device import planes_from_pay_span, scan_pay_q_span
+
+        targs = _span_tables(graph, repeat_set, k, device)
+        return payload_route(1 << 21, lambda packed, bad: scan_pay_q_span(packed, bad, *targs, k),
+                             lambda h, row: planes_from_pay_span(h["pay8"], h["rep8"], h["str8"], row, k),
+                             PLANE_KEYS + ("fwd_rows",))
+    if engine in ("auto", "device-qp"):
+        from .scan_device import planes_from_pay, scan_pay_qp
+
+        targs, log_size = _pair_tables(graph, repeat_set, k, device)
+        return payload_route(1 << 22, lambda packed, bad: scan_pay_qp(packed, bad, *targs, log_size, k),
+                             lambda h, row: planes_from_pay(h["pay8"], h["rep8"], row, k), PLANE_KEYS)
+
+    from ..ops import extmap as X
+    from .scan_device import scan_planes_q, scan_planes_qb
+
+    if engine == "device-qb":
+        qm = X.build_fused_bucket(graph.solid.kmers, k, repeat_set.kmers)
+        log, scan_fn = qm.log_nb, scan_planes_qb
+    else:
+        qm = X.build_fused(graph.solid.kmers, k, repeat_set.kmers)
+        log, scan_fn = qm.log_size, scan_planes_q
+    _check_table_fits(qm.nbytes, device)
+    t = qm.to(device)
+    targs = (t.slots, t.stash_keys, t.stash_payload)
+    del qm, t  # only the device copy is used from here
+
+    def dispatch(part):
+        packed, bad, _row = _upload(part, k, device)
+        return _to_host(scan_fn(packed, bad, *targs, log, k), device)
+
+    def emit(pending, take, _last):
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        out = {key: v.numpy()[:take] for key, v in host.items()}
+        out["fwd"] = out["fwd"].view(np.uint64)
+        yield out
+
+    return _stitched(k, 1 << 22, dispatch, emit, PLANE_KEYS, host_fn)
 
 
 def run_find(opts: dict, out=None) -> Properties:
@@ -294,10 +399,8 @@ def run_find(opts: dict, out=None) -> Properties:
     device = resolve_device(opts.get("device"))
     scan_engine = opts.get("scan-engine", "auto")
     _validate_scan_engine(scan_engine)
-    if opts.get("automaton", "auto") not in ("auto", "native"):
-        raise NotYetPorted(f"-automaton {opts['automaton']}")
     if has_in:  # checked before the graph build
-        _check_scan_k(scan_engine, int(opts.get("kmer-size", 31)))
+        _check_scan_k(int(opts.get("kmer-size", 31)))
 
     from ..utils.phases import PhaseTimer, maybe_trace
 
@@ -325,7 +428,7 @@ def run_find(opts: dict, out=None) -> Properties:
         with phases.phase("graph load"):
             graph = dbg.Graph.load(opts["graph"])
             k = graph.k
-    _check_scan_k(scan_engine, k)  # a loaded graph
+    _check_scan_k(k)  # a loaded graph
 
     bed_file = opts.get("bed", "")
 
@@ -373,16 +476,42 @@ def run_find(opts: dict, out=None) -> Properties:
 
     from . import native_scan
 
+    # the native automaton unless -automaton host (any other value, as in
+    # the JAX package, takes the Python one too)
+    use_native = opts.get("automaton", "auto") in ("auto", "native")
+
     with open(breakpoint_name, "w") as bkpt_f, open(vcf_name, "w") as vcf_f:
         _write_vcf_header(vcf_f, opts)
 
-        ctx = native_scan.NativeScanner(
-            graph, repeat_set, k,
+        flags = dict(
             max_repeat=max_repeat, snp_min_val=snp_min_val,
             branching_threshold=branching_threshold, homo_only=homo_only,
-            snp=snp, deletion=deletion, small_homo=small_homo,
-            homo_insert=homo_insert, backup=backup, hete_insert=hete_insert,
         )
+        if use_native:
+            ctx = native_scan.NativeScanner(
+                graph, repeat_set, k, **flags,
+                snp=snp, deletion=deletion, small_homo=small_homo,
+                homo_insert=homo_insert, backup=backup, hete_insert=hete_insert,
+            )
+        else:
+            ctx = ScanContext(graph, repeat_set, k, bkpt_f, vcf_f, **flags)
+            # registration order = priority (src/Finder.cpp:548-582)
+            if snp:
+                ctx.add_gap_observer(O.FindSoloSNP(ctx))
+                ctx.add_gap_observer(O.FindMultiSNP(ctx))
+                ctx.add_gap_observer(O.FindMultiSNPrev(ctx))
+            if deletion:
+                ctx.add_gap_observer(O.FindDeletion(ctx))
+            if small_homo:
+                ctx.add_gap_observer(O.FindSmallCleanInsertion(ctx))
+                ctx.add_gap_observer(O.FindSmallFuzzyInsertion(ctx))
+            if homo_insert:
+                ctx.add_gap_observer(O.FindCleanInsertion(ctx))
+                ctx.add_gap_observer(O.FindFuzzyInsertion(ctx))
+            if backup:
+                ctx.add_gap_observer(O.FindBackup(ctx))
+            if hete_insert:
+                ctx.add_kmer_observer(O.FindHeteroInsertion(ctx))
 
         refbank = Bank.open(ref_uri)
         verbose = int(opts.get("verbose", 1))
@@ -390,22 +519,37 @@ def run_find(opts: dict, out=None) -> Properties:
             refbank.estimate_sequences_size(), "Finding breakpoints", enabled=verbose > 0
         )
         with phases.phase("scan engine setup"):
-            pay_feed = _make_pay_feed_fn(graph, repeat_set, k, device)
+            # native automaton + a payload engine: the payload stream feeds
+            # the C scanner directly (no host plane expansion; replay
+            # overlaps device compute); every other combination takes the
+            # plane path
+            pay_feed = plane_fn = None
+            if use_native and _feeds_payloads(scan_engine, k):
+                pay_feed = _make_pay_feed_fn(graph, repeat_set, k, device)
+            else:
+                plane_fn = _make_plane_fn(scan_engine, graph, repeat_set, k, device)
         for rec in refbank:
             codes = dna.seq_to_codes(rec.seq)
             bed_intervals = None
             if bed_file:
                 bed_intervals = parse_bed_for_chrom(bed_file, rec.comment_short, k)
-            with phases.phase("scan+replay (fused)"):
-                ctx.scan_sequence_pay(rec.comment_short, rec.seq, pay_feed(codes), bed_intervals)
+            if pay_feed is not None:
+                with phases.phase("scan+replay (fused)"):
+                    ctx.scan_sequence_pay(rec.comment_short, rec.seq, pay_feed(codes), bed_intervals)
+            else:
+                with phases.phase("scan planes"):
+                    planes = plane_fn(codes)
+                with phases.phase("automaton replay"):
+                    ctx.scan_sequence(rec.comment_short, rec.seq, planes, bed_intervals)
             progress.inc(len(rec.seq))
         progress.finish()
 
-        bkpt_text, vcf_text, native_stats = ctx.results()
-        bkpt_f.write(bkpt_text)
-        vcf_f.write(vcf_text)
-        ctx.close()
-        ctx = _StatsHolder(FindStats(**native_stats))
+        if use_native:
+            bkpt_text, vcf_text, native_stats = ctx.results()
+            bkpt_f.write(bkpt_text)
+            vcf_f.write(vcf_text)
+            ctx.close()
+            ctx = _StatsHolder(FindStats(**native_stats))
 
     seconds = time.time() - t0
     trace_ctx.__exit__(None, None, None)

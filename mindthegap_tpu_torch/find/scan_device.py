@@ -1,21 +1,30 @@
-"""Device pass of the find scan over the pair-coalesced map (ops/extmap.py
-QMapP), on int64 tensors.
+"""Device pass of the find scan, on int64 tensors, and the host side of
+its plane path.
 
-Per window of W reference bases the pass computes the fused 9-bit payload
-stream pay[j] of the (k-1)-mers q_j (one pair-map row lookup per TWO
-positions) and ships it to the native automaton in one of two forms:
+Per window of W reference bases the pass looks up, for each (k-1)-mer q_j,
+its fused 9-bit payload (ext | pre << 4 | repeat << 8, ops/extmap.py) and
+sends it to an automaton in one of these forms:
 
-- scan_cls_qp: a reference-delta class stream (2 bits per payload) plus the
-  exception payloads, compacted in payload order — the main path;
-- scan_pay_qp: the dense payload bytes plus packed repeat bits — the
-  re-dispatch for a window with more exceptions than the cap.
+- scan_cls_qp (k <= 32, the pair map QMapP): a reference-delta class
+  stream (2 bits per payload) plus the exception payloads, compacted in
+  payload order — the main path, into the native automaton; the hand
+  kernel K1 (csrc/scan_qp.cu) on CUDA;
+- scan_pay_qp (pair map): the dense payload bytes plus packed repeat bits
+  — the re-dispatch of a window with more exceptions than the cap, and
+  the plane feed of `-automaton host`; the hand kernel K10 (beside K1);
+- scan_planes_q / scan_planes_qb (`-scan-engine device` / `device-qb`,
+  k <= 32, the cuckoo map QMap / the bucket map QMapB): the seven planes
+  of find/scan.py Planes themselves; the hand kernels K8 and K9
+  (csrc/scan_planes.cu);
+- scan_pay_q_span (32 < k <= 256, the span map QMapSpan): payload bytes
+  with repeat and strand bits; the hand kernel K6 (csrc/scan_span.cu).
 
-Every function here is plain PyTorch and runs on any device, except
-scan_cls_qp, which on a CUDA tensor runs the hand kernel K1
-(csrc/scan_qp.cu: payloads, classes and the exception compaction in one
-pass) and on a CPU tensor its plain version below. At 32 < k <= 256 the
-scan is scan_pay_q_span over the multi-word span map: the hand kernel K6
-(csrc/scan_span.cu) on CUDA, its plain version on the CPU.
+Each dispatcher runs its kernel on a CUDA tensor and its plain version
+(`_..._plain`, plain PyTorch) on a CPU tensor. planes_from_pay and
+planes_from_pay_span turn a payload stream into Planes on the host;
+scan_planes_qp and scan_planes_q_span are plain reference plane passes
+with no kernel and no caller on a `find` path (they raise on a CUDA
+tensor).
 """
 
 from __future__ import annotations
@@ -126,12 +135,10 @@ def _pair_pay(codes, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # big-endian, as np.packbits
 
 
-def scan_pay_qp(codes, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
-    """Dense payload stream of one window: pay8 u8[P+1] (ext|pre nibbles,
-    oriented as-read) and rep8, the repeat bits packed big-endian (the
-    np.unpackbits order the native automaton reads)."""
-    p = codes.shape[0] - k + 1
-    n_pay = p + 1
+def _scan_pay_qp_plain(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
+    """Plain version of K10: the pair payloads of the window, then pack."""
+    codes = unpack_codes(packed, badbits)
+    n_pay = codes.shape[0] - k + 2
     pay = _pair_pay(codes, slots2, stash_k, stash_l, stash_r, log_size, k)
     n8 = -(-n_pay // 8) * 8  # >= 2 * n_pairs
     padded = torch.zeros(n8, dtype=torch.int64, device=codes.device)
@@ -141,6 +148,39 @@ def scan_pay_qp(codes, slots2, stash_k, stash_l, stash_r, log_size: int, k: int)
     w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int64, device=codes.device)
     rep8 = (rep * w).sum(dim=1).to(torch.uint8)
     return {"pay8": pay8[:n_pay], "rep8": rep8}
+
+
+def scan_pay_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
+    """K10 (csrc/scan_qp.cu, beside K1): the same {pay8, rep8} as
+    _scan_pay_qp_plain, K1's pairs and probes with each payload written
+    out. Counts one launch per window in `scan_pay_qp_cuda.launches`."""
+    w = _check_qp_args(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k)
+    dev = packed.device
+    n_pay = w - k + 2
+    pay8 = torch.empty(n_pay, dtype=torch.uint8, device=dev)
+    rep8 = torch.empty(-(-n_pay // 8), dtype=torch.uint8, device=dev)
+    err = _cls_lib().scan_pay_qp_launch(
+        packed.data_ptr(), badbits.data_ptr(), w, slots2.data_ptr(), log_size,
+        stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), stash_k.shape[0], k,
+        pay8.data_ptr(), rep8.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"scan_pay_qp kernel launch failed: CUDA error {err}")
+    scan_pay_qp_cuda.launches += 1
+    return {"pay8": pay8, "rep8": rep8}
+
+
+scan_pay_qp_cuda.launches = 0
+
+
+def scan_pay_qp(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int):
+    """Dense payload stream of one window, from 2-bit packed codes and bad
+    bits (pack_codes_host): pay8 u8[P+1] (ext|pre nibbles, oriented as-read)
+    and rep8, the repeat bits packed big-endian (the np.unpackbits order the
+    native automaton reads). On a CUDA tensor this runs the kernel K10; on
+    a CPU tensor its plain version."""
+    fn = scan_pay_qp_cuda if packed.is_cuda else _scan_pay_qp_plain
+    return fn(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k)
 
 
 # ---------------------------------------------------------------------------
@@ -214,18 +254,20 @@ def _cls_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p,
         ]
+        lib.scan_pay_qp_launch.restype = ctypes.c_int
+        lib.scan_pay_qp_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
         _CLS_LIB = lib
     return _CLS_LIB
 
 
-def scan_cls_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int,
-                     exc_cap: int):
-    """K1 (csrc/scan_qp.cu): the same {cls2, exc16, n_exc} as
-    _scan_cls_qp_plain, in one pass: tiles of 256 x 2 pairs classified from
-    shared memory (the second cuckoo probe only after the first misses),
-    the EXC count carried across tiles by a decoupled look-back, then a
-    small kernel that places the non-EXC tail of exc16 behind the n_exc EXC
-    payloads. Counts one launch per window in `scan_cls_qp_cuda.launches`."""
+def _check_qp_args(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int) -> int:
+    """Validate the window and pair-map tensors of K1 and K10; returns the
+    window's length in bases."""
     check_kernel_tensor(packed, "packed", torch.uint8, 1)
     check_kernel_tensor(badbits, "badbits", torch.uint8, 1)
     check_kernel_tensor(slots2, "slots2", torch.int64, 2)
@@ -243,10 +285,23 @@ def scan_cls_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_siz
         raise ValueError("stash tables must hold 1..64 entries each")
     if not 3 <= k <= 32 or w < k + 8 or w >= 1 << 31:
         raise ValueError(f"k must be in [3, 32] and the window in [k + 8, 2^31), got k={k}, window={w}")
+    return w
+
+
+def scan_cls_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int,
+                     exc_cap: int):
+    """K1 (csrc/scan_qp.cu): the same {cls2, exc16, n_exc} as
+    _scan_cls_qp_plain, in one pass: tiles of 256 x 2 pairs classified from
+    shared memory (the second cuckoo probe only after the first misses),
+    the EXC count carried across tiles by a decoupled look-back, then a
+    small kernel that places the non-EXC tail of exc16 behind the n_exc EXC
+    payloads. Counts one launch per window in `scan_cls_qp_cuda.launches`."""
+    w = _check_qp_args(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k)
     if exc_cap < 0:
         raise ValueError(f"exc_cap must be >= 0, got {exc_cap}")
     dev = packed.device
     lib = _cls_lib()
+    n_stash = stash_k.shape[0]
     n4 = -(-(w - k + 2) // 4) * 4
     out_len = min(exc_cap, n4)
     n_tiles = -(-n4 // (2 * lib.scan_cls_qp_tile_pairs()))
@@ -388,3 +443,251 @@ def scan_pay_q_span(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
     this runs the kernel K6; on a CPU tensor its plain version."""
     fn = scan_pay_q_span_cuda if packed.is_cuda else _scan_pay_q_span_plain
     return fn(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v, salt, log_size, k)
+
+
+# ---------------------------------------------------------------------------
+# The plane path: the seven planes of find/scan.py Planes for every position
+# of a window, computed on the device (K8, K9; the plain qp and span
+# passes) or rebuilt on the host from a payload stream (planes_from_pay,
+# planes_from_pay_span). Position i's planes come from the payloads of its
+# (k-1)-mers q_i and q_{i+1} (ops/extmap.py planes_from_payload).
+
+PLANE_KEYS = ("fwd", "valid", "contains", "nb_in", "nb_out", "suffix_rep", "prefix_rep")
+
+
+def _planes_of_payloads(codes, p: int, valid, pay, strand, k: int) -> dict:
+    """Every plane but the forward k-mers, from the 9-bit payloads of the
+    window's first P + 1 (k-1)-mers (int64, as their canonical forms hold
+    them) and whether each is read on its canonical strand."""
+    tail = codes[k - 1:]
+    last_base = torch.where(tail == INVALID, 0, tail).to(torch.int64)
+    low = pay & 0xFF
+    contains, nb_in, nb_out = X.planes_from_payload(low[:p], low[1 : p + 1], strand[:p], strand[1 : p + 1],
+                                                    last_base)
+    rep = ((pay >> 8) & 1) != 0
+    return {"valid": valid, "contains": contains,
+            "nb_in": torch.where(contains, nb_in, 0), "nb_out": torch.where(contains, nb_out, 0),
+            "suffix_rep": rep[1 : p + 1], "prefix_rep": rep[:p]}
+
+
+def _scan_planes_plain(packed, badbits, k: int, lookup) -> dict:
+    codes = unpack_codes(packed, badbits)
+    q, _ = rolling_kmers(codes, k - 1)
+    fwd, valid = rolling_kmers(codes, k)
+    canon = K.canonical_u64(q, k - 1)
+    return {"fwd": fwd, **_planes_of_payloads(codes, fwd.shape[0], valid, lookup(canon), q == canon, k)}
+
+
+def _scan_planes_q_plain(packed, badbits, slots, stash_k, stash_v, log_size: int, k: int) -> dict:
+    """Plain version of K8: roll the window's k-mers and (k-1)-mers (an
+    invalid base reads as base 0), look every canonical (k-1)-mer up in the
+    cuckoo map, derive the planes."""
+    qm = X.QMap(slots, log_size, stash_k, stash_v)
+    return _scan_planes_plain(packed, badbits, k, lambda keys: X.lookup_q(qm, keys))
+
+
+def _scan_planes_qb_plain(packed, badbits, slots, stash_k, stash_v, log_nb: int, k: int) -> dict:
+    """Plain version of K9: as K8's, over the bucket map."""
+    qm = X.QMapB(slots, log_nb, stash_k, stash_v)
+    return _scan_planes_plain(packed, badbits, k, lambda keys: X.lookup_qb(qm, keys))
+
+
+_PLANES_LIB = None
+
+
+def _planes_lib():
+    global _PLANES_LIB
+    if _PLANES_LIB is None:
+        from .._build import cuda_library
+
+        lib = cuda_library("scan_planes.cu", "libmtg_scan_planes.so")
+        lib.scan_planes_launch.restype = ctypes.c_int
+        lib.scan_planes_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            *[ctypes.c_void_p] * 7,
+            ctypes.c_void_p,
+        ]
+        _PLANES_LIB = lib
+    return _PLANES_LIB
+
+
+def _scan_planes_cuda(packed, badbits, slots, stash_k, stash_v, log: int, k: int, bucket: bool) -> dict:
+    check_kernel_tensor(packed, "packed", torch.uint8, 1)
+    check_kernel_tensor(badbits, "badbits", torch.uint8, 1)
+    check_kernel_tensor(slots, "slots", torch.int64, 1)
+    check_kernel_tensor(stash_k, "stash_k", torch.int64, 1)
+    check_kernel_tensor(stash_v, "stash_v", torch.int64, 1)
+    w = packed.shape[0] * 4
+    n_stash = stash_k.shape[0]
+    if badbits.shape[0] * 8 != w or w % 8:
+        raise ValueError("badbits must hold one bit per base of packed (window % 8 == 0)")
+    lo, width = (10, X._QB_SLOTS) if bucket else (11, 1)
+    if slots.shape[0] != width << log or not lo <= log <= 40:
+        raise ValueError(f"slots must hold {width} * 2**log words with log in [{lo}, 40], "
+                         f"got {slots.shape[0]} at log {log}")
+    if slots.data_ptr() % 16:
+        raise ValueError("slots must be 16-byte aligned (the bucket line's 16-byte loads)")
+    if not 1 <= n_stash <= 64 or stash_v.shape[0] != n_stash:
+        raise ValueError("the stash must hold 1..64 keys and as many payloads")
+    if not 2 <= k <= 32 or w < k or w >= 1 << 31:
+        raise ValueError(f"k must be in [2, 32] and the window in [k, 2^31), got k={k}, window={w}")
+    dev = packed.device
+    p = w - k + 1
+    out = {"fwd": torch.empty(p, dtype=torch.int64, device=dev)}
+    for key in PLANE_KEYS[1:]:
+        out[key] = torch.empty(p, dtype=torch.int32 if key.startswith("nb_") else torch.bool, device=dev)
+    err = _planes_lib().scan_planes_launch(
+        packed.data_ptr(), badbits.data_ptr(), w, slots.data_ptr(), log, int(bucket),
+        stash_k.data_ptr(), stash_v.data_ptr(), n_stash, k,
+        *(out[key].data_ptr() for key in PLANE_KEYS),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"scan_planes kernel launch failed: CUDA error {err}")
+    return out
+
+
+def scan_planes_q_cuda(packed, badbits, slots, stash_k, stash_v, log_size: int, k: int) -> dict:
+    """K8 (csrc/scan_planes.cu over the cuckoo map): the same planes as
+    _scan_planes_q_plain, each thread probing 4 consecutive (k-1)-mers
+    (the second slot only after a miss) from bases staged in shared
+    memory. Counts one launch per window in `scan_planes_q_cuda.launches`."""
+    out = _scan_planes_cuda(packed, badbits, slots, stash_k, stash_v, log_size, k, bucket=False)
+    scan_planes_q_cuda.launches += 1
+    return out
+
+
+scan_planes_q_cuda.launches = 0
+
+
+def scan_planes_qb_cuda(packed, badbits, slots, stash_k, stash_v, log_nb: int, k: int) -> dict:
+    """K9 (csrc/scan_planes.cu over the bucket map): the same planes as
+    _scan_planes_qb_plain, each thread probing 2 consecutive (k-1)-mers,
+    one 128-byte bucket line each. Counts one launch per window in
+    `scan_planes_qb_cuda.launches`."""
+    out = _scan_planes_cuda(packed, badbits, slots, stash_k, stash_v, log_nb, k, bucket=True)
+    scan_planes_qb_cuda.launches += 1
+    return out
+
+
+scan_planes_qb_cuda.launches = 0
+
+
+def scan_planes_q(packed, badbits, slots, stash_k, stash_v, log_size: int, k: int) -> dict:
+    """Planes of one window over the cuckoo map (k <= 32; tables from
+    QMap.to), from 2-bit packed codes and bad bits (pack_codes_host): for
+    each of the P = W - k + 1 positions fwd (int64 bit patterns of the
+    forward k-mer, an invalid base read as base 0), valid, contains, nb_in
+    and nb_out (int32), suffix_rep and prefix_rep. On a CUDA tensor this
+    runs the kernel K8; on a CPU tensor its plain version."""
+    fn = scan_planes_q_cuda if packed.is_cuda else _scan_planes_q_plain
+    return fn(packed, badbits, slots, stash_k, stash_v, log_size, k)
+
+
+def scan_planes_qb(packed, badbits, slots, stash_k, stash_v, log_nb: int, k: int) -> dict:
+    """scan_planes_q over the bucket map (tables from QMapB.to). On a CUDA
+    tensor this runs the kernel K9; on a CPU tensor its plain version."""
+    fn = scan_planes_qb_cuda if packed.is_cuda else _scan_planes_qb_plain
+    return fn(packed, badbits, slots, stash_k, stash_v, log_nb, k)
+
+
+def _no_kernel(packed, name: str):
+    if packed.is_cuda:
+        from .. import NotYetPorted
+
+        raise NotYetPorted(f"{name} on a CUDA device (it has no kernel: no find path runs it)")
+
+
+def scan_planes_qp(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int) -> dict:
+    """Planes of one window over the pair map (tables from QMapP.to): the
+    pair payloads, which come oriented as read, then the planes. A plain
+    reference pass (the JAX package's scan_planes_device_qp); CPU tensors
+    only."""
+    _no_kernel(packed, "scan_planes_qp")
+    codes = unpack_codes(packed, badbits)
+    fwd, valid = rolling_kmers(codes, k)
+    p = fwd.shape[0]
+    pay = _pair_pay(codes, slots2, stash_k, stash_l, stash_r, log_size, k)[: p + 1]
+    as_read = torch.ones(p + 1, dtype=torch.bool)
+    return {"fwd": fwd, **_planes_of_payloads(codes, p, valid, pay, as_read, k)}
+
+
+def scan_planes_q_span(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
+                       salt: int, log_size: int, k: int) -> dict:
+    """Planes of one window over the span map (32 < k <= 256; tables from
+    QMapSpan.to), with `fwd_words` ((Wk, P) int64 words of the forward
+    k-mers) in place of fwd. A plain reference pass (the JAX package's
+    scan_planes_device_q_span); CPU tensors only."""
+    from ..ops import span_device as SD
+
+    _no_kernel(packed, "scan_planes_q_span")
+    codes = unpack_codes(packed, badbits)
+    qm = X.QMapSpan(slots, sat, log_size, salt, stash_k64, stash_sat, stash_v)
+    qwords, _ = SD.rolling_span(codes, k - 1)
+    fwd_words, valid = SD.rolling_span(codes, k)
+    p = fwd_words.shape[1]
+    canon, is_canon = SD.canonical_span(qwords, k - 1)
+    pay = X.lookup_q_span(qm, canon)
+    return {"fwd_words": fwd_words, **_planes_of_payloads(codes, p, valid, pay, is_canon, k)}
+
+
+def planes_from_pay(pay8: np.ndarray, rep8: np.ndarray, codes: np.ndarray, k: int):
+    """Host side of the pair map's plane path: the Planes of a window
+    (codes u8, 255 = invalid) from its dense payload stream (scan_pay_qp's
+    pay8 and rep8, payloads oriented as read), with the forward k-mers and
+    validity extracted natively. Equal to scan_planes_qp's planes."""
+    from .scan import Planes
+
+    fwd, valid = K.kmers_from_codes(codes, k)
+    p = fwd.shape[0]
+    pay8 = np.asarray(pay8, np.uint8)
+    rep = np.unpackbits(np.asarray(rep8, np.uint8))
+    ext_i = pay8[:p] & np.uint8(0xF)
+    pre_i = (pay8[:p] >> np.uint8(4)) & np.uint8(0xF)
+    ext_i1 = pay8[1 : p + 1] & np.uint8(0xF)
+    last_base = np.where(codes[k - 1 :] == INVALID, 0, codes[k - 1 :]).astype(np.uint8)
+    contains = ((ext_i >> last_base) & 1).astype(bool)
+    nb_out = np.where(contains, X._popcount4(ext_i1), 0).astype(np.int32)
+    nb_in = np.where(contains, X._popcount4(pre_i), 0).astype(np.int32)
+    return Planes(
+        valid=valid,
+        fwd=fwd,
+        contains=contains,
+        nb_in=nb_in,
+        nb_out=nb_out,
+        suffix_rep=rep[1 : p + 1].astype(bool),
+        prefix_rep=rep[:p].astype(bool),
+    )
+
+
+def planes_from_pay_span(pay8, rep8, str8, codes: np.ndarray, k: int):
+    """Host side of the span plane path (32 < k <= 256): the Planes of a
+    window from scan_pay_q_span's payload bytes and packed repeat and
+    strand bits, with the forward k-mer rows extracted on the host. Equal
+    to scan_planes_q_span's planes."""
+    from ..ops.span import Span
+    from .scan import Planes
+
+    sp = Span(k)
+    fwd_rows, valid = sp.from_codes(codes)
+    p = fwd_rows.shape[0]
+    pay8 = np.asarray(pay8, np.uint8)
+    rep = np.unpackbits(np.asarray(rep8, np.uint8)).astype(bool)
+    is_canon = np.unpackbits(np.asarray(str8, np.uint8)).astype(bool)
+    last_base = np.where(codes[k - 1 :] == INVALID, 0, codes[k - 1 :]).astype(np.uint8)
+    contains, nb_in, nb_out = X.planes_from_payload(
+        pay8[:p], pay8[1 : p + 1], is_canon[:p], is_canon[1 : p + 1], last_base
+    )
+    nb_out = np.where(contains, nb_out, 0).astype(np.int32)
+    nb_in = np.where(contains, nb_in, 0).astype(np.int32)
+    return Planes(
+        valid=valid,
+        fwd=sp.to_ints(fwd_rows),
+        contains=contains,
+        nb_in=nb_in,
+        nb_out=nb_out,
+        suffix_rep=rep[1 : p + 1],
+        prefix_rep=rep[:p],
+        fwd_rows=fwd_rows,
+    )

@@ -3,9 +3,11 @@ repository, in one process on the same card and inputs: K1 (the whole
 scan_cls_qp), K2 (the NW match counts), K3 (k-mer keys, and sort_batch
 around it), K4 (the counting merge), K5 (the fill walker, with a sweep
 of its look-ahead depth), K6 (the span scan) and K7 (the
-span walker, with a sweep of its look-ahead depth).
+span walker, with a sweep of its look-ahead depth); then K8, K9 and K10
+(the plane path's kernels, new since the earlier checkouts) in turns
+beside K1.
 
-    python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE]
+    python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE] [--only STAGES]
 
 DIR holds an earlier checkout's `mindthegap_tpu_torch/` and `native/` (for
 example `git archive <commit> mindthegap_tpu_torch native | tar -x -C DIR`
@@ -37,8 +39,14 @@ with a repeat set of every 50th (k-1)-mer of the scanned window) and of a
 runs and isolated Ns, K7 walks from the genome's k-mers with a budget of
 10,000 and 2,048 steps at every look-ahead depth (k = 45: 1 to 16,384
 lanes; k = 128: 1 to 4,096), each against the earlier kernel in turns. The registers and spills of every K6 and K7 instantiation come
-first (nvcc -Xptxas -v). Prints the card, one line per shape and, last,
-one JSON object of every time. Exits non-zero without a CUDA device.
+first (nvcc -Xptxas -v). K8 (cuckoo map), K9 (bucket map) and K10 (pair
+map) scan K1's 2^22-base window of the genome over the maps of its k = 31
+set (K1's repeat set), each held to its plain version once, then timed in
+turns with K1 on the same window (K1, K8, K9, K10, K10, K9, K8, K1).
+`--only` names the stages to run (comma-separated keys of the JSON
+record: span_scan, span_walk, nw, scan, keys, walk, merge, planes; default
+all). Prints the card, one line per shape and, last, one JSON object of
+every time. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -56,8 +64,8 @@ import numpy as np
 import torch
 
 from ._build import ptxas_usage
-from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, SECTOR_BYTES, bytes_ms, nw_bound_ms, scan_probe_sectors,
-                     span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
+from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, SECTOR_BYTES, bytes_ms, nw_bound_ms, plane_scan_sectors,
+                     scan_probe_sectors, span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
 from .device import cuda_ms
 from .fill import walk_device as W
 from .find import scan_device as S
@@ -309,6 +317,49 @@ def bench_span_walk(rng, fwd, qms, k, prev_w):
     return out
 
 
+
+def bench_planes(genome, solid, k, seed: int):
+    """K8, K9 and K10 on K1's window (bench_scan's: the same N runs from
+    the same seed's draws are not reused, so the window is made here from
+    `seed`), each equal to its plain version, then in turns with K1."""
+    window = 1 << 22
+    rng = np.random.default_rng(seed)
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    repeat = np.unique(K.canonical_u64(rfwd[::50], k - 1))
+    codes = genome[:window].copy()
+    codes[1000:1100] = 255
+    codes[rng.integers(0, window, 64)] = 255
+    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    qp, qm, qb = (X.build_fused_pair(solid, k, repeat), X.build_fused(solid, k, repeat),
+                  X.build_fused_bucket(solid, k, repeat))
+    tp, tm, tb = qp.to("cuda"), qm.to("cuda"), qb.to("cuda")
+    pair = (packed, bad, tp.slots, tp.stash_keys, tp.stash_l, tp.stash_r, qp.log_size, k)
+    calls = {"K1": lambda: S.scan_cls_qp_cuda(*pair, (window - k + 2 + 3) // 4 * 4 // 8),
+             "K8": lambda: S.scan_planes_q_cuda(packed, bad, tm.slots, tm.stash_keys, tm.stash_payload, qm.log_size, k),
+             "K9": lambda: S.scan_planes_qb_cuda(packed, bad, tb.slots, tb.stash_keys, tb.stash_payload, qb.log_nb, k),
+             "K10": lambda: S.scan_pay_qp_cuda(*pair)}
+    plains = {"K8": lambda: S._scan_planes_q_plain(packed, bad, tm.slots, tm.stash_keys, tm.stash_payload,
+                                                   qm.log_size, k),
+              "K9": lambda: S._scan_planes_qb_plain(packed, bad, tb.slots, tb.stash_keys, tb.stash_payload,
+                                                    qb.log_nb, k),
+              "K10": lambda: S._scan_pay_qp_plain(*pair)}
+    for name, plain in plains.items():
+        if not _equal(calls[name](), plain()):
+            raise AssertionError(f"{name} differs from its plain version")
+    order = ["K1", "K8", "K9", "K10"]
+    times = {name: [] for name in order}
+    for name in order + order[::-1]:
+        times[name].append(cuda_ms(calls[name], 20))
+    sectors = {"K1": scan_probe_sectors(packed, bad, tp, k), "K8": plane_scan_sectors(packed, bad, tm, k),
+               "K9": plane_scan_sectors(packed, bad, tb, k)}
+    sectors["K10"] = sectors["K1"]
+    row = {"window": window, "ms": times, "sectors": sectors,
+           "table_mb": {"K1": qp.nbytes >> 20, "K8": qm.nbytes >> 20, "K9": qb.nbytes >> 20, "K10": qp.nbytes >> 20}}
+    print("plane kernels on K1's 2^22-base window, in turns (K1, K8, K9, K10, K10, K9, K8, K1): "
+          + ", ".join(f"{name} {times[name]} ms ({sectors[name]} sectors, table {row['table_mb'][name]} MB)"
+                      for name in order))
+    return row
+
 def span_registers() -> dict:
     """Registers and spill bytes of every K6 and K7 instantiation."""
     out = {}
@@ -327,10 +378,15 @@ def main(argv=None) -> int:
     ap.add_argument("--prev", required=True, help="directory of an earlier checkout (see above)")
     ap.add_argument("--json", help="also write the JSON record to this file")
     ap.add_argument("--seed", type=int, default=20261016)
+    ap.add_argument("--only", help="comma-separated stages to run (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
         return 2
+    stages = ("span_scan", "span_walk", "nw", "scan", "keys", "walk", "merge", "planes")
+    only = set(args.only.split(",")) if args.only else set(stages)
+    if only - set(stages):
+        ap.error(f"unknown stages {sorted(only - set(stages))} (choose from {', '.join(stages)})")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
@@ -340,22 +396,31 @@ def main(argv=None) -> int:
     genome = rng.integers(0, 4, GENOME_LEN, dtype=np.uint8)
     fwd, _ = K.kmers_from_codes(genome, k)
     solid = np.unique(K.canonical_u64(fwd, k))
-    registers = span_registers()
-    srng = np.random.default_rng(args.seed + 1)  # the span stages' own draws
-    fwd45, qms45 = span_map(genome, 45, 1 << 21)
-    genome128 = srng.integers(0, 4, SPAN_GENOME_128, dtype=np.uint8)
-    fwd128, qms128 = span_map(genome128, 128, 1 << 21)
-    record = {"device": smi,
-              "span_registers": registers,
-              "span_scan": [bench_span_scan(srng, genome, qms45, 45, prev_s),
-                            bench_span_scan(srng, genome128, qms128, 128, prev_s)],
-              "span_walk": {**bench_span_walk(srng, fwd45, qms45, 45, prev_w),
-                            **bench_span_walk(srng, fwd128, qms128, 128, prev_w)},
-              "nw": bench_nw(args.seed, prev_nd),
-              "scan": bench_scan(rng, genome, solid, k, prev_s),
-              "keys": bench_keys(rng, genome, k, prev_c),
-              "walk": bench_walk(rng, fwd, solid, k, prev_w),
-              "merge": bench_merge(rng, fwd, solid, k, prev_c)}
+    record = {"device": smi}
+    if only & {"span_scan", "span_walk"}:
+        record["span_registers"] = span_registers()
+        srng = np.random.default_rng(args.seed + 1)  # the span stages' own draws
+        fwd45, qms45 = span_map(genome, 45, 1 << 21)
+        genome128 = srng.integers(0, 4, SPAN_GENOME_128, dtype=np.uint8)
+        fwd128, qms128 = span_map(genome128, 128, 1 << 21)
+        if "span_scan" in only:
+            record["span_scan"] = [bench_span_scan(srng, genome, qms45, 45, prev_s),
+                                   bench_span_scan(srng, genome128, qms128, 128, prev_s)]
+        if "span_walk" in only:
+            record["span_walk"] = {**bench_span_walk(srng, fwd45, qms45, 45, prev_w),
+                                   **bench_span_walk(srng, fwd128, qms128, 128, prev_w)}
+    # the k = 31 stages draw from `rng` in this order: a stage run without
+    # the ones before it sees other draws than in a full run
+    if "nw" in only:
+        record["nw"] = bench_nw(args.seed, prev_nd)
+    for name, bench in (("scan", lambda: bench_scan(rng, genome, solid, k, prev_s)),
+                        ("keys", lambda: bench_keys(rng, genome, k, prev_c)),
+                        ("walk", lambda: bench_walk(rng, fwd, solid, k, prev_w)),
+                        ("merge", lambda: bench_merge(rng, fwd, solid, k, prev_c))):
+        if name in only:
+            record[name] = bench()
+    if "planes" in only:
+        record["planes"] = bench_planes(genome, solid, k, args.seed + 2)
     line = json.dumps(record)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

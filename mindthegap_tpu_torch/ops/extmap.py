@@ -20,7 +20,10 @@ The layouts used here:
 - QMap (cuckoo, one u64 slot per (k-1)-mer) and QMapB (16-slot buckets):
   the fill walk's probes, scalar on the host (fill/traversal.py GraphView)
   and batched on the device (lookup_q, lookup_qb; fill/walk_device.py,
-  csrc/walk.cu);
+  csrc/walk.cu), and the find scan's plane path (`-scan-engine device`
+  and `device-qb`: find/scan_device.py scan_planes_q and scan_planes_qb,
+  csrc/scan_planes.cu), whose planes come from adjacent payloads
+  (planes_from_payload);
 - QMapP (pair-coalesced): one 16-byte row per canonical (k-2)-mer r holding
   the payloads of all eight (k-1)-mers containing r, so ONE row lookup
   yields the payloads of two consecutive reference positions. The find
@@ -105,18 +108,45 @@ def _flip9(p):
     return _shuffle02(pre) | (_shuffle02(ext) << 4) | (p & 0x100)
 
 
-def _oriented(payload: torch.Tensor, is_canon: torch.Tensor):
+def _where(cond, a, b):
+    """np.where or torch.where, by the type of `cond`."""
+    return torch.where(cond, a, b) if isinstance(cond, torch.Tensor) else np.where(cond, a, b)
+
+
+def _oriented(payload, is_canon):
     """(ext, pre) bitmaps of a (k-1)-mer as read, from the payload of its
-    canonical form: ext_{rc(p)}[x] = pre_p[x^2] and pre_{rc(p)}[y] = ext_p[y^2]."""
+    canonical form: ext_{rc(p)}[x] = pre_p[x^2] and pre_{rc(p)}[y] = ext_p[y^2]
+    (numpy arrays or tensors)."""
     ext_c = payload & 0x0F
     pre_c = (payload >> 4) & 0x0F
-    ext = torch.where(is_canon, ext_c, _shuffle02(pre_c))
-    pre = torch.where(is_canon, pre_c, _shuffle02(ext_c))
+    ext = _where(is_canon, ext_c, _shuffle02(pre_c))
+    pre = _where(is_canon, pre_c, _shuffle02(ext_c))
     return ext, pre
 
 
-def _popcount4(bits: torch.Tensor) -> torch.Tensor:
+def _popcount4(bits):
     return ((bits >> 0) & 1) + ((bits >> 1) & 1) + ((bits >> 2) & 1) + ((bits >> 3) & 1)
+
+
+def planes_from_payload(payload_i, payload_i1, strand_i, strand_i1, last_base_i):
+    """Derive (contains_i, nb_in_i, nb_out_i) from the payloads of
+    q_i = kmer_i[0:k-1] and q_{i+1} = kmer_i[1:k]:
+
+      contains(kmer_i) = ext_{q_i}[last base of kmer_i]
+      nb_out(kmer_i)   = popcount(ext_{q_{i+1}})
+      nb_in(kmer_i)    = popcount(pre_{q_i})
+
+    strand_*: True where the as-read (k-1)-mer equals its canonical form.
+    last_base_i: kmer_i's last base code (= base at position i+k-1). numpy
+    arrays (any unsigned payload type) or int64 tensors; the degrees are
+    int32."""
+    ext_i, pre_i = _oriented(payload_i, strand_i)
+    ext_i1, _ = _oriented(payload_i1, strand_i1)
+    contains = ((ext_i >> last_base_i) & 1) != 0
+    nb_out, nb_in = _popcount4(ext_i1), _popcount4(pre_i)
+    if isinstance(contains, torch.Tensor):
+        return contains, nb_in.to(torch.int32), nb_out.to(torch.int32)
+    return contains, nb_in.astype(np.int32), nb_out.astype(np.int32)
 
 
 def _mix(keys: torch.Tensor, const) -> torch.Tensor:
@@ -268,19 +298,25 @@ def lookup_q(qm: QMap, canon_keys: torch.Tensor) -> torch.Tensor:
     gathers plus the stash pass. Returns the 9-bit payload (0 for absent
     keys): ext bits 0-3, pre bits 4-7, repeat bit 8."""
     keys = canon_keys
-    shift = 64 - qm.log_size
-    rem_mask = (1 << shift) - 1
     out = torch.zeros_like(keys)
-    for i, const in enumerate((_H1, _H2)):
-        h = _mix(keys, const)
-        v = qm.slots[K.shr(h, shift)]
-        hit = (
-            (K.shr(v, _Q_SHIFT_PAY) == (h & rem_mask))
-            & ((v & _Q_VALID) != 0)
-            & (((v & _Q_CHOICE) != 0) == (i == 1))
-        )
+    for choice in (0, 1):
+        hit, v = q_probe(qm, keys, choice)
         out = torch.where(hit, v & QPAY_MASK, out)
     return out | _stash_payload(keys, qm.stash_keys, qm.stash_payload)
+
+
+def q_probe(qm: QMap, keys: torch.Tensor, choice: int):
+    """One slot probe of lookup_q, hash choice 0 or 1 (qm from QMap.to):
+    whether each key's slot holds it, and the slot word."""
+    shift = 64 - qm.log_size
+    h = _mix(keys, (_H1, _H2)[choice])
+    v = qm.slots[K.shr(h, shift)]
+    hit = (
+        (K.shr(v, _Q_SHIFT_PAY) == (h & ((1 << shift) - 1)))
+        & ((v & _Q_VALID) != 0)
+        & (((v & _Q_CHOICE) != 0) == (choice == 1))
+    )
+    return hit, v
 
 
 def lookup_qb(qm: QMapB, canon_keys: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,9 @@ from mindthegap_tpu_torch.find import scan_device as S
 from mindthegap_tpu_torch.ops import extmap as X
 from mindthegap_tpu_torch.ops import kmers as K
 from mindthegap_tpu_torch.ops import nw_device as ND
-from torch_tables import (SCAN_EDGE_NAMES, SPAN_EDGE_NAMES, edge_walk_case, edge_walk_span_case, key_edge_batches,
-                          merge_edge_cases, move_to_stash, scan_edge_windows, span_edge_windows)
+from torch_tables import (PLANE_EDGE_NAMES, SCAN_EDGE_NAMES, SPAN_EDGE_NAMES, edge_walk_case, edge_walk_span_case,
+                          key_edge_batches, merge_edge_cases, move_to_stash, plane_edge_windows, scan_edge_windows,
+                          span_edge_windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -277,3 +278,87 @@ def test_span_walk_kernel_edge_cases(cuda, k, lanes):
         for g, w in zip(got, want):
             assert torch.equal(g, w), depth
     assert int(want[1].max()) == 64 or lanes <= 8  # some lanes walk every step
+
+
+# the plane path (k <= 32): K8 (cuckoo map), K9 (bucket map), K10 (pair map)
+_PLANE_KERNELS = {"cuckoo": ("scan_planes_q_cuda", "_scan_planes_q_plain"),
+                  "bucket": ("scan_planes_qb_cuda", "_scan_planes_qb_plain"),
+                  "pair": ("scan_pay_qp_cuda", "_scan_pay_qp_plain")}
+
+
+def _plane_args(qm, layout: str, codes, device):
+    t = qm.to(device)
+    packed, bad = (torch.from_numpy(a).to(device) for a in S.pack_codes_host(codes))
+    if layout == "pair":
+        return (packed, bad, t.slots, t.stash_keys, t.stash_l, t.stash_r, qm.log_size)
+    return (packed, bad, t.slots, t.stash_keys, t.stash_payload, qm.log_nb if layout == "bucket" else qm.log_size)
+
+
+def _check_plane_kernel(layout: str, args):
+    kernel, plain = (getattr(S, name) for name in _PLANE_KERNELS[layout])
+    want = plain(*args)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+    return want
+
+
+@pytest.mark.parametrize("layout,k", [(layout, k) for layout in _PLANE_KERNELS for k in (2, 3, 31, 32)
+                                      if (layout, k) != ("pair", 2)])  # the pair map needs k >= 3
+@pytest.mark.parametrize("name", PLANE_EDGE_NAMES)
+def test_plane_kernel_edge_cases(cuda, name, layout, k):
+    """K8, K9 and K10 against their plain versions on their edges
+    (tests/torch_tables.py plane_edge_windows): N runs across the blocks,
+    stash hits, the window's first and last positions, a window shorter
+    than 2k, both parities of P; one launch a call."""
+    qm, cases = plane_edge_windows(k, layout)
+    _check_plane_kernel(layout, _plane_args(qm, layout, cases[name], cuda) + (k,))
+
+
+@pytest.mark.parametrize("layout", list(_PLANE_KERNELS))
+@pytest.mark.parametrize("k", [21, 31, 32])
+def test_plane_kernel_matches_plain(cuda, layout, k):
+    """K8, K9 and K10 against their plain versions on a 2^16-base window of
+    a genome whose k-mers fill the map (a repeat set too), with isolated
+    Ns and an unaligned length."""
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 200_000, dtype=np.uint8)
+    fwd, _ = K.kmers_from_codes(genome[:150_000], k)
+    solid = np.unique(K.canonical_u64(fwd, k))
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    repeat = np.unique(K.canonical_u64(rfwd[::30], k - 1))
+    build = {"cuckoo": X.build_fused, "bucket": X.build_fused_bucket, "pair": X.build_fused_pair}[layout]
+    codes = genome[50_000:50_000 + 65_536 - 24].copy()
+    codes[rng.integers(0, codes.size, 40)] = 255
+    want = _check_plane_kernel(layout, _plane_args(build(solid, k, repeat), layout, codes, cuda) + (k,))
+    if layout != "pair":
+        assert want["contains"].float().mean() > 0.9 and want["suffix_rep"].any()
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_dense_redispatch_runs_k10(cuda, k):
+    """K1's feed at exc_cap 0 sends every window dense through K10 (one
+    launch a window) and yields the chunks of its CPU run."""
+    from mindthegap_tpu_torch.find import runner as R
+    from mindthegap_tpu_torch.graph import dbg as D
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 40_000, dtype=np.uint8)
+    genome[7000:7040] = 255
+    fwd, _ = K.kmers_from_codes(genome[:30_000], k)
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    graph = D.Graph(D.SolidSet(np.unique(K.canonical_u64(fwd, k)), k))
+    rep = D.SolidSet(np.unique(K.canonical_u64(rfwd[::40], k - 1)), k - 1)
+    want = list(R._make_pay_feed_fn(graph, rep, k, torch.device("cpu"), window=8192, exc_cap=0)(genome))
+    before = S.scan_pay_qp_cuda.launches
+    got = list(R._make_pay_feed_fn(graph, rep, k, cuda, window=8192, exc_cap=0)(genome))
+    assert S.scan_pay_qp_cuda.launches == before + len(want) == before + 5
+    assert [c[0] for c in got] == ["pay"] * 5
+    for g, w in zip(got, want):
+        assert g[4] == w[4]
+        for a, b in zip(g[1:3], w[1:3]):
+            np.testing.assert_array_equal(a, b)

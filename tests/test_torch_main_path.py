@@ -192,18 +192,17 @@ def test_fill_device_engine_without_gpu_raises(runs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-scan-engine", "host"],
     ["-scan-engine", "sharded"],
-    ["-automaton", "host"],
+    ["-scan-engine", "sharded-mem"],
     ["-count-engine", "sharded"],
     ["-profile-trace", "trace_dir"],
-    ["-scan-engine", "device-qb", "-kmer-size", "45"],
-    ["-scan-engine", "device"],
+    ["-kmer-size", "257"],
 ], ids=lambda e: " ".join(f"{a}={b}" for a, b in zip(e[0::2], e[1::2])))
 def test_unported_find_options_raise(runs, tmp_path, extra):
-    """What find does not run yet raises before the graph build: the plane
-    path (-scan-engine device at k = 31, device-qb at any k), the host scan
-    and automaton, the sharded engines and the trace."""
+    """What find does not run yet raises before the graph build: the
+    sharded engines, the trace, and k above 256 (where the JAX package
+    takes its host scan into the Python automaton). The plane path's
+    engines run (tests/test_torch_plane_path.py)."""
     root, _ = runs
     opts = {"in": str(root / "reads_1.fa"), "ref": str(root / "ref.fa"), "out": "u", "device": "cpu"}
     opts.update((name.lstrip("-"), value) for name, value in zip(extra[0::2], extra[1::2]))

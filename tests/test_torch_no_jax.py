@@ -1,5 +1,7 @@
 """The port never imports jax: with jax blocked, every module of
-mindthegap_tpu_torch imports and a small find + fill runs on the CPU."""
+mindthegap_tpu_torch imports (the plane path's find/scan.py, automaton.py
+and observers.py among them), and a small find + fill and a find through
+the plane path into the Python automaton run on the CPU."""
 
 import subprocess
 import sys
@@ -18,6 +20,9 @@ SCRIPT = textwrap.dedent("""
              if m.name != "mindthegap_tpu_torch.__main__"]
     for name in names:
         importlib.import_module(name)
+    # the plane path's host modules are among them
+    assert {"mindthegap_tpu_torch.find.scan", "mindthegap_tpu_torch.find.automaton",
+            "mindthegap_tpu_torch.find.observers"} <= set(names)
     assert not any(n == "mindthegap_tpu" or n.startswith("mindthegap_tpu.") for n in sys.modules)
 
     from mindthegap_tpu_torch import cli
@@ -29,6 +34,10 @@ SCRIPT = textwrap.dedent("""
         assert cli.main(["find", "-in", reads, "-ref", "ref.fa", "-out", "t", "-device", "cpu", "-verbose", "0"]) == 0
         assert cli.main(["fill", "-graph", "t.h5", "-bkpt", "t.breakpoints", "-out", "tf",
                          "-nb-cores", "1", "-verbose", "0"]) == 0
+        # the plane path: the bucket map's planes into the Python automaton
+        assert cli.main(["find", "-graph", "t.h5", "-ref", "ref.fa", "-out", "p", "-device", "cpu",
+                         "-verbose", "0", "-scan-engine", "device-qb", "-automaton", "host"]) == 0
+    assert open("p.breakpoints").read() == open("t.breakpoints").read()
     filled = CS.filled_insertions("tf.insertions.fasta")
     assert CS.insertion_recall(ins, filled) == 1.0, filled
     print("imported", len(names), "modules; jax loaded:", sys.modules["jax"] is not None)

@@ -129,7 +129,8 @@ def test_scan_cls_qp(case, exc_cap):
 def test_scan_pay_qp(case):
     k, _g, _s, _r, window, jq, pq = case
     j = JS.scan_pay_device_qp(jnp.asarray(window), *_jtables(jq), jq.log_size, k)
-    p = PS.scan_pay_qp(torch.from_numpy(window), *_ptables(pq), pq.log_size, k)
+    packed, bad = PS.pack_codes_host(window)
+    p = PS.scan_pay_qp(torch.from_numpy(packed), torch.from_numpy(bad), *_ptables(pq), pq.log_size, k)
     np.testing.assert_array_equal(p["pay8"].numpy(), np.asarray(j["pay8"]))
     np.testing.assert_array_equal(p["rep8"].numpy(), np.asarray(j["rep8"]))
 

@@ -372,3 +372,49 @@ def edge_walk_span_case(k: int, lanes: int, device):
     t = qms.to(device)
     return qms, (torch.from_numpy(K.as_i64(nodes)).to(device), torch.from_numpy(budgets).to(device),
                  t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size, k, 64)
+
+
+# ---------------------------------------------------------------------------
+# the plane path (k <= 32): K8's and K9's windows over the cuckoo and bucket
+# maps, K10's over the pair map
+
+PLANE_EDGE_NAMES = ("genome-ns-stash", "unrelated", "short")
+
+
+def plane_edge_windows(k: int, layout: str, seed: int = 0):
+    """(host map of `layout` — "cuckoo" (QMap), "bucket" (QMapB) or "pair"
+    (QMapP) — over the k-mers of a 40 kb genome's first 30 kb with a repeat
+    set of every 40th (k-1)-mer, 30 of its keys moved to the stash; {name:
+    codes u8[w]}) for K8, K9 and K10: 8,200 bases of the genome with N runs
+    across the kernels' block boundaries (positions 512, 1,024, 2,048 and
+    4,096) and isolated Ns, whose (k-1)-mers hit the stash, its first and
+    last positions in the map; a window unrelated to the map; and the
+    shortest window the feed sends (k + 8 bases rounded up to 8: shorter
+    than 2k from k = 9 on). P = w - k + 1 is odd where k is even, so k = 31
+    and 32 give K10's rep8 both parities of its last pair."""
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 40_000, dtype=np.uint8)
+    fwd, _ = K.kmers_from_codes(genome[:30_000], k)
+    solid = np.unique(K.canonical_u64(fwd, k))
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    repeat = np.unique(K.canonical_u64(rfwd[::40], k - 1))
+    if layout == "pair":
+        r, _ = K.kmers_from_codes(genome[12_000:12_200], k - 2)
+        qm = move_to_stash(X.build_fused_pair(solid, k, repeat), np.unique(K.canonical_u64(r, k - 2))[:30])
+    else:
+        build = X.build_fused_bucket if layout == "bucket" else X.build_fused
+        q, _ = K.kmers_from_codes(genome[12_000:12_200], k - 1)
+        qm = move_to_stash_walk(build(solid, k, repeat), np.unique(K.canonical_u64(q, k - 1))[:30])
+    window = genome[10_000:10_000 + 8200].copy()
+    for lo, hi in ((500, 530), (1020, 1030), (2040, 2050 + k), (4090, 4100)):
+        window[lo:hi] = 255
+    window[rng.integers(3000, window.size - 100, 12)] = 255
+    cases = {
+        "genome-ns-stash": window,
+        "unrelated": rng.integers(0, 4, 4096, dtype=np.uint8),
+        "short": genome[10_000:10_000 + -(-(k + 8) // 8) * 8].copy(),
+    }
+    assert tuple(cases) == PLANE_EDGE_NAMES
+    return qm, cases
