@@ -9,7 +9,8 @@ Phases, each of which must pass (any failure exits non-zero):
      started together, and time the build: K1 and K10 (csrc/scan_qp.cu),
      K2 (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu),
      K5 (csrc/walk.cu), K6 (csrc/scan_span.cu), K7 (csrc/walk_span.cu),
-     K8 and K9 (csrc/scan_planes.cu);
+     K8 and K9 (csrc/scan_planes.cu), K11 (csrc/sharded_count.cu), K12
+     and K13 (csrc/sharded_member.cu), K14 (csrc/scan_sorted.cu);
   3. hold each kernel against its plain PyTorch version on the card, exactly,
      at the main path's shapes, and time both sides: K1 (the whole
      scan_cls_qp, its exception compaction included) on a full 2^22-base
@@ -30,10 +31,18 @@ Phases, each of which must pass (any failure exits non-zero):
      counting), and on its edge windows at k 33 to 256; K7 on donor k-mers at k = 45 with a budget of
      10,000 and 2,048 steps at 4,096, 128 and 1 lanes (each at the
      look-ahead depth its rule picks), and on its edge cases at k 33 to 256
-     at every depth. The edge cases
+     at every depth; K11 on one 2^23-base flush of the reads, whole and
+     cut in 4 logical shards' chunks; K12 and K13 (the route, the owner's
+     probe, the scatter back) on the nine membership queries of 2^20
+     reference positions over the solid set on 4 logical shards of the
+     card, and once with the capacity forced to overflow (the host route);
+     K14 on a 2^22-base window over the sorted solid set and a repeat set,
+     and at entry()'s shapes; the sharded counter on 4 logical shards with
+     its capacity forced to overflow, against the host counter. The edge cases
      come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
      merge_edge_cases, edge_walk_case, span_edge_windows,
-     edge_walk_span_case, plane_edge_windows), the generators the CUDA tests use, so the smoke and
+     edge_walk_span_case, plane_edge_windows, swizzle_edge_chunks,
+     member_edge_cases, sorted_edge_windows), the generators the CUDA tests use, so the smoke and
      tests/test_torch_cuda.py check the same inputs; the script needs the
      checkout's tests/ directory for them.
      Each kernel's bound is the
@@ -63,7 +72,16 @@ Phases, each of which must pass (any failure exits non-zero):
      window re-dispatched dense through K10, into the native automaton;
      then the `auto` gate's timings (the host plane route against the
      default feed, at the graph's solid-set size and on a 1/16 cut);
-  7. drive the k = 45 path on a case of its own (1,000,000 bp, 22
+  7. drive the device mesh of the process, in-process: on the card's
+     one-device mesh `find -graph -scan-engine sharded` over the whole
+     reference (K10) and `find -count-engine sharded` from the reads
+     (K11); on 4 logical shards of the card `fill -fill-engine device`
+     (the walker's lanes over the shards, K5), `find -graph -scan-engine
+     sharded-mem` over the first 1,000,000 bases (K12, K13), and the
+     graft entry points of mindthegap_tpu_torch/graft_entry.py: entry() (K14)
+     and dryrun_multichip(4), whose asserts hold its outputs to one shard's
+     and to plain computations;
+  8. drive the k = 45 path on a case of its own (1,000,000 bp, 22
      insertions, 11 SNPs, 11 deletions, 30x: cut from the E. coli size
      because host span counting takes ~0.7 ms a read), in-process: `find
      -kmer-size 45` (the span scan, K6), the native fill, `fill
@@ -72,13 +90,16 @@ Phases, each of which must pass (any failure exits non-zero):
      build and upload, K6) and the two device fills again under
      torch.profiler, for the device time of the k = 45 path; then `find
      -graph -scan-engine device-qb` and `-automaton host` (K6, then
-     planes_from_pay_span);
-  8. check the results: every kernel launched on its path; the find
+     planes_from_pay_span), and `-scan-engine sharded` (K6 on the
+     one-device mesh);
+  9. check the results: every kernel launched on its path; the find
      artifacts equal a `-device cpu` rerun on the same graph (at k = 31
      and k = 45); the device-count graph, breakpoints and VCF records
      equal the host-count run's; every plane-path run's records equal the
      default run's (at both k); the device fills' artifacts equal the
-     native fill's (at both k); insertion recall >= 90% on every path.
+     native fill's (at both k, and over the walker's mesh); the
+     sharded-count graph equals the host-count graph byte for byte;
+     insertion recall >= 90% on every path.
 
 The line before the last holds the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -770,11 +791,17 @@ def _reset_launches():
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
 
+    from mindthegap_tpu_torch.parallel import sharded_count as SC
+    from mindthegap_tpu_torch.parallel import sharded_membership as SM
+
     wrappers = {"scan_cls_qp": S.scan_cls_qp_cuda, "nw_matches": ND.nw_matches_cuda,
                 "kmer_keys": C.kmer_keys_cuda, "merge_sorted": C.merge_sorted_cuda,
                 "walk_batch": W.walk_batch_cuda, "scan_pay_q_span": S.scan_pay_q_span_cuda,
                 "walk_batch_span": W.walk_batch_span_cuda, "scan_planes_q": S.scan_planes_q_cuda,
-                "scan_planes_qb": S.scan_planes_qb_cuda, "scan_pay_qp": S.scan_pay_qp_cuda}
+                "scan_planes_qb": S.scan_planes_qb_cuda, "scan_pay_qp": S.scan_pay_qp_cuda,
+                "swizzle_keys": SC.swizzle_keys_cuda, "member_route": SM.member_route_cuda,
+                "member_probe": SM.member_probe_cuda, "member_scatter": SM.member_scatter_cuda,
+                "scan_planes_sorted": S.scan_planes_sorted_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
@@ -955,7 +982,8 @@ def span_path(work: str, seed: int) -> dict:
         # native automaton (device-qb) and the Python one (-automaton host)
         plane_launches = _reset_launches()
         planes = {out: _find_graph(out, *extra, graph="s.h5") for out, extra in (
-            ("sqb", ("-scan-engine", "device-qb")), ("sah", ("-automaton", "host")))}
+            ("sqb", ("-scan-engine", "device-qb")), ("sah", ("-automaton", "host")),
+            ("ssh", ("-scan-engine", "sharded")))}
         plane_counts = plane_launches()
     finally:
         os.chdir(cwd)
@@ -1001,7 +1029,8 @@ def span_path(work: str, seed: int) -> dict:
     print(f"kernel launches on the k = {k} path: {counts}")
     print(f"k = {k} plane path (find -graph, equal to the default run's records): "
           + ", ".join(f"{name} {planes[out][0]:.1f} s (setup + scan + replay {_scan_s(planes[out][1])[1]:.2f} s)"
-                      for out, name in (("sqb", "-scan-engine device-qb"), ("sah", "-automaton host")))
+                      for out, name in (("sqb", "-scan-engine device-qb"), ("sah", "-automaton host"),
+                                        ("ssh", "-scan-engine sharded (the one-device mesh)")))
           + f"; kernel launches {plane_counts}")
     if recall < 0.9:
         raise AssertionError(f"insertion recall {recall:.4f} is below 0.9 on the k = {k} path")
@@ -1066,7 +1095,7 @@ def _scan_route(graph, repeat_set, codes, k: int, route: str) -> tuple[float, st
                                    homo_only=False, snp=True, deletion=True, small_homo=True, homo_insert=True,
                                    backup=False, hete_insert=True)
     if route == "host":
-        sc.scan_sequence(CHROM, seq, R._make_plane_fn("host", graph, repeat_set, k, device)(codes))
+        sc.scan_sequence(CHROM, seq, R._make_plane_fn("host", graph, repeat_set, k, device, [device])(codes))
     else:
         sc.scan_sequence_pay(CHROM, seq, R._make_pay_feed_fn(graph, repeat_set, k, device)(codes))
     torch.cuda.synchronize()
@@ -1166,6 +1195,289 @@ def plane_path(work: str, ref: np.ndarray, donor: np.ndarray) -> dict:
     return {"launches": counts, "gate": gate}
 
 
+MESH_SHARDS = 4  # the logical shards of the card in the mesh phase
+MEMBER_POSITIONS = 1 << 20  # K12/K13: the nine queries a position of this many reference positions
+
+
+def _flush_buffer(reads: str, n: int) -> np.ndarray:
+    """The first n bases of the reads as a counter's buffer holds them:
+    reads joined by an invalid base, the tail invalid."""
+    from mindthegap_tpu_torch.io.bank import iter_codes
+
+    buf = np.full(n, 255, np.uint8)
+    fill = 0
+    for _h, codes in iter_codes(reads):
+        if fill + codes.size + 1 > n:
+            break
+        buf[fill:fill + codes.size] = codes
+        fill += codes.size + 1
+    return buf
+
+
+def _member_stages(sm, rows: np.ndarray, cap: int) -> tuple[int, list]:
+    """K12 on each shard, K13's probe on each owner and its scatter on each
+    source, each against its plain version on the same inputs: (the largest
+    difference, the inputs of shard 0's route, owner 0's probe and shard
+    0's scatter, for the timings)."""
+    from mindthegap_tpu_torch.parallel import mesh as M
+    from mindthegap_tpu_torch.parallel import sharded_membership as SM
+
+    n = sm.n_dev
+    errs, routed = [], []
+    for j in range(n):
+        args = sm.route_args(j, rows, cap)
+        got = SM.member_route_cuda(*args)
+        errs.append(_max_abs_err(zip(got, SM._route_plain(*args))))
+        routed.append(got)
+    recv = M.exchange([r[0].reshape(n, cap) for r in routed], sm.mesh)
+    found = []
+    for o in range(n):
+        got = SM.member_probe_cuda(recv[o], sm.shard_keys[o])
+        errs.append(_max_abs_err([(got, SM._probe_plain(recv[o], sm.shard_keys[o]))]))
+        found.append(got.reshape(n, cap))
+    back = M.exchange(found, sm.mesh)
+    for d in range(n):
+        got = SM.member_scatter_cuda(back[d], routed[d][1], rows.shape[1])
+        errs.append(_max_abs_err([(got, SM._scatter_plain(back[d], routed[d][1], rows.shape[1]))]))
+    return max(errs), [sm.route_args(0, rows, cap), (recv[0], sm.shard_keys[0]), (back[0], routed[0][1], rows.shape[1]),
+                       int(routed[0][2].item())]
+
+
+def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, seed: int) -> dict:
+    """K11 (swizzle_keys) on one 2^23-base flush of the reads, on 1 and
+    MESH_SHARDS logical shards; K12 (member_route) and K13 (member_probe,
+    member_scatter) on the nine queries a position of MEMBER_POSITIONS
+    reference positions over the solid set on MESH_SHARDS logical shards,
+    and once with the capacity forced to overflow (cap_factor 0: the host
+    route); K14 (scan_planes_sorted) on a 2^22-base window of the reference
+    over the sorted solid set and a repeat set, and at entry()'s shapes;
+    then each kernel's edge cases (tests/torch_tables.py), and the sharded
+    counter on MESH_SHARDS logical shards with its capacity forced to
+    overflow, against the host counter. Returns {name: record}."""
+    import torch
+
+    from mindthegap_tpu_torch import graft_entry as G
+    from mindthegap_tpu_torch.bounds import bytes_ms
+    from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.ops import counting as CNT
+    from mindthegap_tpu_torch.ops import kmers as K
+    from mindthegap_tpu_torch.parallel import sharded_count as SC
+    from mindthegap_tpu_torch.parallel import sharded_membership as SM
+    from torch_tables import member_edge_cases, sorted_edge_windows, swizzle_edge_chunks
+
+    cuda = torch.device("cuda")
+    out = {}
+
+    # K11: one flush of 2^23 bases (and its k - 1 halo), whole and cut in MESH_SHARDS chunks
+    flush = 1 << 23
+    buf = _flush_buffer(reads, flush + k - 1)
+    const = SC.pick_swizzle_const(k)
+    errs = []
+    for n in (1, MESH_SHARDS):
+        c = flush // n
+        for i in range(n):
+            chunk = torch.from_numpy(buf[i * c : (i + 1) * c + k - 1]).to(cuda)
+            errs.append(_max_abs_err(zip(SC.swizzle_keys_cuda(chunk, k, const),
+                                         SC._swizzle_keys_plain(chunk, k, const))))
+        times = (_cuda_ms(lambda: SC.swizzle_keys_cuda(chunk, k, const), iters=20, warmup=2),
+                 _cuda_ms(lambda: SC._swizzle_keys_plain(chunk, k, const), iters=3))
+        if n == 1:
+            ms, plain_ms = times
+            bound = _bytes_bound_ms(chunk.numel() + 16 * c)
+        print(f"K11 swizzle_keys: {n} shard(s) of {c} windows, kernel {times[0]:.4f} ms, "
+              f"plain {times[1]:.4f} ms a chunk")
+    for ek in (1, 2, 3, 31, 32):
+        ec = SC.pick_swizzle_const(ek)
+        for name, codes in swizzle_edge_chunks(ek).items():
+            t = torch.from_numpy(codes).to(cuda)
+            errs.append(_max_abs_err(zip(SC.swizzle_keys_cuda(t, ek, ec), SC._swizzle_keys_plain(t, ek, ec))))
+    torch.cuda.synchronize()
+    out["swizzle_keys"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound}
+    print(f"K11: a 2^23-base flush, k {k}, max_abs_err {max(errs)} over it, its {MESH_SHARDS} chunks and the edge "
+          f"chunks at k 1, 2, 3, 31, 32 (tolerance 0: exact); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms (bytes)")
+
+    # K12 / K13: the nine membership queries of MEMBER_POSITIONS positions, as sharded-mem sends them
+    fwd, _ = K.kmers_from_codes(ref[: MEMBER_POSITIONS + k - 1], k)
+    mask, shift_hi = K.kmer_mask(k), np.uint64(2 * (k - 1))
+    q = np.concatenate([K.canonical_u64(fwd, k)]
+                       + [K.canonical_u64(((fwd << np.uint64(2)) | np.uint64(x)) & mask, k) for x in range(4)]
+                       + [K.canonical_u64((fwd >> np.uint64(2)) | (np.uint64(x) << shift_hi), k) for x in range(4)])
+    mesh = [cuda] * MESH_SHARDS
+    sm = SM.ShardedMembership(mesh, solid)
+    rows, cap = sm.batch(q)
+    err, (route_args, probe_args, scatter_args, overflow) = _member_stages(sm, rows, cap)
+    got = sm.contains(q)
+    idx = np.minimum(np.searchsorted(solid, q), solid.size - 1)
+    if overflow or not np.array_equal(got, solid[idx] == q):
+        raise AssertionError(f"sharded membership: overflow {overflow}, or its verdicts differ from the host search")
+    recv, keys = probe_args
+    lanes, m, per = rows.shape[1], recv.numel(), keys.numel()
+    records = {
+        "member_route": (SM.member_route_cuda, SM._route_plain, route_args,
+                         8 * lanes + sm._replicated[0][0].numel() * 4 + 8 * MESH_SHARDS + 12 * MESH_SHARDS * cap),
+        "member_probe": (SM.member_probe_cuda, SM._probe_plain, probe_args, 8 * m + 8 * per + m),
+        "member_scatter": (SM.member_scatter_cuda, SM._scatter_plain, scatter_args, m + 4 * m + lanes),
+    }
+    # the library yardstick of the probe: torch.searchsorted, the gather and the compare (the
+    # shard's keys lie below 2^63, so signed order is their order)
+    lib_found = keys[torch.searchsorted(keys, recv).clamp_(max=per - 1)] == recv
+    if not torch.equal(lib_found, SM.member_probe_cuda(recv, keys) != 0):
+        raise AssertionError("torch.searchsorted's verdicts differ from K13's")
+    library = {"member_probe": _cuda_ms(lambda: keys[torch.searchsorted(keys, recv).clamp_(max=per - 1)] == recv,
+                                        iters=10, warmup=2)}
+    for name, (kern, plain, args, nbytes) in records.items():
+        out[name] = {"max_abs_err": err, "ms": _cuda_ms(lambda: kern(*args), iters=10, warmup=2),
+                     "plain_ms": _cuda_ms(lambda: plain(*args), iters=3), **_bytes_bound_ms(nbytes)}
+        out[name]["library_ms"] = library.get(name)
+    over = SM.ShardedMembership(mesh, solid, cap_factor=0.0)
+    orows, ocap = over.batch(q[: 1 << 18])
+    over_err, (*_, over_flag) = _member_stages(over, orows, ocap)
+    if not over_flag or not np.array_equal(over.contains(q[: 1 << 18]), np.isin(q[: 1 << 18], solid)):
+        raise AssertionError("the forced overflow of sharded membership did not overflow, or its host route erred")
+    edge_errs = [over_err]
+    for name, (ekeys, eq, en, ecf) in member_edge_cases().items():
+        esm = SM.ShardedMembership([cuda] * en, ekeys, cap_factor=ecf)
+        erows, ecap = esm.batch(eq)
+        edge_errs.append(_member_stages(esm, erows, ecap)[0])
+        if not np.array_equal(esm.contains(eq), np.isin(eq, ekeys)):
+            raise AssertionError(f"sharded membership edge case {name} differs from np.isin")
+    for name in records:
+        out[name]["max_abs_err"] = max(err, *edge_errs)
+    print(f"K12/K13: {q.size} queries ({MEMBER_POSITIONS} positions x 9) on {MESH_SHARDS} logical shards of "
+          f"{per} keys, {lanes} lanes and {cap} slots an owner; max_abs_err {err}, edge cases and the forced overflow "
+          f"(cap 64: the host route, exact) {max(edge_errs)}; " + "; ".join(
+              f"{name} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+              for name, r in out.items() if name.startswith("member_"))
+          + f"; torch.searchsorted + gather + compare {library['member_probe']:.4f} ms")
+
+    # K14: a 2^22-base window over the sorted sets, and entry()'s shapes
+    rfwd, _ = K.kmers_from_codes(ref, k - 1)
+    repeat = np.unique(K.canonical_u64(rfwd[::50], k - 1))
+    window = 1 << 22
+    codes = ref[:window].copy()
+    codes[1000:1100] = 255
+    codes[np.random.default_rng(seed).integers(0, window, 64)] = 255
+    args = (torch.from_numpy(codes).to(cuda), torch.from_numpy(K.as_i64(solid)).to(cuda),
+            torch.from_numpy(K.as_i64(repeat)).to(cuda), k)
+    got = S.scan_planes_sorted_cuda(*args)
+    want = S._scan_planes_sorted_plain(*args)
+    errs = [_max_abs_err((got[key], want[key]) for key in S.PLANE_KEYS)]
+    ms = _cuda_ms(lambda: S.scan_planes_sorted_cuda(*args), iters=5, warmup=1)
+    plain_ms = _cuda_ms(lambda: S._scan_planes_sorted_plain(*args), iters=2)
+    bound = _bytes_bound_ms(window + 8 * (solid.size + repeat.size) + 20 * (window - k + 1))
+    fn, eargs = G.entry()
+    errs.append(_max_abs_err(zip(fn(*eargs).values(), S._scan_planes_sorted_plain(*eargs, 31).values())))
+    entry_ms = _cuda_ms(lambda: fn(*eargs), iters=20, warmup=2)
+    for ek in (2, 3, 31, 32):
+        for name, (ecodes, es, er) in sorted_edge_windows(ek).items():
+            eargs = (torch.from_numpy(ecodes).to(cuda), torch.from_numpy(K.as_i64(es)).to(cuda),
+                     torch.from_numpy(K.as_i64(er)).to(cuda), ek)
+            errs.append(_max_abs_err(zip(S.scan_planes_sorted_cuda(*eargs).values(),
+                                         S._scan_planes_sorted_plain(*eargs).values())))
+    torch.cuda.synchronize()
+    contained = int(want["contains"].sum())
+    out["scan_planes_sorted"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound,
+                                 "entry_ms": entry_ms}
+    print(f"K14 scan_planes_sorted: window {window}, k {k}, solid {solid.size}, repeat {repeat.size}, "
+          f"{contained} positions contained, max_abs_err {max(errs)} (with entry()'s shapes and the edge windows at "
+          f"k 2, 3, 31, 32; tolerance 0: exact), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms (bytes: each input read once, 20 B of planes a position); entry()'s "
+          f"2^14-base window over 2^16 keys {entry_ms:.4f} ms")
+
+    # the sharded counter on MESH_SHARDS logical shards, its capacity forced to overflow (the host route)
+    part = _flush_buffer(reads, 1 << 22)
+    host = CNT.StreamingCounter(k)
+    host.add_codes(part)
+    sc = SC.ShardedStreamingCounter(k, mesh, batch_bases=1 << 20, slack=0.0)
+    route = sc._route
+    flags = []
+    sc._route = lambda: (lambda r: flags.append(r[1]) or r)(route())
+    sc.add_codes(part)
+    got, want = sc.result(), host.result()
+    if not (flags and all(flags)) or not all(np.array_equal(getattr(got, f), getattr(want, f))
+                                             for f in ("kmers", "counts", "histogram")):
+        raise AssertionError("the sharded counter's forced overflow did not overflow, or differs from the host counter")
+    print(f"sharded counter on {MESH_SHARDS} logical shards, capacity 64 an owner: {len(flags)} flushes overflowed, "
+          f"the host route's {got.kmers.size} k-mers equal the host counter's")
+    return out
+
+
+def mesh_path(work: str, reads: str) -> dict:
+    """The device mesh of the process, in-process: on the card's one-device
+    mesh `find -graph -scan-engine sharded` over the whole reference (K10
+    on the shard) and `find -count-engine sharded` from the reads (K11),
+    held to the main path's records and graph bytes; on MESH_SHARDS
+    logical shards of the card `fill -fill-engine device` with the walker's
+    lanes over the shards (K5), held to the native fill's artifacts,
+    `-scan-engine sharded-mem` over the first PLANE_CUT bases (K12, K13),
+    held to the default run there, and the graft entry points, entry() (K14)
+    and dryrun_multichip. Returns the kernel launch counts of the run."""
+    import torch
+
+    from mindthegap_tpu_torch import graft_entry as G
+    from mindthegap_tpu_torch.parallel import mesh as M
+
+    launches = _reset_launches()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        times = {"ms": _find_graph("ms", "-scan-engine", "sharded"),
+                 "mc": _cli(["find", "-in", reads, "-ref", "ref.fa", "-count-engine", "sharded", "-out", "mc",
+                             "-profile", "-verbose", "0"])}
+        with M.logical_devices([torch.device("cuda")] * MESH_SHARDS):
+            times["mf"] = _cli(["fill", "-graph", "t.h5", "-bkpt", "t.breakpoints", "-fill-engine", "device",
+                                "-out", "mf", "-profile", "-verbose", "0"])
+            times["mm"] = _find_graph("mm", "-scan-engine", "sharded-mem", ref="ref_cut.fa")
+            t0 = time.perf_counter()
+            fn, args = G.entry()
+            planes = fn(*args)
+            G.dryrun_multichip(MESH_SHARDS)
+            torch.cuda.synchronize()
+            entry_s = time.perf_counter() - t0
+        counts = launches()
+    finally:
+        os.chdir(cwd)
+
+    def path(name):
+        return os.path.join(work, name)
+
+    if not _equal_records(work, "t", "ms"):
+        raise AssertionError("find -scan-engine sharded wrote other records than the main path's find")
+    with open(path("t.h5"), "rb") as a, open(path("mc.h5"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("find -count-engine sharded wrote another graph than host counting")
+    if not _equal_records(work, "t", "mc"):
+        raise AssertionError("find -count-engine sharded wrote other records than host counting")
+    for ext in ("insertions.fasta", "info.txt"):
+        if not _same(path(f"tf.{ext}"), path(f"mf.{ext}")):
+            raise AssertionError(f"the fill over the walker's mesh wrote another {ext} than the native fill")
+    if _records(path("tf.insertions.vcf")) != _records(path("mf.insertions.vcf")):
+        raise AssertionError("the fill over the walker's mesh wrote other VCF records than the native fill")
+    if not _equal_records(work, "pcut", "mm"):
+        raise AssertionError("find -scan-engine sharded-mem wrote other records than the default run on the cut")
+    if tuple(planes["fwd"].shape) != (args[0].numel() - 30,):
+        raise AssertionError("entry() gave planes of another shape")
+    for name in ("scan_pay_qp", "swizzle_keys", "walk_batch", "member_route", "member_probe", "member_scatter",
+                 "scan_planes_sorted"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the mesh path")
+    print("mesh path (in-process): find -graph -scan-engine sharded (one-device mesh) " + _wall(times["ms"])
+          + f"; find -count-engine sharded {times['mc'][0]:.1f} s (graph build "
+          f"{_phase(times['mc'][1], 'graph build'):.2f} s), its graph byte-equal to the host count's; fill -fill-engine device over {MESH_SHARDS} logical "
+          f"shards {times['mf'][0]:.1f} s (fill jobs {_phase(times['mf'][1], 'fill jobs'):.2f} s), equal to the native "
+          f"fill; -scan-engine sharded-mem on {MESH_SHARDS} logical shards over the first {PLANE_CUT} bases "
+          + _wall(times["mm"]) + f", equal to the default run there; entry() and dryrun_multichip({MESH_SHARDS}) "
+          f"{entry_s:.1f} s, their value checks passed")
+    print(f"kernel launches on the mesh path: {counts}")
+    return {"launches": counts}
+
+
+def _wall(t) -> str:
+    setup, scan = _scan_s(t[1])
+    return f"{t[0]:.1f} s (scan engine setup {setup:.2f} s, setup + scan + replay {scan:.2f} s)"
+
+
 def build_kernels():
     """Build every kernel library at once: one nvcc per source, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1175,8 +1487,11 @@ def build_kernels():
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
 
+    from mindthegap_tpu_torch.parallel import sharded_count as SC
+    from mindthegap_tpu_torch.parallel import sharded_membership as SM
+
     loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib, S._span_scan_lib, W._walk_span_lib,
-               S._planes_lib)
+               S._planes_lib, SC._lib, SM._lib, S._sorted_lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
@@ -1200,7 +1515,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     build_kernels()
-    print(f"kernel build (nvcc, sm_90a, 8 sources in parallel): {time.perf_counter() - t0:.1f} s")
+    print(f"kernel build (nvcc, sm_90a, 11 sources in parallel): {time.perf_counter() - t0:.1f} s")
 
     seed = 20261016
     k = 31
@@ -1231,14 +1546,18 @@ def main() -> int:
         k6, qms = check_span_scan_kernel(ref, span_rows, SPAN_K, seed)
         k7 = check_span_walk_kernel(span_fwd, qms, SPAN_K, seed)
         del span_fwd, span_rows, qms
+        mesh = check_mesh_kernels(ref, solid, reads, k, seed)
         for name, r in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
                         ("K8", planes["scan_planes_q"]), ("K9", planes["scan_planes_qb"]),
-                        ("K10", planes["scan_pay_qp"])):
+                        ("K10", planes["scan_pay_qp"]), ("K11", mesh["swizzle_keys"]),
+                        ("K12", mesh["member_route"]), ("K13", mesh["member_probe"]),
+                        ("K13", mesh["member_scatter"]), ("K14", mesh["scan_planes_sorted"])):
             if r["max_abs_err"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
         run = main_path(work, insertions, reads)
         run2 = device_path(work, insertions, reads)
         run4 = plane_path(work, ref, donor)
+        run5 = mesh_path(work, reads)
         run3 = span_path(work, seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1274,6 +1593,21 @@ def main() -> int:
         {"name": "scan_pay_qp", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_qp.cu",
          "replaces": "mindthegap_tpu/find/scan_device.py:427",
          "launches": run4["launches"]["scan_pay_qp"], **planes["scan_pay_qp"]},
+        {"name": "swizzle_keys", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/sharded_count.cu",
+         "replaces": "mindthegap_tpu/parallel/sharded_count.py:125",
+         "launches": run5["launches"]["swizzle_keys"], **mesh["swizzle_keys"]},
+        {"name": "member_route", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/sharded_member.cu",
+         "replaces": "mindthegap_tpu/parallel/sharded_membership.py:76",
+         "launches": run5["launches"]["member_route"], **mesh["member_route"]},
+        {"name": "member_probe", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/sharded_member.cu",
+         "replaces": "mindthegap_tpu/parallel/sharded_membership.py:76",
+         "launches": run5["launches"]["member_probe"], **mesh["member_probe"]},
+        {"name": "member_scatter", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/sharded_member.cu",
+         "replaces": "mindthegap_tpu/parallel/sharded_membership.py:76",
+         "launches": run5["launches"]["member_scatter"], **mesh["member_scatter"]},
+        {"name": "scan_planes_sorted", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_sorted.cu",
+         "replaces": "mindthegap_tpu/find/scan_device.py:88",
+         "launches": run5["launches"]["scan_planes_sorted"], **mesh["scan_planes_sorted"]},
     ]
     print(f"auto gate record: {json.dumps(run4['gate'])}")
     print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")

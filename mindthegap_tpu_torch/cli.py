@@ -47,7 +47,7 @@ FIND_OPTIONS = {
     "max-memory": (True, "2000", "max memory for graph building (in MBytes)", True),
     "verbose": (True, "1", "verbosity level", True),
     "scan-engine": (True, "auto", "reference-scan engine: auto | host | device | device-qp | device-qb | sharded | sharded-mem", False),
-    "scan-memory": (True, "0", "per-device memory budget for the replicated scan map in MBytes (0 = auto); ignored on one device (the rerouting to sharded membership on a mesh is not yet ported)", False),
+    "scan-memory": (True, "0", "per-device memory budget for the replicated scan map in MBytes (0 = auto: 3/4 of the smallest card of the mesh; none on the CPU); a k <= 32 map above it reroutes -scan-engine auto|sharded to sharded-mem on a mesh of more than one device, and is ignored on one device", False),
     "count-engine": (True, "auto", "k-mer counting engine: auto | host | device | sharded | partitioned", False),
     "automaton": (True, "auto", "breakpoint automaton: auto | native | host", False),
     "profile": (False, None, "add per-phase wall-clock timings to the result report", False),

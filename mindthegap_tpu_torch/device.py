@@ -36,6 +36,18 @@ def check_kernel_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: in
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def launch(what: str, launcher, *args, device: torch.device) -> None:
+    """Call a kernel's C launcher with `device` current and that device's
+    current stream as its last argument; raise on a CUDA error. The guard
+    keeps a launch on its tensors' device: a default stream's handle is 0,
+    the null stream of whichever device is current, so a mesh shard's
+    launch on cuda:1 would otherwise go to cuda:0."""
+    with torch.cuda.device(device):
+        err = launcher(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of fn over `iters` calls after `warmup`, by CUDA events."""
     for _ in range(warmup):

@@ -317,8 +317,10 @@ class Filler:
     # job dispatch: host process pool (the GATB Dispatcher analog) or the
     # device-batched walker (jobs ride lanes; fill/walk_device.py): the u64
     # walker for k <= 32, the span walker for 32 < k <= 256 (both device
-    # engines take it there, as in the JAX package). The JAX package's
-    # multi-host sharding is not ported: the port runs one process.
+    # engines take it there, as in the JAX package). At k <= 32 the walk
+    # lanes ride the device mesh of the process when it has more than one
+    # device (its largest power of two). The JAX package's multi-host
+    # sharding is not ported: the port runs one process.
     # ------------------------------------------------------------------
     def _run_jobs(self, fn, co_fn, jobs):
         engine = self.fill_engine
@@ -330,8 +332,14 @@ class Filler:
         if engine == "device":
             from .walk_device import BatchWalker, run_jobs_batched
 
+            mesh = None
+            if self.view.qm is not None:  # k <= 32: u64 lanes, over the mesh if there is one
+                from ..parallel.mesh import make_mesh, pow2_mesh
+
+                devices = make_mesh(self.device)
+                mesh = pow2_mesh(devices) if len(devices) > 1 else None
             qmap = self.view.qm if self.view.qm is not None else self.view.ensure_span_map()
-            walker = BatchWalker(qmap, self.k, self.device)
+            walker = BatchWalker(qmap, self.k, self.device, mesh=mesh)
             gens = [co_fn(*j) for j in jobs]
             yield from run_jobs_batched(gens, walker)
         else:

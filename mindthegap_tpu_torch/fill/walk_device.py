@@ -32,8 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import NotYetPorted
-from ..device import check_kernel_tensor
+from ..device import check_kernel_tensor, launch
 from ..ops import extmap as X
 from ..ops import kmers as K
 
@@ -179,14 +178,11 @@ def walk_batch_cuda(nodes, budgets, slots, stash_k, stash_v, log_size: int, k: i
     n_app = torch.empty(lanes, dtype=torch.int32, device=dev)
     end_nodes = torch.empty(lanes, dtype=torch.int64, device=dev)
     status = torch.empty(lanes, dtype=torch.uint8, device=dev)
-    err = _walk_lib().walk_launch(
-        nodes.data_ptr(), budgets.data_ptr(), slots.data_ptr(), log_size, int(bucket),
-        stash_k.data_ptr(), stash_v.data_ptr(), n_stash, k, steps, lanes, depth,
-        bases.data_ptr(), n_app.data_ptr(), end_nodes.data_ptr(), status.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
+    launch("walk", _walk_lib().walk_launch,
+           nodes.data_ptr(), budgets.data_ptr(), slots.data_ptr(), log_size, int(bucket),
+           stash_k.data_ptr(), stash_v.data_ptr(), n_stash, k, steps, lanes, depth,
+           bases.data_ptr(), n_app.data_ptr(), end_nodes.data_ptr(), status.data_ptr(),
+           device=dev)
     walk_batch_cuda.launches += 1
     return bases, n_app, end_nodes, status
 
@@ -334,16 +330,13 @@ def walk_batch_span_cuda(nodes, budgets, slots, sat, stash_k64, stash_sat, stash
     n_app = torch.empty(lanes, dtype=torch.int32, device=dev)
     end_nodes = torch.empty_like(nodes)
     status = torch.empty(lanes, dtype=torch.uint8, device=dev)
-    err = _walk_span_lib().walk_span_launch(
-        nodes.data_ptr(), budgets.data_ptr(),
-        slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
-        stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
-        stash_k64.shape[0], k, steps, lanes, depth,
-        bases.data_ptr(), n_app.data_ptr(), end_nodes.data_ptr(), status.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"span walk kernel launch failed: CUDA error {err}")
+    launch("span walk", _walk_span_lib().walk_span_launch,
+           nodes.data_ptr(), budgets.data_ptr(),
+           slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
+           stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
+           stash_k64.shape[0], k, steps, lanes, depth,
+           bases.data_ptr(), n_app.data_ptr(), end_nodes.data_ptr(), status.data_ptr(),
+           device=dev)
     walk_batch_span_cuda.launches += 1
     return bases, n_app, end_nodes, status
 
@@ -375,12 +368,15 @@ class BatchWalker:
     each (at least `min_lanes`, the rest with a budget of 0), so that K5's
     and K7's look-ahead depth follows the live walks; the step count starts
     at 256 and doubles to 2048, as in the JAX walker. Span nodes travel as
-    rows of Wk int64 words and come back as python ints."""
+    rows of Wk int64 words and come back as python ints.
+
+    With `mesh` (a list of devices, a power of two of them;
+    parallel/mesh.py) the lanes of a k <= 32 walk are split over the mesh,
+    the map on every device (parallel/mesh.py walk_shards), as many lanes a
+    shard; span walks ride `device` alone, as in the JAX package."""
 
     def __init__(self, qmap, k: int, device, min_lanes: int = 8, steps: int = 256,
                  max_steps: int = 2048, mesh=None):
-        if mesh is not None:
-            raise NotYetPorted("the walker's device mesh")
         self.k = k
         self.device = torch.device(device)
         if isinstance(qmap, X.QMapSpan):
@@ -392,8 +388,16 @@ class BatchWalker:
             self.layout = "bucket" if isinstance(qmap, X.QMapB) else "cuckoo"
             self.wk = 1
         self.log_size = qmap.log_nb if self.layout == "bucket" else qmap.log_size
-        self.tables = qmap.to(self.device)
+        self.mesh = mesh if self.layout != "span" else None
         self.min_lanes = min_lanes
+        if self.mesh is not None:
+            from ..parallel import mesh as M
+
+            assert len(mesh) & (len(mesh) - 1) == 0, "mesh size must be a power of two"
+            self.mesh_tables = M.per_device(self.mesh, qmap.to)
+            self.min_lanes = max(min_lanes, len(mesh))
+        else:
+            self.tables = qmap.to(self.device)
         self.steps = steps
         self.max_steps = max_steps
         self.n_device_calls = 0
@@ -438,19 +442,28 @@ class BatchWalker:
             idx = np.nonzero((status == STATUS_RUNNING) & (remaining > 0))[0]
             if idx.size == 0:
                 break
-            # only the live walks go to the device (at least min_lanes lanes)
+            # only the live walks go to the device (at least min_lanes lanes;
+            # on a mesh, as many a shard)
             lanes = max(self.min_lanes, idx.size)
+            if self.mesh is not None:
+                lanes = -(-lanes // len(self.mesh)) * len(self.mesh)
             lane_nodes = np.zeros((lanes, self.wk), np.uint64)
             lane_budgets = np.zeros(lanes, np.int32)
             lane_nodes[: idx.size] = nodes[idx]
             lane_budgets[: idx.size] = remaining[idx]
             if self.layout != "span":
                 lane_nodes = lane_nodes[:, 0]
-            bases, n_app, end_nodes, st = self._call_device(
-                torch.from_numpy(K.as_i64(lane_nodes)).to(self.device),
-                torch.from_numpy(lane_budgets).to(self.device),
-                steps,
-            )
+            if self.mesh is not None:
+                from ..parallel import mesh as M
+
+                bases, n_app, end_nodes, st = M.walk_shards(self.mesh, self.mesh_tables, K.as_i64(lane_nodes),
+                                                            lane_budgets, self.log_size, self.k, steps, self.layout)
+            else:
+                bases, n_app, end_nodes, st = self._call_device(
+                    torch.from_numpy(K.as_i64(lane_nodes)).to(self.device),
+                    torch.from_numpy(lane_budgets).to(self.device),
+                    steps,
+                )
             bases = bases[: idx.size].cpu().numpy()
             n_app = n_app[: idx.size].cpu().numpy()
             self.n_device_calls += 1

@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from .. import MTG_COMPAT_VERSION, KSIZE_STRING, NotYetPorted
+from .. import MTG_COMPAT_VERSION, KSIZE_STRING
 from ..device import resolve_device
 from ..graph import dbg
 from ..io.bank import Bank
@@ -86,11 +86,20 @@ def parse_bed_for_chrom(bed_path: str, chrom_name: str, k: int):
     return intervals
 
 
-_VALID_SCAN_ENGINES = ("auto", "host", "device", "device-qp", "device-qb", "sharded", "sharded-mem")
+def _scan_map_bytes_estimate(n_solid: int) -> int:
+    """Projected footprint of the replicated pair-coalesced scan map: 16 B
+    per slot row, power-of-two sizing at load factor 0.35 (extmap.py QMapP)."""
+    import math
+
+    n = max(int(n_solid), 1)
+    return (1 << math.ceil(math.log2(n / 0.35))) * 16
+
+
 # at k <= 32 `auto` and `device-qp` take the pair map, `device` the cuckoo
 # map and `device-qb` the bucket map; at 32 < k <= 256 every device engine
-# takes the span map, as in the JAX package
-_PORTED_SCAN_ENGINES = ("auto", "host", "device", "device-qp", "device-qb")
+# takes the span map, as in the JAX package; `sharded` lays the windows over
+# the mesh (pair or span map), `sharded-mem` shards the solid set itself
+_VALID_SCAN_ENGINES = ("auto", "host", "device", "device-qp", "device-qb", "sharded", "sharded-mem")
 
 
 def _validate_scan_engine(engine: str):
@@ -99,30 +108,37 @@ def _validate_scan_engine(engine: str):
             "ERROR: unknown -scan-engine %r (choose from %s)"
             % (engine, ", ".join(_VALID_SCAN_ENGINES))
         )
-    if engine not in _PORTED_SCAN_ENGINES:
-        raise NotYetPorted(f"-scan-engine {engine}")
 
 
-def _check_scan_k(k: int):
-    """What stays unported at this k: the JAX package's find above k = 256
-    (its host scan into the Python automaton)."""
-    if k > 256:
-        raise NotYetPorted("find with -kmer-size above 256")
+def _over_budget_mesh(graph, scan_memory_mb: int, mesh: list) -> bool:
+    """True when the replicated k <= 32 scan map would exceed the per-device
+    budget AND the mesh has more than one device to shard membership over
+    (the sharded-mem reroute). Budget: -scan-memory MB, else 3/4 of the
+    smallest card of the mesh; a mesh of the CPU has no default budget."""
+    if scan_memory_mb > 0:
+        budget = scan_memory_mb << 20
+    else:
+        cards = [torch.cuda.get_device_properties(d).total_memory for d in mesh if d.type == "cuda"]
+        if not cards:
+            return False
+        budget = 3 * min(cards) // 4
+    return _scan_map_bytes_estimate(len(graph.solid)) > budget and len(mesh) > 1
 
 
-def _check_table_fits(nbytes: int, device: torch.device):
-    """The scan map is replicated on the device: refuse a table above the
-    card's memory. A -scan-memory budget only reroutes membership on a mesh
-    of more than one device (not yet ported); on one device it is ignored,
-    as in the JAX package."""
-    if device.type != "cuda":
-        return
-    total = torch.cuda.get_device_properties(device).total_memory
-    if nbytes > total:
-        raise FinderError(
-            f"ERROR: the scan map needs {nbytes >> 20} MB, above the {total >> 20} MB of one device "
-            "(membership sharding across devices is not yet ported)"
-        )
+def _check_table_fits(nbytes: int, devices):
+    """A scan map is replicated on every device it runs on: refuse a table
+    above a card's memory. A -scan-memory budget reroutes membership only on
+    a mesh of more than one device (_over_budget_mesh); on one device it is
+    ignored, as in the JAX package."""
+    for device in devices:
+        if device.type != "cuda":
+            continue
+        total = torch.cuda.get_device_properties(device).total_memory
+        if nbytes > total:
+            raise FinderError(
+                f"ERROR: the scan map needs {nbytes >> 20} MB, above the {total >> 20} MB of one device "
+                "(-scan-engine sharded-mem shards the solid set over a mesh of more than one device)"
+            )
 
 
 def _upload(part: np.ndarray, k: int, device: torch.device):
@@ -183,7 +199,7 @@ def _pair_tables(graph, repeat_set, k: int, device: torch.device):
     from ..ops import extmap as X
 
     qp = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers)
-    _check_table_fits(qp.nbytes, device)
+    _check_table_fits(qp.nbytes, [device])
     t = qp.to(device)
     return (t.slots, t.stash_keys, t.stash_l, t.stash_r), qp.log_size
 
@@ -208,16 +224,17 @@ def _span_tables(graph, repeat_set, k: int, device: torch.device):
     window: (slots, sat, stash_key64, stash_sat, stash_payload, salt,
     log_size)."""
     qms = _build_span_map(graph, repeat_set, k)
-    _check_table_fits(qms.nbytes, device)
+    _check_table_fits(qms.nbytes, [device])
     t = qms.to(device)
     return (t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size)
 
 
 def _feeds_payloads(engine: str, k: int) -> bool:
     """Whether `engine` streams payloads into the native automaton (else it
-    takes the plane path): the pair map at k <= 32, the span map above,
-    as the JAX package's _make_pay_feed_fn gates them."""
-    return engine in (("auto", "device-qp") if k <= 32 else ("auto", "device", "device-qp"))
+    takes the plane path): the pair map at k <= 32, the span map above
+    (up to k = 256, where the native automaton ends), on one device or over
+    the mesh (`sharded`), as the JAX package's _make_pay_feed_fn gates them."""
+    return engine in (("auto", "device-qp", "sharded") if k <= 32 else ("auto", "device", "device-qp", "sharded"))
 
 
 def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device,
@@ -283,14 +300,78 @@ def _make_span_feed_fn(graph, repeat_set, k: int, device: torch.device, window: 
     return _window_feed(k, window, dispatch, emit)
 
 
-def _stitched(k: int, window: int, dispatch, emit, keys, host_fn):
-    """`codes -> Planes` over windows (_window_feed): each window's planes,
-    which emit yields as numpy arrays cut to the window's take, joined in
-    position order. A sequence shorter than k has no position: host_fn
-    gives its empty Planes."""
-    from .scan import Planes
+def _group_feed(k: int, window: int, n: int, dispatch, emit):
+    """_window_feed over groups of n windows, one a shard of the mesh: each
+    group goes to dispatch as an [n, window] array (windows padded with
+    invalid bases, a short last group with whole invalid windows), and
+    group g is dispatched before group g-1 is emitted. emit(res, wins, j,
+    take, last) gets window j of the group."""
+    step = window - (k - 1)
 
-    feed = _window_feed(k, window, dispatch, emit)
+    def feed(codes):
+        npos = codes.shape[0] - k + 1
+        if npos <= 0:
+            return
+        nwin = -(-npos // step)
+
+        def emit_group(res, wins, g0, gn):
+            for j in range(gn):
+                yield from emit(res, wins, j, min(step, npos - (g0 + j) * step), g0 + j == nwin - 1)
+
+        pending = None
+        for g0 in range(0, nwin, n):
+            gn = min(n, nwin - g0)
+            wins = np.full((n, window), 255, np.uint8)
+            for j in range(gn):
+                part = codes[(g0 + j) * step : (g0 + j) * step + window]
+                wins[j, : part.shape[0]] = part
+            res = dispatch(wins)
+            if pending is not None:
+                yield from emit_group(*pending)
+            pending = (res, wins, g0, gn)
+        yield from emit_group(*pending)
+
+    return feed
+
+
+def _sharded_dispatch(graph, repeat_set, k: int, mesh: list):
+    """The window-sharded scan over the mesh: (dispatch, n_shards, window)
+    of parallel/mesh.py's group dispatcher, over the pair map at k <= 32
+    (kernel K10 on each shard) or the span map above (K6), on every device."""
+    from ..ops import extmap as X
+    from ..parallel import mesh as M
+
+    if k <= 32:
+        qm, window = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers), 1 << 22
+        make = M.make_sharded_scan_group_qp
+    else:
+        qm, window = _build_span_map(graph, repeat_set, k), 1 << 21
+        make = M.make_sharded_scan_group_span
+    _check_table_fits(qm.nbytes, mesh)
+    dispatch, n = make(mesh, qm, k, window)
+    return dispatch, n, window
+
+
+def _make_sharded_pay_feed_fn(graph, repeat_set, k: int, mesh: list):
+    """Payload feed of `-scan-engine sharded` for the native automaton:
+    windows of a group go to the mesh's shards, each window's dense payload
+    stream (pay8, rep8 and, above k = 32, str8) into the automaton in
+    position order."""
+    dispatch, n, window = _sharded_dispatch(graph, repeat_set, k, mesh)
+
+    def emit(res, _wins, j, take, last):
+        n_feed = take + last
+        yield ("pay", res["pay8"][j][:n_feed], res["rep8"][j], res["str8"][j] if k > 32 else None, n_feed)
+
+    return _group_feed(k, window, n, dispatch, emit)
+
+
+def _stitched(k: int, feed, keys, host_fn):
+    """`codes -> Planes` over windows (a _window_feed or _group_feed whose
+    emit yields each window's planes as numpy arrays cut to its take),
+    joined in position order. A sequence shorter than k has no position:
+    host_fn gives its empty Planes."""
+    from .scan import Planes
 
     def planes_fn(codes):
         if codes.shape[0] < k:
@@ -301,21 +382,92 @@ def _stitched(k: int, window: int, dispatch, emit, keys, host_fn):
     return planes_fn
 
 
-def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device):
+def _make_sharded_mem_plane_fn(graph, repeat_set, k: int, mesh: list, host_fn, chunk: int = 1 << 20):
+    """`codes -> Planes` of `-scan-engine sharded-mem` (k <= 32): the solid
+    set sharded by key range over the mesh, every membership probe (the
+    canonical k-mer and its 8 neighbours) routed to its owner shard through
+    the Bloom prefilter (parallel/sharded_membership.py, kernels K12 and
+    K13); the repeat planes from the replicated (k-1)-mer set on the host.
+    A mesh of one device holds the whole set in its one shard and still
+    routes every probe through the kernels (the JAX package takes the host
+    scan there)."""
+    from ..ops import kmers as K
+    from ..parallel.sharded_membership import ShardedMembership
+    from .scan import Planes, _member_sorted
+
+    sm = ShardedMembership(mesh, np.asarray(graph.solid.kmers, np.uint64))
+    rep_kmers = repeat_set.kmers
+    mask = K.kmer_mask(k)
+    km1_mask = K.kmer_mask(k - 1)
+    shift_hi = np.uint64(2 * (k - 1))
+
+    def fn(codes):
+        fwd_all, valid_all = K.kmers_from_codes(codes, k)
+        p = fwd_all.shape[0]
+        if p == 0:
+            return host_fn(codes)
+        outs = {key: [] for key in ("contains", "nb_in", "nb_out")}
+        for lo in range(0, p, chunk):
+            fwd = fwd_all[lo : lo + chunk]
+            # 9 membership queries per position, one routed batch
+            qs = [K.canonical_u64(fwd, k)]
+            for x in range(4):
+                qs.append(K.canonical_u64(((fwd << np.uint64(2)) | np.uint64(x)) & mask, k))
+            for x in range(4):
+                qs.append(K.canonical_u64((fwd >> np.uint64(2)) | (np.uint64(x) << shift_hi), k))
+            res = sm.contains(np.concatenate(qs)).reshape(9, fwd.shape[0])
+            contains = res[0]
+            outs["contains"].append(contains)
+            outs["nb_out"].append(np.where(contains, res[1:5].sum(axis=0), 0).astype(np.int32))
+            outs["nb_in"].append(np.where(contains, res[5:9].sum(axis=0), 0).astype(np.int32))
+        suffix = fwd_all & km1_mask
+        prefix = (fwd_all >> np.uint64(2)) & km1_mask
+        return Planes(
+            valid=valid_all,
+            fwd=fwd_all,
+            contains=np.concatenate(outs["contains"]),
+            nb_in=np.concatenate(outs["nb_in"]),
+            nb_out=np.concatenate(outs["nb_out"]),
+            suffix_rep=np.asarray(_member_sorted(rep_kmers, K.canonical_u64(suffix, k - 1))),
+            prefix_rep=np.asarray(_member_sorted(rep_kmers, K.canonical_u64(prefix, k - 1))),
+        )
+
+    return fn
+
+
+def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device, mesh: list):
     """`codes -> Planes` for the plane path: the host oracle for
-    `-scan-engine host`; at k <= 32 the cuckoo map's planes (`device`, K8
-    on CUDA), the bucket map's (`device-qb`, K9) or the pair map's dense
-    payload stream (`auto`, `device-qp`: K10, then planes_from_pay on the
-    host) over 2^22-base windows; at 32 < k <= 256 the span scan (K6, then
-    planes_from_pay_span) over 2^21-base windows. The planes are identical
-    whichever engine makes them."""
+    `-scan-engine host` and above k = 256; at k <= 32 the cuckoo map's
+    planes (`device`, K8 on CUDA), the bucket map's (`device-qb`, K9) or the
+    pair map's dense payload stream (`auto`, `device-qp`: K10, then
+    planes_from_pay on the host) over 2^22-base windows; at 32 < k <= 256
+    the span scan (K6, then planes_from_pay_span) over 2^21-base windows;
+    `sharded` the same payload streams over the mesh's shards, and
+    `sharded-mem` (k <= 32) the membership routed over the mesh. The
+    planes are identical whichever engine makes them."""
     from .scan_device import PLANE_KEYS
 
     def host_fn(codes):
         return scan.compute_planes(codes, k, graph.solid.kmers, repeat_set.kmers)
 
-    if engine == "host":
+    if engine == "host" or k > 256:
         return host_fn
+    if engine == "sharded":
+        from .scan_device import planes_from_pay, planes_from_pay_span
+
+        keys = PLANE_KEYS + (("fwd_rows",) if k > 32 else ())
+        dispatch, n, window = _sharded_dispatch(graph, repeat_set, k, mesh)
+
+        def emit(res, wins, j, take, _last):
+            if k > 32:
+                pw = planes_from_pay_span(res["pay8"][j], res["rep8"][j], res["str8"][j], wins[j], k)
+            else:
+                pw = planes_from_pay(res["pay8"][j], res["rep8"][j], wins[j], k)
+            yield {key: getattr(pw, key)[:take] for key in keys}
+
+        return _stitched(k, _group_feed(k, window, n, dispatch, emit), keys, host_fn)
+    if engine == "sharded-mem" and k <= 32:
+        return _make_sharded_mem_plane_fn(graph, repeat_set, k, mesh, host_fn)
 
     def payload_route(window: int, scan_fn, to_planes, keys):
         # the device's payload stream of each window, made into planes on
@@ -331,7 +483,7 @@ def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device)
             pw = to_planes({key: v.numpy() for key, v in host.items()}, row)
             yield {key: getattr(pw, key)[:take] for key in keys}
 
-        return _stitched(k, window, dispatch, emit, keys, host_fn)
+        return _stitched(k, _window_feed(k, window, dispatch, emit), keys, host_fn)
 
     if k > 32:
         from .scan_device import planes_from_pay_span, scan_pay_q_span
@@ -356,7 +508,7 @@ def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device)
     else:
         qm = X.build_fused(graph.solid.kmers, k, repeat_set.kmers)
         log, scan_fn = qm.log_size, scan_planes_q
-    _check_table_fits(qm.nbytes, device)
+    _check_table_fits(qm.nbytes, [device])
     t = qm.to(device)
     targs = (t.slots, t.stash_keys, t.stash_payload)
     del qm, t  # only the device copy is used from here
@@ -373,7 +525,7 @@ def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device)
         out["fwd"] = out["fwd"].view(np.uint64)
         yield out
 
-    return _stitched(k, 1 << 22, dispatch, emit, PLANE_KEYS, host_fn)
+    return _stitched(k, _window_feed(k, 1 << 22, dispatch, emit), PLANE_KEYS, host_fn)
 
 
 def run_find(opts: dict, out=None) -> Properties:
@@ -399,8 +551,6 @@ def run_find(opts: dict, out=None) -> Properties:
     device = resolve_device(opts.get("device"))
     scan_engine = opts.get("scan-engine", "auto")
     _validate_scan_engine(scan_engine)
-    if has_in:  # checked before the graph build
-        _check_scan_k(int(opts.get("kmer-size", 31)))
 
     from ..utils.phases import PhaseTimer, maybe_trace
 
@@ -428,7 +578,6 @@ def run_find(opts: dict, out=None) -> Properties:
         with phases.phase("graph load"):
             graph = dbg.Graph.load(opts["graph"])
             k = graph.k
-    _check_scan_k(k)  # a loaded graph
 
     bed_file = opts.get("bed", "")
 
@@ -477,8 +626,8 @@ def run_find(opts: dict, out=None) -> Properties:
     from . import native_scan
 
     # the native automaton unless -automaton host (any other value, as in
-    # the JAX package, takes the Python one too)
-    use_native = opts.get("automaton", "auto") in ("auto", "native")
+    # the JAX package, takes the Python one too) or k > 256
+    use_native = opts.get("automaton", "auto") in ("auto", "native") and k <= 256
 
     with open(breakpoint_name, "w") as bkpt_f, open(vcf_name, "w") as vcf_f:
         _write_vcf_header(vcf_f, opts)
@@ -522,12 +671,24 @@ def run_find(opts: dict, out=None) -> Properties:
             # native automaton + a payload engine: the payload stream feeds
             # the C scanner directly (no host plane expansion; replay
             # overlaps device compute); every other combination takes the
-            # plane path
+            # plane path. A replicated k <= 32 map over the budget on a
+            # mesh of more than one device reroutes `auto` and `sharded` to
+            # sharded-mem.
+            from ..parallel import mesh as M
+
+            mesh = M.make_mesh(device)
+            engine = scan_engine
+            if k <= 32 and engine in ("auto", "sharded") and _over_budget_mesh(
+                    graph, int(opts.get("scan-memory", 0)), mesh):
+                engine = "sharded-mem"
             pay_feed = plane_fn = None
-            if use_native and _feeds_payloads(scan_engine, k):
-                pay_feed = _make_pay_feed_fn(graph, repeat_set, k, device)
+            if use_native and _feeds_payloads(engine, k):
+                if engine == "sharded":
+                    pay_feed = _make_sharded_pay_feed_fn(graph, repeat_set, k, mesh)
+                else:
+                    pay_feed = _make_pay_feed_fn(graph, repeat_set, k, device)
             else:
-                plane_fn = _make_plane_fn(scan_engine, graph, repeat_set, k, device)
+                plane_fn = _make_plane_fn(engine, graph, repeat_set, k, device, mesh)
         for rec in refbank:
             codes = dna.seq_to_codes(rec.seq)
             bed_intervals = None

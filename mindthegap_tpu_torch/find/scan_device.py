@@ -17,7 +17,11 @@ sends it to an automaton in one of these forms:
   of find/scan.py Planes themselves; the hand kernels K8 and K9
   (csrc/scan_planes.cu);
 - scan_pay_q_span (32 < k <= 256, the span map QMapSpan): payload bytes
-  with repeat and strand bits; the hand kernel K6 (csrc/scan_span.cu).
+  with repeat and strand bits; the hand kernel K6 (csrc/scan_span.cu);
+- scan_planes_sorted (k <= 32, the solid and repeat sets as sorted words,
+  no map): the seven planes by binary searches — the graft entry point and
+  parallel/mesh.py sharded_scan; the hand kernel K14 (csrc/scan_sorted.cu),
+  with compute_planes_device, its windowed host wrapper.
 
 Each dispatcher runs its kernel on a CUDA tensor and its plain version
 (`_..._plain`, plain PyTorch) on a CPU tensor. planes_from_pay and
@@ -34,7 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..device import check_kernel_tensor
+from ..device import check_kernel_tensor, launch
 from ..ops import extmap as X
 from ..ops import kmers as K
 
@@ -159,13 +163,11 @@ def scan_pay_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_siz
     n_pay = w - k + 2
     pay8 = torch.empty(n_pay, dtype=torch.uint8, device=dev)
     rep8 = torch.empty(-(-n_pay // 8), dtype=torch.uint8, device=dev)
-    err = _cls_lib().scan_pay_qp_launch(
-        packed.data_ptr(), badbits.data_ptr(), w, slots2.data_ptr(), log_size,
-        stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), stash_k.shape[0], k,
-        pay8.data_ptr(), rep8.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"scan_pay_qp kernel launch failed: CUDA error {err}")
+    launch("scan_pay_qp", _cls_lib().scan_pay_qp_launch,
+           packed.data_ptr(), badbits.data_ptr(), w, slots2.data_ptr(), log_size,
+           stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), stash_k.shape[0], k,
+           pay8.data_ptr(), rep8.data_ptr(),
+           device=dev)
     scan_pay_qp_cuda.launches += 1
     return {"pay8": pay8, "rep8": rep8}
 
@@ -312,15 +314,12 @@ def scan_cls_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_siz
     # tile counter (zeroed by the launch)
     tail = torch.empty(out_len, dtype=torch.int16, device=dev)
     states = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
-    err = lib.scan_cls_qp_launch(
-        packed.data_ptr(), badbits.data_ptr(), w,
-        slots2.data_ptr(), log_size,
-        stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), n_stash, k,
-        cls2.data_ptr(), exc16.data_ptr(), n_exc.data_ptr(), out_len, tail.data_ptr(), states.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"scan_cls_qp kernel launch failed: CUDA error {err}")
+    launch("scan_cls_qp", lib.scan_cls_qp_launch,
+           packed.data_ptr(), badbits.data_ptr(), w,
+           slots2.data_ptr(), log_size,
+           stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), n_stash, k,
+           cls2.data_ptr(), exc16.data_ptr(), n_exc.data_ptr(), out_len, tail.data_ptr(), states.data_ptr(),
+           device=dev)
     scan_cls_qp_cuda.launches += 1
     return {"cls2": cls2, "exc16": exc16, "n_exc": n_exc}
 
@@ -414,16 +413,13 @@ def scan_pay_q_span_cuda(packed, badbits, slots, sat, stash_k64, stash_sat, stas
     pay8 = torch.empty(n_pay, dtype=torch.uint8, device=dev)
     rep8 = torch.empty(n8, dtype=torch.uint8, device=dev)
     str8 = torch.empty(n8, dtype=torch.uint8, device=dev)
-    err = _span_scan_lib().scan_pay_q_span_launch(
-        packed.data_ptr(), badbits.data_ptr(), w,
-        slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
-        stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
-        stash_k64.shape[0], k,
-        pay8.data_ptr(), rep8.data_ptr(), str8.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"scan_pay_q_span kernel launch failed: CUDA error {err}")
+    launch("scan_pay_q_span", _span_scan_lib().scan_pay_q_span_launch,
+           packed.data_ptr(), badbits.data_ptr(), w,
+           slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
+           stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
+           stash_k64.shape[0], k,
+           pay8.data_ptr(), rep8.data_ptr(), str8.data_ptr(),
+           device=dev)
     scan_pay_q_span_cuda.launches += 1
     return {"pay8": pay8, "rep8": rep8, "str8": str8}
 
@@ -537,14 +533,11 @@ def _scan_planes_cuda(packed, badbits, slots, stash_k, stash_v, log: int, k: int
     out = {"fwd": torch.empty(p, dtype=torch.int64, device=dev)}
     for key in PLANE_KEYS[1:]:
         out[key] = torch.empty(p, dtype=torch.int32 if key.startswith("nb_") else torch.bool, device=dev)
-    err = _planes_lib().scan_planes_launch(
-        packed.data_ptr(), badbits.data_ptr(), w, slots.data_ptr(), log, int(bucket),
-        stash_k.data_ptr(), stash_v.data_ptr(), n_stash, k,
-        *(out[key].data_ptr() for key in PLANE_KEYS),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"scan_planes kernel launch failed: CUDA error {err}")
+    launch("scan_planes", _planes_lib().scan_planes_launch,
+           packed.data_ptr(), badbits.data_ptr(), w, slots.data_ptr(), log, int(bucket),
+           stash_k.data_ptr(), stash_v.data_ptr(), n_stash, k,
+           *(out[key].data_ptr() for key in PLANE_KEYS),
+           device=dev)
     return out
 
 
@@ -691,3 +684,122 @@ def planes_from_pay_span(pay8, rep8, str8, codes: np.ndarray, k: int):
         prefix_rep=rep[:p],
         fwd_rows=fwd_rows,
     )
+
+
+# ---------------------------------------------------------------------------
+# Planes over sorted sets (the graft entry point and the mesh's sharded_scan)
+
+def _member(sorted_keys: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """Whether each u64 key (int64 bit patterns) is in `sorted_keys` (sorted
+    in unsigned order): a lower bound on the biased words, then equality."""
+    if sorted_keys.shape[0] == 0:
+        return torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    idx = torch.searchsorted(sorted_keys ^ K.SIGN_BIT, keys ^ K.SIGN_BIT)
+    return sorted_keys[idx.clamp(max=sorted_keys.shape[0] - 1)] == keys
+
+
+def _scan_planes_sorted_plain(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int) -> dict:
+    """Plain version of K14: roll the window's k-mers (an invalid base reads
+    as A), then 1 + 8 + 2 binary searches a position."""
+    fwd, valid = rolling_kmers(codes, k)
+    contains = _member(solid, K.canonical_u64(fwd, k))
+    mask = K.i64(K.kmer_mask(k))
+    nb_out = torch.zeros(fwd.shape, dtype=torch.int32, device=fwd.device)
+    nb_in = torch.zeros_like(nb_out)
+    for x in range(4):
+        nb_out += _member(solid, K.canonical_u64(((fwd << 2) | x) & mask, k))
+        nb_in += _member(solid, K.canonical_u64(K.shr(fwd, 2) | K.i64(x << (2 * (k - 1))), k))
+    km1 = K.i64(K.kmer_mask(k - 1))
+    return {
+        "fwd": fwd, "valid": valid, "contains": contains,
+        "nb_in": torch.where(contains, nb_in, 0), "nb_out": torch.where(contains, nb_out, 0),
+        "suffix_rep": _member(repeat, K.canonical_u64(fwd & km1, k - 1)),
+        "prefix_rep": _member(repeat, K.canonical_u64(K.shr(fwd, 2) & km1, k - 1)),
+    }
+
+
+_SORTED_LIB = None
+
+
+def _sorted_lib():
+    global _SORTED_LIB
+    if _SORTED_LIB is None:
+        from .._build import cuda_library
+
+        lib = cuda_library("scan_sorted.cu", "libmtg_scan_sorted.so")
+        lib.scan_sorted_launch.restype = ctypes.c_int
+        lib.scan_sorted_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, *[ctypes.c_void_p] * 7, ctypes.c_void_p,
+        ]
+        _SORTED_LIB = lib
+    return _SORTED_LIB
+
+
+def scan_planes_sorted_cuda(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int) -> dict:
+    """K14 (csrc/scan_sorted.cu): the same planes as _scan_planes_sorted_plain,
+    a thread a position, its codes staged in shared memory. Counts one
+    launch per window in `scan_planes_sorted_cuda.launches`."""
+    check_kernel_tensor(codes, "codes", torch.uint8, 1)
+    check_kernel_tensor(solid, "solid", torch.int64, 1)
+    check_kernel_tensor(repeat, "repeat", torch.int64, 1)
+    w = codes.shape[0]
+    if not 2 <= k <= 32 or w < k or w >= 1 << 40:
+        raise ValueError(f"k must be in [2, 32] and the window at least k, got k={k}, window={w}")
+    dev = codes.device
+    p = w - k + 1
+    out = {"fwd": torch.empty(p, dtype=torch.int64, device=dev)}
+    for key in PLANE_KEYS[1:]:
+        out[key] = torch.empty(p, dtype=torch.int32 if key.startswith("nb_") else torch.bool, device=dev)
+    # an empty set is never read: any valid address stands in for it
+    launch("scan_sorted", _sorted_lib().scan_sorted_launch,
+           codes.data_ptr(), w, k, solid.data_ptr() or codes.data_ptr(), solid.shape[0],
+           repeat.data_ptr() or codes.data_ptr(), repeat.shape[0],
+           *(out[key].data_ptr() for key in PLANE_KEYS),
+           device=dev)
+    scan_planes_sorted_cuda.launches += 1
+    return out
+
+
+scan_planes_sorted_cuda.launches = 0
+
+
+def scan_planes_sorted(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int) -> dict:
+    """The plane pass of one padded window over sorted sets (the JAX
+    package's scan_planes_device; k <= 32): codes u8[W] (255 = invalid),
+    the solid set and the (k-1)-mer repeat set as int64 u64 words sorted in
+    unsigned order. Returns the seven planes of find/scan.py Planes, each
+    [W - k + 1] (fwd int64, nb_in/nb_out int32, the rest bool). On a CUDA
+    tensor this runs the kernel K14; on a CPU tensor its plain version."""
+    fn = scan_planes_sorted_cuda if codes.is_cuda else _scan_planes_sorted_plain
+    return fn(codes, solid, repeat, k)
+
+
+def compute_planes_device(codes: np.ndarray, k: int, solid_sorted, repeat_sorted, device,
+                          window: int = 1 << 20):
+    """Host wrapper of scan_planes_sorted: windows a chromosome (halo k-1,
+    each padded to `window` with invalid bases), runs the pass on `device`
+    and stitches numpy planes identical to find/scan.py compute_planes."""
+    from .scan import Planes
+
+    device = torch.device(device)
+    if codes.shape[0] < k:
+        z = np.zeros(0)
+        return Planes(*(z.astype(t) for t in (bool, np.uint64, bool, np.int32, np.int32, bool, bool)))
+    solid = torch.from_numpy(K.as_i64(solid_sorted)).to(device)
+    repeat = torch.from_numpy(K.as_i64(repeat_sorted)).to(device)
+    outs = {key: [] for key in PLANE_KEYS}
+    npos = codes.shape[0] - k + 1
+    pos = 0
+    while pos < npos:
+        take = min(window - (k - 1), npos - pos)
+        chunk = np.full(window, INVALID, np.uint8)
+        part = codes[pos : pos + take + k - 1]
+        chunk[: part.shape[0]] = part
+        res = scan_planes_sorted(torch.from_numpy(chunk).to(device), solid, repeat, k)
+        for key in PLANE_KEYS:
+            outs[key].append(res[key][:take].cpu().numpy())
+        pos += take
+    planes = {key: np.concatenate(v) for key, v in outs.items()}
+    planes["fwd"] = planes["fwd"].view(np.uint64)
+    return Planes(**planes)

@@ -303,8 +303,10 @@ def build_graph(
     larger spans count on the host as in the JAX package), "partitioned",
     or "auto" (host; switches to the disk-partitioned out-of-core counter
     when the in-RAM counting footprint could exceed `max_memory_mb` — the
-    reference's -max-memory contract, src/Finder.cpp:103-105). The JAX
-    package's "sharded" engine is not yet ported and raises."""
+    reference's -max-memory contract, src/Finder.cpp:103-105), or
+    "sharded" (k <= 32: the mesh of `device`'s run, parallel/mesh.py,
+    counting with the k-mers routed to owner shards,
+    parallel/sharded_count.py)."""
     from ..io.bank import iter_codes
 
     auto = isinstance(abundance_min, str) and abundance_min == "auto"
@@ -316,10 +318,12 @@ def build_graph(
     needs_partition = k <= 32 and est_bases * 32 > budget_bytes
 
     if count_engine == "sharded" and k <= 32:
-        from .. import NotYetPorted
+        from ..device import resolve_device
+        from ..parallel import mesh as M
+        from ..parallel.sharded_count import ShardedStreamingCounter
 
-        raise NotYetPorted("-count-engine sharded")
-    if count_engine == "device" and k <= 32:
+        counter = ShardedStreamingCounter(k, M.pow2_mesh(M.make_mesh(resolve_device(device))))
+    elif count_engine == "device" and k <= 32:
         from ..device import resolve_device
         from ..ops.counting_device import DeviceStreamingCounter
 

@@ -31,7 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..device import check_kernel_tensor
+from ..device import check_kernel_tensor, launch
 from ..find.scan_device import pack_codes_host, rolling_kmers, unpack_codes
 from . import kmers as K
 
@@ -255,12 +255,9 @@ def kmer_keys_cuda(packed: torch.Tensor, bad: torch.Tensor, k: int) -> torch.Ten
     if not 1 <= k <= 32 or w < k:
         raise ValueError(f"k must be in [1, 32] and at most the batch, got k={k}, batch={w}")
     out = torch.empty(w - k + 1, dtype=torch.int64, device=packed.device)
-    err = _keys_lib().kmer_keys_launch(
-        packed.data_ptr(), bad.data_ptr(), w, k, out.data_ptr(),
-        torch.cuda.current_stream(packed.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"kmer_keys kernel launch failed: CUDA error {err}")
+    launch("kmer_keys", _keys_lib().kmer_keys_launch,
+           packed.data_ptr(), bad.data_ptr(), w, k, out.data_ptr(),
+           device=packed.device)
     kmer_keys_cuda.launches += 1
     return out
 
@@ -350,12 +347,12 @@ def merge_sorted_cuda(acc_keys, acc_counts, batch_sorted, out_cap: int):
     keys_out = torch.empty(out_cap, dtype=torch.int64, device=dev)
     counts_out = torch.empty(out_cap, dtype=torch.int64, device=dev)
     n_distinct = torch.empty((), dtype=torch.int32, device=dev)
-    err = lib.merge_fold_launch(acc_keys.data_ptr(), acc_counts.data_ptr(), na,
-                                batch_sorted.data_ptr(), nb,
-                                keys_out.data_ptr(), counts_out.data_ptr(), n_distinct.data_ptr(), out_cap,
-                                scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"merge_fold kernel launch failed: CUDA error {err}")
+    launch("merge_fold", lib.merge_fold_launch,
+           acc_keys.data_ptr(), acc_counts.data_ptr(), na,
+           batch_sorted.data_ptr(), nb,
+           keys_out.data_ptr(), counts_out.data_ptr(), n_distinct.data_ptr(), out_cap,
+           scratch.data_ptr(),
+           device=dev)
     merge_sorted_cuda.launches += 1
     return keys_out, counts_out, n_distinct
 

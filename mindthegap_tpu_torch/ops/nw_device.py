@@ -19,7 +19,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ..device import check_kernel_tensor, resolve_device
+from ..device import check_kernel_tensor, launch, resolve_device
 
 GAP = -5
 MIS = -5
@@ -113,11 +113,6 @@ def _nw_lib():
     return _NW_LIB
 
 
-def _check(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} failed: CUDA error {err}")
-
-
 def nw_geometry() -> tuple[int, int]:
     """K2's (rows of a stripe, warps of a block working on one pair)."""
     rows, warps = ctypes.c_int(0), ctypes.c_int(0)
@@ -148,9 +143,8 @@ def nw_matches_cuda(seq: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     order = torch.argsort(n * m, descending=True, stable=True).to(torch.int32).to(seq.device)
     stride = max(int(m.max()), 1)
     bnd = torch.empty(nb * stride * 2, dtype=torch.int32, device=seq.device)
-    stream = torch.cuda.current_stream(seq.device).cuda_stream
-    _check(lib.nw_matches_launch(seq.data_ptr(), off.data_ptr(), order.data_ptr(), nb,
-                                 out.data_ptr(), bnd.data_ptr(), stride, stream), "nw_matches kernel launch")
+    launch("nw_matches", lib.nw_matches_launch, seq.data_ptr(), off.data_ptr(), order.data_ptr(), nb,
+           out.data_ptr(), bnd.data_ptr(), stride, device=seq.device)
     nw_matches_cuda.launches += 1
     return out
 

@@ -3,6 +3,8 @@ small shapes. Marked `cuda`: they skip without a CUDA device; on a GPU
 machine run `python -m pytest tests/test_torch_cuda.py -m cuda`.
 (chip_smoke.py runs the same comparisons at the main path's shapes.)"""
 
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -11,9 +13,12 @@ from mindthegap_tpu_torch.find import scan_device as S
 from mindthegap_tpu_torch.ops import extmap as X
 from mindthegap_tpu_torch.ops import kmers as K
 from mindthegap_tpu_torch.ops import nw_device as ND
-from torch_tables import (PLANE_EDGE_NAMES, SCAN_EDGE_NAMES, SPAN_EDGE_NAMES, edge_walk_case, edge_walk_span_case,
-                          key_edge_batches, merge_edge_cases, move_to_stash, plane_edge_windows, scan_edge_windows,
-                          span_edge_windows)
+from mindthegap_tpu_torch.parallel import sharded_count as PSC
+from mindthegap_tpu_torch.parallel import sharded_membership as PSM
+from torch_tables import (MEMBER_EDGE_NAMES, PLANE_EDGE_NAMES, SCAN_EDGE_NAMES, SORTED_EDGE_NAMES, SPAN_EDGE_NAMES,
+                          SWIZZLE_EDGE_NAMES, edge_walk_case, edge_walk_span_case, key_edge_batches, member_edge_cases,
+                          merge_edge_cases, move_to_stash, plane_edge_windows, scan_edge_windows, sorted_edge_windows,
+                          span_edge_windows, swizzle_edge_chunks)
 
 pytestmark = pytest.mark.cuda
 
@@ -362,3 +367,180 @@ def test_dense_redispatch_runs_k10(cuda, k):
         assert g[4] == w[4]
         for a, b in zip(g[1:3], w[1:3]):
             np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the device mesh: K11 (sharded_count.cu), K12 and K13 (sharded_member.cu),
+# K14 (scan_sorted.cu); the mesh's paths on logical shards of the card
+
+@pytest.mark.parametrize("k", [1, 2, 3, 31, 32])
+@pytest.mark.parametrize("name", SWIZZLE_EDGE_NAMES)
+def test_swizzle_kernel_edge_cases(cuda, name, k):
+    """K11 against its plain version on its edge chunks
+    (tests/torch_tables.py swizzle_edge_chunks)."""
+    codes = torch.from_numpy(swizzle_edge_chunks(k)[name]).to(cuda)
+    const = PSC.pick_swizzle_const(k)
+    before = PSC.swizzle_keys_cuda.launches
+    got = PSC.swizzle_keys_cuda(codes, k, const)
+    want = PSC._swizzle_keys_plain(codes, k, const)
+    torch.cuda.synchronize()
+    assert PSC.swizzle_keys_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_swizzle_kernel_matches_plain(cuda):
+    """K11 on a 2^20-base chunk of read codes joined by invalid bases."""
+    rng = np.random.default_rng(11)
+    codes = rng.integers(0, 4, (1 << 20) + 30, dtype=np.uint8)
+    codes[150::151] = 255
+    t = torch.from_numpy(codes).to(cuda)
+    const = PSC.pick_swizzle_const(31)
+    for g, w in zip(PSC.swizzle_keys_cuda(t, 31, const), PSC._swizzle_keys_plain(t, 31, const)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", MEMBER_EDGE_NAMES)
+def test_member_kernels_edge_cases(cuda, name):
+    """K12 (the route), then K13 (the probe on each owner, the scatter on
+    each source) against their plain versions, stage by stage, on n logical
+    shards of the card (tests/torch_tables.py member_edge_cases); then the
+    whole contains against np.isin."""
+    from mindthegap_tpu_torch.parallel import mesh as M
+
+    keys, q, n, cap_factor = member_edge_cases()[name]
+    mesh = [cuda] * n
+    sm = PSM.ShardedMembership(mesh, keys, cap_factor=cap_factor)
+    rows, cap = sm.batch(q)
+    routed = []
+    for j in range(n):
+        args = sm.route_args(j, rows, cap)
+        got, want = PSM.member_route_cuda(*args), PSM._route_plain(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        routed.append(got)
+    found = []
+    for o, recv in enumerate(M.exchange([r[0].reshape(n, cap) for r in routed], mesh)):
+        got = PSM.member_probe_cuda(recv, sm.shard_keys[o])
+        assert torch.equal(got, PSM._probe_plain(recv, sm.shard_keys[o]))
+        found.append(got.reshape(n, cap))
+    for d, back in enumerate(M.exchange(found, mesh)):
+        got = PSM.member_scatter_cuda(back, routed[d][1], rows.shape[1])
+        assert torch.equal(got, PSM._scatter_plain(back, routed[d][1], rows.shape[1]))
+    np.testing.assert_array_equal(sm.contains(q), np.isin(q, keys))
+
+
+@pytest.mark.parametrize("k", [2, 3, 21, 31, 32])
+@pytest.mark.parametrize("name", SORTED_EDGE_NAMES)
+def test_scan_sorted_kernel_edge_cases(cuda, name, k):
+    """K14 against its plain version on its edge windows
+    (tests/torch_tables.py sorted_edge_windows)."""
+    codes, solid, repeat = sorted_edge_windows(k)[name]
+    args = (torch.from_numpy(codes).to(cuda), *(torch.from_numpy(K.as_i64(s)).to(cuda) for s in (solid, repeat)), k)
+    before = S.scan_planes_sorted_cuda.launches
+    got, want = S.scan_planes_sorted_cuda(*args), S._scan_planes_sorted_plain(*args)
+    torch.cuda.synchronize()
+    assert S.scan_planes_sorted_cuda.launches == before + 1
+    for key in S.PLANE_KEYS:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+
+
+def test_entry_runs_k14(cuda):
+    """entry() on the card: its function is K14, equal to the plain pass."""
+    from mindthegap_tpu_torch import graft_entry as G
+
+    fn, args = G.entry()
+    assert all(a.is_cuda for a in args)
+    before = S.scan_planes_sorted_cuda.launches
+    got = fn(*args)
+    assert S.scan_planes_sorted_cuda.launches == before + 1
+    want = S._scan_planes_sorted_plain(*args, 31)
+    for key in S.PLANE_KEYS:
+        assert torch.equal(got[key], want[key]), key
+
+
+def _check_mesh_paths(mesh):
+    """On `mesh`: the sharded counter (K11) equals the host counter, also
+    when its capacity overflows; sharded membership (K12, K13) equals
+    np.isin; the dryrun's value checks pass."""
+    from mindthegap_tpu_torch import graft_entry as G
+    from mindthegap_tpu_torch.ops import counting as C
+    from mindthegap_tpu_torch.parallel import mesh as M
+
+    rng = np.random.default_rng(4)
+    genome = rng.integers(0, 4, 50_000, dtype=np.uint8)
+    reads = [genome[s : s + 150] for s in rng.integers(0, genome.size - 150, 2000)]
+    host = C.StreamingCounter(31)
+    for r in reads:
+        host.add_codes(r)
+    want = host.result()
+    for slack in (1.10, 0.0):
+        before = PSC.swizzle_keys_cuda.launches
+        sc = PSC.ShardedStreamingCounter(31, mesh, batch_bases=1 << 16, slack=slack)
+        for r in reads:
+            sc.add_codes(r)
+        got = sc.result()
+        assert PSC.swizzle_keys_cuda.launches > before
+        np.testing.assert_array_equal(got.kmers, want.kmers)
+        np.testing.assert_array_equal(got.counts, want.counts)
+        np.testing.assert_array_equal(got.histogram, want.histogram)
+    before = (PSM.member_route_cuda.launches, PSM.member_probe_cuda.launches, PSM.member_scatter_cuda.launches)
+    q = np.concatenate([want.kmers[::5], want.kmers[::7] ^ np.uint64(1)])
+    np.testing.assert_array_equal(PSM.ShardedMembership(mesh, want.kmers).contains(q), np.isin(q, want.kmers))
+    after = (PSM.member_route_cuda.launches, PSM.member_probe_cuda.launches, PSM.member_scatter_cuda.launches)
+    assert all(a == b + len(mesh) for a, b in zip(after, before))
+    with M.logical_devices(mesh):
+        G.dryrun_multichip(len(mesh))
+
+
+def test_mesh_paths_on_logical_shards(cuda):
+    """The mesh paths on 4 logical shards of the card."""
+    _check_mesh_paths([cuda] * 4)
+
+
+def test_mesh_paths_across_cards(cuda, tmp_path, monkeypatch):
+    """The mesh paths with shard j on cuda:j (every launch on its shard's
+    card), the sorted-set scan (K14) over the cards equal to its plain
+    pass, and `fill -fill-engine device`, whose walker takes the mesh of
+    every card by itself, writing the native fill's artifacts."""
+    from mindthegap_tpu_torch.fill.runner import run_fill
+    from mindthegap_tpu_torch.find.runner import run_find
+    from mindthegap_tpu_torch.parallel import mesh as M
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more (shard 1 on cuda:1)")
+    mesh = M.pow2_mesh(M.make_mesh("cuda"))
+    assert mesh[1] == torch.device("cuda", 1)
+    _check_mesh_paths(mesh)
+
+    rng = np.random.default_rng(5)
+    windows = rng.integers(0, 4, (2 * len(mesh), 4096), dtype=np.uint8)
+    windows[1, 100:140] = 255
+    solid = np.unique(rng.integers(0, 1 << 62, 1 << 14, dtype=np.uint64))
+    repeat = np.unique(rng.integers(0, 1 << 60, 1 << 8, dtype=np.uint64))
+    got = M.sharded_scan(mesh, windows, solid, repeat, 31)
+    for j, w in enumerate(windows):
+        sets = (torch.from_numpy(K.as_i64(a)) for a in (solid, repeat))
+        want = S._scan_planes_sorted_plain(torch.from_numpy(w), *sets, 31)
+        for key in S.PLANE_KEYS:
+            np.testing.assert_array_equal(got[key][j].view(np.int64) if key == "fwd" else got[key][j],
+                                          want[key].numpy(), err_msg=f"{key} of window {j}")
+
+    import chip_smoke as CS
+
+    ref, donor, _ = CS.make_case(40_000, n_ins=3, n_snp=1, n_del=1, seed=21)
+    monkeypatch.chdir(tmp_path)
+    CS.write_fasta("ref.fa", CS.CHROM, ref)
+    reads = CS.write_reads(str(tmp_path / "reads"), donor, 30.0, seed=22)
+    run_find({"in": reads, "ref": "ref.fa", "out": "t", "verbose": "0"}, out=io.StringIO())
+    walked = []
+    walk_shards = M.walk_shards
+    monkeypatch.setattr(M, "walk_shards", lambda mesh_, *a, **kw: walked.append(mesh_) or walk_shards(mesh_, *a, **kw))
+    for out, extra in (("tn", {}), ("td", {"fill-engine": "device"})):
+        run_fill(dict({"graph": "t.h5", "bkpt": "t.breakpoints", "out": out, "verbose": "0"}, **extra),
+                 out=io.StringIO())
+    assert walked and all(m == mesh for m in walked)
+    for ext in ("insertions.fasta", "insertions.vcf", "info.txt"):
+        drop = ("##filedate", "##REF")
+        tn, td = ([line for line in open(f"{p}.{ext}") if not line.startswith(drop)] for p in ("tn", "td"))
+        assert tn and tn == td, ext

@@ -192,17 +192,12 @@ def test_fill_device_engine_without_gpu_raises(runs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-scan-engine", "sharded"],
-    ["-scan-engine", "sharded-mem"],
-    ["-count-engine", "sharded"],
     ["-profile-trace", "trace_dir"],
-    ["-kmer-size", "257"],
 ], ids=lambda e: " ".join(f"{a}={b}" for a, b in zip(e[0::2], e[1::2])))
 def test_unported_find_options_raise(runs, tmp_path, extra):
-    """What find does not run yet raises before the graph build: the
-    sharded engines, the trace, and k above 256 (where the JAX package
-    takes its host scan into the Python automaton). The plane path's
-    engines run (tests/test_torch_plane_path.py)."""
+    """What find does not run yet raises before the graph build: the trace.
+    The mesh engines run (test_mesh_engines_match_jax), and so does k above
+    256 (test_find_above_k256_matches_jax)."""
     root, _ = runs
     opts = {"in": str(root / "reads_1.fa"), "ref": str(root / "ref.fa"), "out": "u", "device": "cpu"}
     opts.update((name.lstrip("-"), value) for name, value in zip(extra[0::2], extra[1::2]))
@@ -228,3 +223,135 @@ def test_find_without_gpu_raises(runs, tmp_path, monkeypatch):
     with _cwd(tmp_path), contextlib.redirect_stdout(report):
         rc = cli.main(["find", "-graph", str(root / "port" / "t.h5"), "-ref", str(root / "ref.fa"), "-out", "u"])
     assert rc == 1 and "no CUDA device" in report.getvalue()
+
+
+# the mesh engines: on the CPU the port's mesh is logical shards of the CPU
+# (parallel/mesh.py logical_devices), the JAX package's its 8 virtual devices
+MESH_CASES = {  # case: (logical shards, options)
+    "s": (2, {"scan-engine": "sharded"}),
+    "sh": (2, {"scan-engine": "sharded", "automaton": "host"}),
+    "sm": (4, {"scan-engine": "sharded-mem"}),
+    "sm1": (1, {"scan-engine": "sharded-mem"}),  # one shard: still routed, no host scan
+    "sa": (4, {"scan-engine": "auto", "scan-memory": "1"}),  # the pair map (~4 MB) is over 1 MB: rerouted
+    "c": (2, {"count-engine": "sharded"}),
+}
+JAX_MESH_CASES = {"s": {"scan-engine": "sharded"}, "sm": {"scan-engine": "sharded-mem"},
+                  "c": {"count-engine": "sharded", "scan-engine": "host"}}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(runs):
+    """The mesh engines of find on the main path's graph (the count engine on
+    its reads) and `fill -fill-engine device` over the walker's mesh, in the
+    port and in the JAX package; {case: the sharded-membership batches the
+    port routed}."""
+    import torch
+
+    from mindthegap_tpu_torch.parallel import mesh as M
+    from mindthegap_tpu_torch.parallel.sharded_membership import ShardedMembership
+
+    root, _ = runs
+    routed = {}
+    orig = ShardedMembership.contains
+    try:
+        with _cwd(root / "port"):
+            for case, (n, extra) in MESH_CASES.items():
+                src = {"in": _reads_arg(root)} if case == "c" else {"graph": "t.h5"}
+                routed[case] = []
+                ShardedMembership.contains = (lambda self, keys, _r=routed[case]:
+                                              _r.append(keys.size) or orig(self, keys))
+                with M.logical_devices([torch.device("cpu")] * n):
+                    port_find(dict({"ref": str(root / "ref.fa"), "out": case, "verbose": "0", "device": "cpu"},
+                                   **src, **extra), out=io.StringIO())
+            ShardedMembership.contains = orig
+            with M.logical_devices([torch.device("cpu")] * 4):
+                port_fill({"graph": "t.h5", "bkpt": "t.breakpoints", "out": "tfm", "fill-engine": "device",
+                           "device": "cpu", "verbose": "0"}, out=io.StringIO())
+    finally:
+        ShardedMembership.contains = orig
+    with _cwd(root / "jax"):
+        for case, extra in JAX_MESH_CASES.items():
+            src = {"in": _reads_arg(root)} if case == "c" else {"graph": "t.h5"}
+            jax_find(dict({"ref": str(root / "ref.fa"), "out": case, "verbose": "0"}, **src, **extra),
+                     out=io.StringIO())
+    return root, routed
+
+
+@pytest.mark.parametrize("ext", ["breakpoints", "othervariants.vcf"])
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_mesh_engines_match_jax(mesh_runs, case, ext):
+    """Each mesh engine writes the JAX run's artifacts (its own mesh engine's
+    where the JAX package runs the same case, and its default run's) and the
+    port's default run's, byte for byte (the VCF apart from ##filedate, and
+    ##SAMPLE, which names the input)."""
+    root, _ = mesh_runs
+    drop = ("##filedate", "##SAMPLE")
+    got = _read(root, "port", f"{case}.{ext}", drop)
+    assert got and got == _read(root, "port", f"t.{ext}", drop) == _read(root, "jax", f"t.{ext}", drop)
+    if case in JAX_MESH_CASES:
+        assert got == _read(root, "jax", f"{case}.{ext}", drop)
+
+
+def test_sharded_mem_routes_its_queries(mesh_runs):
+    """sharded-mem (on 4 shards and on one), and auto over a tiny
+    -scan-memory on a mesh of 4 shards, route their membership through
+    ShardedMembership (a silent host scan would make the parity above
+    vacuous); the sharded scan does not."""
+    _, routed = mesh_runs
+    for case in ("sm", "sm1", "sa"):
+        assert len(routed[case]) > 0 and sum(routed[case]) > 0, case
+    assert routed["s"] == []
+
+
+def test_sharded_count_graph_identical(mesh_runs):
+    """-count-engine sharded writes the host-count graph byte for byte, and
+    the JAX sharded counter's keys and counts."""
+    from mindthegap_tpu_torch.graph.dbg import Graph
+
+    root, _ = mesh_runs
+    assert (root / "port" / "c.h5").read_bytes() == (root / "port" / "t.h5").read_bytes()
+    got, want = Graph.load(str(root / "port" / "c.h5")), Graph.load(str(root / "jax" / "c.h5"))
+    assert got.info == want.info
+    np.testing.assert_array_equal(got.solid.keys, want.solid.keys)
+    np.testing.assert_array_equal(got.solid.counts, want.solid.counts)
+
+
+@pytest.mark.parametrize("ext", ["insertions.fasta", "insertions.vcf", "info.txt"])
+def test_mesh_fill_matches_jax(mesh_runs, ext):
+    """fill -fill-engine device with the walker's lanes over a mesh of 4
+    logical shards writes the JAX native fill's artifacts."""
+    root, _ = mesh_runs
+    drop = ("##filedate", "##REF")
+    got = _read(root, "port", f"tfm.{ext}", drop)
+    assert got and got == _read(root, "jax", f"tf.{ext}", drop)
+
+
+def test_find_above_k256_matches_jax(tmp_path):
+    """find at k = 257: the host scan into the Python automaton, as in the
+    JAX package, on a small genome read by 600 bp reads; the artifacts equal
+    the JAX run's."""
+    ref, donor, _ = CS.make_case(12_000, n_ins=2, n_snp=1, n_del=1, seed=31)
+    CS.write_fasta(str(tmp_path / "ref.fa"), CS.CHROM, ref)
+    rng = np.random.default_rng(32)
+    with open(tmp_path / "reads.fa", "wb") as f:
+        for s in rng.integers(0, donor.size - 600, 30 * donor.size // 600):
+            f.write(b">r\n" + CS.NUC[donor[s : s + 600]].tobytes() + b"\n")
+    opts = {"in": str(tmp_path / "reads.fa"), "ref": str(tmp_path / "ref.fa"), "out": "t", "verbose": "0",
+            "kmer-size": "257", "abundance-min": "3"}
+    for name, find, extra in (("jax", jax_find, {}), ("port", port_find, {"device": "cpu"})):
+        (tmp_path / name).mkdir()
+        with _cwd(tmp_path / name):
+            find(dict(opts, **extra), out=io.StringIO())
+    for ext in ("breakpoints", "othervariants.vcf"):
+        assert _read(tmp_path, "port", f"t.{ext}") == _read(tmp_path, "jax", f"t.{ext}")
+    assert any(line.startswith(">") for line in _read(tmp_path, "port", "t.breakpoints"))
+
+
+def test_multi_process_init_raises():
+    """A run across processes is not yet ported: init_distributed raises,
+    with a coordinator named or without one."""
+    from mindthegap_tpu_torch.parallel import distributed as D
+
+    for args in ((), ("localhost:1234", 2, 0)):
+        with pytest.raises(NotYetPorted):
+            D.init_distributed(*args)

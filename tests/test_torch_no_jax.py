@@ -1,7 +1,9 @@
 """The port never imports jax: with jax blocked, every module of
 mindthegap_tpu_torch imports (the plane path's find/scan.py, automaton.py
-and observers.py among them), and a small find + fill and a find through
-the plane path into the Python automaton run on the CPU."""
+and observers.py among them), and a small find + fill, a find through
+the plane path into the Python automaton and finds with the mesh engines
+(`-scan-engine sharded` and `sharded-mem` on 2 logical shards) run on the
+CPU."""
 
 import subprocess
 import sys
@@ -38,6 +40,13 @@ SCRIPT = textwrap.dedent("""
         assert cli.main(["find", "-graph", "t.h5", "-ref", "ref.fa", "-out", "p", "-device", "cpu",
                          "-verbose", "0", "-scan-engine", "device-qb", "-automaton", "host"]) == 0
     assert open("p.breakpoints").read() == open("t.breakpoints").read()
+    # the mesh engines on 2 logical CPU shards
+    from mindthegap_tpu_torch.parallel import mesh as M
+    with M.logical_devices(["cpu", "cpu"]), contextlib.redirect_stdout(io.StringIO()):
+        for engine in ("sharded", "sharded-mem"):
+            assert cli.main(["find", "-graph", "t.h5", "-ref", "ref.fa", "-out", engine, "-device", "cpu",
+                             "-verbose", "0", "-scan-engine", engine]) == 0
+            assert open(engine + ".breakpoints").read() == open("t.breakpoints").read(), engine
     filled = CS.filled_insertions("tf.insertions.fasta")
     assert CS.insertion_recall(ins, filled) == 1.0, filled
     print("imported", len(names), "modules; jax loaded:", sys.modules["jax"] is not None)

@@ -6,7 +6,8 @@ deletions and an N run in the reference); the port then runs `find -graph
 (`-scan-engine host`), the cuckoo map (`device`, K8's plain version), the
 bucket map (`device-qb`, K9's) and the Python automaton (`-automaton
 host`: the pair map's dense stream, K10's plain version, then
-planes_from_pay; at k = 45 the span scan, then planes_from_pay_span), and
+planes_from_pay; at k = 45 the span scan, then planes_from_pay_span, on
+one device and, `-scan-engine sharded`, over 2 logical shards), and
 must write the JAX run's `.breakpoints` and VCF records byte for byte (the
 VCF headers apart from ##filedate and ##SAMPLE, which names the input).
 The JAX run is its host scan into its native automaton, which the JAX
@@ -22,13 +23,17 @@ import pytest
 import chip_smoke as CS
 from mindthegap_tpu.find.runner import run_find as jax_find
 from mindthegap_tpu_torch.find.runner import run_find as port_find
+from mindthegap_tpu_torch.parallel import mesh as PM
 
 CASES = {
     31: {"host": {"scan-engine": "host"}, "device": {"scan-engine": "device"},
          "device-qb": {"scan-engine": "device-qb"}, "automaton-host": {"automaton": "host"},
          "automaton-host-device-qb": {"automaton": "host", "scan-engine": "device-qb"}},
     45: {"host": {"scan-engine": "host"}, "device-qb": {"scan-engine": "device-qb"},
-         "automaton-host": {"automaton": "host"}},
+         "automaton-host": {"automaton": "host"},
+         # the span map over a mesh of 2 logical CPU shards: K6's plain version on each shard
+         "sharded": {"scan-engine": "sharded"},
+         "sharded-automaton-host": {"scan-engine": "sharded", "automaton": "host"}},
 }
 GENOME = {31: 100_000, 45: 50_000}  # k = 45 counts on the host (~0.7 ms a read): a smaller case
 
@@ -62,8 +67,10 @@ def runs(tmp_path_factory):
                 find(dict(common, **extra), out=io.StringIO())
         with _cwd(root / "port"):
             for case, extra in cases.items():
-                port_find(dict({"graph": "t.h5", "ref": str(root / "ref.fa"), "out": case, "verbose": "0",
-                                "device": "cpu"}, **extra), out=io.StringIO())
+                mesh = PM.logical_devices(["cpu"] * 2) if case.startswith("sharded") else contextlib.nullcontext()
+                with mesh:
+                    port_find(dict({"graph": "t.h5", "ref": str(root / "ref.fa"), "out": case, "verbose": "0",
+                                    "device": "cpu"}, **extra), out=io.StringIO())
         out[k] = root
     return out
 

@@ -187,22 +187,26 @@ def test_run_jobs_batched_interleaves():
 
 
 def test_span_and_mesh_walkers_raise():
-    """The device mesh raises "not yet ported"; a span map (k > 32) now
-    gives a span-mode walker instead of raising."""
-    from mindthegap_tpu_torch import NotYetPorted
+    """Neither walker raises any more: a mesh (here 4 logical CPU shards)
+    gives a k <= 32 walker whose lanes ride the shards, with the walks of
+    the walker on one device; a span map (k > 32) gives a span-mode walker,
+    which rides one device even when a mesh is given, as in the JAX
+    package."""
     from mindthegap_tpu_torch.ops.span import Span
 
     solid = _random_solid(3, 15)
     qm = _table("cuckoo", solid, 15)
-    with pytest.raises(NotYetPorted):
-        PW.BatchWalker(qm, 15, "cpu", mesh=object())
+    mesh = [torch.device("cpu")] * 4
+    walker = PW.BatchWalker(qm, 15, "cpu", mesh=mesh, min_lanes=2)
+    assert walker.mesh == mesh and walker.min_lanes == 4
+    requests = [(int(node), 40 + 7 * i) for i, node in enumerate(solid[:13])]
+    assert walker.walk_many(requests) == PW.BatchWalker(qm, 15, "cpu").walk_many(requests)
     sp = Span(45)
     rows, _ = sp.from_codes(np.random.default_rng(3).integers(0, 4, 500, dtype=np.uint8))
     qms = PX.build_fused_span(sp.canonical(rows), 45, np.zeros((0, 2), np.uint64))
     walker = PW.BatchWalker(qms, 45, "cpu")
     assert walker.layout == "span" and walker.wk == 2
-    with pytest.raises(NotYetPorted):
-        PW.BatchWalker(qms, 45, "cpu", mesh=object())
+    assert PW.BatchWalker(qms, 45, "cpu", mesh=mesh).mesh is None
 
 
 def test_walk_kernel_wrapper_takes_cuda_tensors_only():

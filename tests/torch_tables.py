@@ -418,3 +418,101 @@ def plane_edge_windows(k: int, layout: str, seed: int = 0):
     }
     assert tuple(cases) == PLANE_EDGE_NAMES
     return qm, cases
+
+
+# ---------------------------------------------------------------------------
+# the device mesh: K11's chunks, K12's and K13's key sets and queries, K14's
+# windows over sorted sets
+
+SWIZZLE_EDGE_NAMES = ("reads-ns", "one-window", "all-invalid", "n-at-ends")
+
+
+def swizzle_edge_chunks(k: int, seed: int = 0):
+    """{name: codes u8} for K11 at this k (1 to 32): 5,000 bases of read
+    codes joined by invalid bases with N runs across the kernel's 1,024-window
+    tiles; a chunk of exactly k bases (one window); a chunk of invalid bases
+    only; Ns as the first and last bases of a chunk one tile and a few
+    windows long."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, 5000, dtype=np.uint8)
+    reads[150::151] = 255
+    for lo in (1000, 2040, 3070):
+        reads[lo : lo + 10] = 255
+    ends = rng.integers(0, 4, 1024 + k + 5, dtype=np.uint8)
+    ends[0] = ends[-1] = 255
+    cases = {
+        "reads-ns": reads,
+        "one-window": rng.integers(0, 4, k, dtype=np.uint8),
+        "all-invalid": np.full(600, 255, np.uint8),
+        "n-at-ends": ends,
+    }
+    assert tuple(cases) == SWIZZLE_EDGE_NAMES
+    return cases
+
+
+MEMBER_EDGE_NAMES = ("mixed", "empty-set", "key-at-bound", "high-keys", "one-shard", "overflow", "one-lane")
+
+
+def member_edge_cases(seed: int = 0):
+    """{name: (sorted keys u64, queries u64, shards, cap_factor)} for K12 and
+    K13 through ShardedMembership: present and absent keys on 4 shards; an
+    empty key set; queries equal to each shard's first key (an owner bound)
+    and its neighbours; keys and queries above 2^63 (unsigned order: the
+    owner bounds negative as int64); one shard; a capacity of 64 (overflow,
+    the host route); a single query (lanes padded with the SENTINEL)."""
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, 1 << 62, 5000, dtype=np.uint64))
+    mixed = np.concatenate([rng.choice(keys, 3000), rng.integers(0, 1 << 62, 3000, dtype=np.uint64)])
+    rng.shuffle(mixed)
+    per = -(-keys.size // 4)
+    bounds = keys[::per]
+    one = np.uint64(1)
+    at_bound = np.concatenate([bounds, bounds - one, bounds + one, keys[-1:], keys[-1:] + one])
+    high = np.unique(rng.integers(0, 1 << 64, 5000, dtype=np.uint64))
+    high_q = np.concatenate([rng.choice(high, 2000), rng.integers(0, 1 << 64, 2000, dtype=np.uint64), high[::1250]])
+    cases = {
+        "mixed": (keys, mixed, 4, 1.25),
+        "empty-set": (np.zeros(0, np.uint64), mixed[:500], 4, 1.25),
+        "key-at-bound": (keys, at_bound, 4, 1.25),
+        "high-keys": (high, high_q, 4, 1.25),
+        "one-shard": (keys, mixed, 1, 1.25),
+        "overflow": (keys, mixed, 4, 0.0),
+        "one-lane": (keys, keys[7:8], 4, 1.25),
+    }
+    assert tuple(cases) == MEMBER_EDGE_NAMES
+    return cases
+
+
+SORTED_EDGE_NAMES = ("genome-ns", "empty-solid", "empty-repeat", "all-invalid", "shortest")
+
+
+def sorted_edge_windows(k: int, seed: int = 0):
+    """{name: (codes u8, solid, repeat: sorted u64 sets)} for K14 at k (2
+    to 32): 3,000 bases of a genome whose k-mers make the
+    solid set (every third one left out, and 200 random keys added), its
+    every 7th (k-1)-mer the repeat set, with N runs across the kernel's
+    256-position blocks; the same window over an empty solid set and over an
+    empty repeat set; a window of invalid bases; a window of k bases."""
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 4000, dtype=np.uint8)
+    fwd, _ = K.kmers_from_codes(genome, k)
+    top = np.uint64(1 << 63) if k == 32 else np.uint64(1 << (2 * k)) - np.uint64(1)
+    extra = rng.integers(0, int(top), 200, dtype=np.uint64)
+    solid = np.unique(np.concatenate([K.canonical_u64(np.delete(fwd, np.s_[::3]), k), K.canonical_u64(extra, k)]))
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    repeat = np.unique(K.canonical_u64(rfwd[::7], k - 1))
+    window = genome[500:3500].copy()
+    for lo in (250, 510, 1020):
+        window[lo : lo + 9] = 255
+    empty = np.zeros(0, np.uint64)
+    cases = {
+        "genome-ns": (window, solid, repeat),
+        "empty-solid": (window, empty, repeat),
+        "empty-repeat": (window, solid, empty),
+        "all-invalid": (np.full(300, 255, np.uint8), solid, repeat),
+        "shortest": (genome[1000 : 1000 + k].copy(), solid, repeat),
+    }
+    assert tuple(cases) == SORTED_EDGE_NAMES
+    return cases
