@@ -32,17 +32,20 @@ Phases, each of which must pass (any failure exits non-zero):
      10,000 and 2,048 steps at 4,096, 128 and 1 lanes (each at the
      look-ahead depth its rule picks), and on its edge cases at k 33 to 256
      at every depth; K11 on one 2^23-base flush of the reads, whole and
-     cut in 4 logical shards' chunks; K12 and K13 (the route, the owner's
+     cut in 4 logical shards' chunks (its edge chunks also as views at an
+     odd byte offset); K12 and K13 (the route, the owner's
      probe, the scatter back) on the nine membership queries of 2^20
      reference positions over the solid set on 4 logical shards of the
-     card, and once with the capacity forced to overflow (the host route);
+     card, and once with the capacity forced to overflow (the host route),
+     with K12's launches timed apart (torch.profiler) and its bitset loads
+     counted;
      K14 on a 2^22-base window over the sorted solid set and a repeat set,
      and at entry()'s shapes; the sharded counter on 4 logical shards with
      its capacity forced to overflow, against the host counter. The edge cases
      come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
      merge_edge_cases, edge_walk_case, span_edge_windows,
      edge_walk_span_case, plane_edge_windows, swizzle_edge_chunks,
-     member_edge_cases, sorted_edge_windows), the generators the CUDA tests use, so the smoke and
+     member_edge_cases, route_edge_cases, sorted_edge_windows), the generators the CUDA tests use, so the smoke and
      tests/test_torch_cuda.py check the same inputs; the script needs the
      checkout's tests/ directory for them.
      Each kernel's bound is the
@@ -1257,13 +1260,14 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
     import torch
 
     from mindthegap_tpu_torch import graft_entry as G
-    from mindthegap_tpu_torch.bounds import bytes_ms
+    from mindthegap_tpu_torch.bounds import bloom_probe_loads
+    from mindthegap_tpu_torch.device import stage_ms
     from mindthegap_tpu_torch.find import scan_device as S
     from mindthegap_tpu_torch.ops import counting as CNT
     from mindthegap_tpu_torch.ops import kmers as K
     from mindthegap_tpu_torch.parallel import sharded_count as SC
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
-    from torch_tables import member_edge_cases, sorted_edge_windows, swizzle_edge_chunks
+    from torch_tables import member_edge_cases, route_edge_cases, sorted_edge_windows, swizzle_edge_chunks
 
     cuda = torch.device("cuda")
     out = {}
@@ -1290,12 +1294,16 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
         ec = SC.pick_swizzle_const(ek)
         for name, codes in swizzle_edge_chunks(ek).items():
             t = torch.from_numpy(codes).to(cuda)
-            errs.append(_max_abs_err(zip(SC.swizzle_keys_cuda(t, ek, ec), SC._swizzle_keys_plain(t, ek, ec))))
+            odd = torch.empty(t.numel() + 1, dtype=torch.uint8, device=cuda)
+            odd[1:] = t  # a view at an odd byte offset: every unit staged byte by byte
+            want = SC._swizzle_keys_plain(t, ek, ec)
+            for view in (t, odd[1:]):
+                errs.append(_max_abs_err(zip(SC.swizzle_keys_cuda(view, ek, ec), want)))
     torch.cuda.synchronize()
     out["swizzle_keys"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound}
     print(f"K11: a 2^23-base flush, k {k}, max_abs_err {max(errs)} over it, its {MESH_SHARDS} chunks and the edge "
-          f"chunks at k 1, 2, 3, 31, 32 (tolerance 0: exact); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound['bound_ms']:.4f} ms (bytes)")
+          f"chunks at k 1, 2, 3, 31, 32, each also at an odd byte offset (tolerance 0: exact); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms (bytes)")
 
     # K12 / K13: the nine membership queries of MEMBER_POSITIONS positions, as sharded-mem sends them
     fwd, _ = K.kmers_from_codes(ref[: MEMBER_POSITIONS + k - 1], k)
@@ -1336,7 +1344,7 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
     if not over_flag or not np.array_equal(over.contains(q[: 1 << 18]), np.isin(q[: 1 << 18], solid)):
         raise AssertionError("the forced overflow of sharded membership did not overflow, or its host route erred")
     edge_errs = [over_err]
-    for name, (ekeys, eq, en, ecf) in member_edge_cases().items():
+    for name, (ekeys, eq, en, ecf) in {**member_edge_cases(), **route_edge_cases()}.items():
         esm = SM.ShardedMembership([cuda] * en, ekeys, cap_factor=ecf)
         erows, ecap = esm.batch(eq)
         edge_errs.append(_member_stages(esm, erows, ecap)[0])
@@ -1350,6 +1358,12 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
               f"{name} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
               for name, r in out.items() if name.startswith("member_"))
           + f"; torch.searchsorted + gather + compare {library['member_probe']:.4f} ms")
+    queries, bits, log_bits, n_hash = route_args[:4]
+    loads = bloom_probe_loads(bits, log_bits, n_hash, queries)
+    stages = stage_ms(lambda: SM.member_route_cuda(*route_args), iters=10)
+    print("K12 by launch (torch.profiler, device ms a call): "
+          + ", ".join(f"{name} {t:.4f}" for name, t in stages.items())
+          + f"; {loads} bitset loads, {loads / out['member_route']['ms'] / 1e6:.1f} G sectors/s")
 
     # K14: a 2^22-base window over the sorted sets, and entry()'s shapes
     rfwd, _ = K.kmers_from_codes(ref, k - 1)

@@ -112,3 +112,20 @@ def plane_scan_sectors(packed: torch.Tensor, badbits: torch.Tensor, qm, k: int) 
         return keys.shape[0] * 128 // SECTOR_BYTES
     in_first, _ = X.q_probe(qm, keys, 0)
     return keys.shape[0] + int((~in_first).sum())
+
+
+def bloom_probe_loads(bits: torch.Tensor, log_bits: int, n_hash: int, queries: torch.Tensor) -> int:
+    """The bitset loads K12 issues for these query lanes (bits and queries
+    as member_route takes them), a hash a round: every hash of a
+    Bloom-positive query; of a negative one, its hashes up to and with its
+    first zero bit."""
+    from .ops.bloom import _CONSTS
+
+    loads = torch.full(queries.shape, n_hash, dtype=torch.int64, device=queries.device)
+    for i, c in reversed(list(enumerate(_CONSTS[:n_hash]))):
+        h = (queries ^ K.shr(queries, 33)) * K.i64(c)
+        h = h ^ K.shr(h, 29)
+        pos = K.shr(h, 64 - log_bits)
+        unset = ((bits[K.shr(pos, 5)] >> (pos & 31).to(torch.int32)) & 1) == 0
+        loads = torch.where(unset, i + 1, loads)
+    return int(loads.sum())

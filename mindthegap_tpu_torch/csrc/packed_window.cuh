@@ -81,6 +81,57 @@ __device__ __forceinline__ void stage(const uint8_t* __restrict__ packed, const 
     }
 }
 
+// 16 base codes (bytes in {0, 1, 2, 3, 255}, 255 = invalid) as the staged
+// streams hold them: (32 bits of 2-bit codes, first base lowest; 16 bad
+// bits, first base lowest). An invalid base keeps code 3 (255 & 3): every
+// window that reads it is bad.
+__device__ __forceinline__ void pack16(uint4 v, uint32_t& code, uint32_t& bad16) {
+    const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+    code = 0, bad16 = 0;
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+        uint32_t t = x[i] & 0x03030303u;                 // the low two bits of each byte
+        t |= t >> 6;                                     // bytes 0, 1 in bits 0-3; bytes 2, 3 in bits 16-19
+        code |= ((t & 0xFu) | ((t >> 12) & 0xF0u)) << (8 * i);
+        const uint32_t m = (__vcmpeq4(x[i], 0xFFFFFFFFu) & 0x80808080u) >> 7;  // a bit at 0, 8, 16, 24
+        bad16 |= ((m * 0x01020408u) >> 24 & 0xFu) << (4 * i);                    // gathered to bits 0-3
+    }
+}
+
+// Stage bases [b0, b0 + 16 * n_units) of n u8 codes, b0 % 16 == 0, one
+// unit of 16 bases per thread: one 16-byte load where the unit lies inside
+// the codes and the pointer is 16-byte aligned, else byte by byte (255
+// outside [0, n)). s_code as stage() leaves it (but for an invalid base's
+// code, see pack16), s_bad as n_units / 2 words. The caller synchronises
+// the block before reading.
+__device__ __forceinline__ void stage_codes(const uint8_t* __restrict__ codes, int64_t n, int64_t b0, int n_units,
+                                            bool aligned, uint32_t* s_code, uint32_t* s_bad)
+{
+    uint16_t* s_bad16 = reinterpret_cast<uint16_t*>(s_bad);
+    for (int u = threadIdx.x; u < n_units; u += blockDim.x) {
+        const int64_t q = b0 + 16 * (int64_t)u;
+        uint4 v;
+        if (aligned && q + 16 <= n) {
+            v = __ldg(reinterpret_cast<const uint4*>(codes + q));
+        } else {
+            uint32_t w[4];
+            for (int i = 0; i < 4; i++) {
+                uint32_t x = 0;
+                for (int j = 0; j < 4; j++) {
+                    const int64_t p = q + 4 * i + j;
+                    x |= (uint32_t)(p < n ? codes[p] : 255) << (8 * j);
+                }
+                w[i] = x;
+            }
+            v = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+        uint32_t code, bad16;
+        pack16(v, code, bad16);
+        s_code[u] = code;
+        s_bad16[u] = (uint16_t)bad16;
+    }
+}
+
 // 64 bits of a staged stream from bit `bit` on (three word loads, two funnel shifts)
 __device__ __forceinline__ u64 bits64(const uint32_t* s, int bit) {
     const int i = bit >> 5, sh = bit & 31;

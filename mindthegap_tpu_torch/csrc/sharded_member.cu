@@ -21,11 +21,6 @@
 //   to [0, n); a negative has none. Out: per owner o, cap slots of
 //   (query, lane), the owner's positives in ascending lane order, padded
 //   with (SENTINEL, -1); overflow = 1 when an owner has more than cap.
-//   Three launches: route_count (the owner of each lane and per-owner
-//   counts of each 256-lane tile), route_scan (one block per owner: the
-//   exclusive scan of its tile counts, its total against cap, its padding),
-//   route_place (each positive's rank: its tile's offset, the counts of the
-//   warps before it, its rank among its warp's peers by __match_any_sync).
 // K13, on the owner: each received query's lower bound in the shard's
 //   sorted keys, then equality (member_probe); on the source, the verdicts
 //   that came back in slot order written to their lanes (member_scatter).
@@ -36,9 +31,37 @@
 // Each Bloom probe and each binary-search step is a random 32-byte sector
 // when the bitset or the shard is above the 50 MB L2.
 //
-// The design is the simple one: a thread a lane or a slot; the owner's
-// bounds and the tile's per-warp counts in shared memory; the search is
-// a plain lower bound with its loads in order.
+// K12's design, one pass over the lanes:
+//   - The padding is a fill: (SENTINEL, -1) is all-ones bytes in both
+//     buffers, so two memsets write every slot before the pass, and the
+//     pass writes only the positives.
+//   - A block of 256 threads takes a tile of 2,048 lanes, its tile id from
+//     an atomic counter in launch order; a thread takes 8 lanes, 256 apart,
+//     so that the tile's 64 groups of 32 lanes (a warp's r-th lanes) run
+//     in lane order.
+//   - Probes in flight: a round issues one hash's Bloom load for each of a
+//     thread's live lanes before it tests any, and drops a lane at its
+//     first zero bit, so most absent queries stop after one or two rounds.
+//     The loads are the pass's cost: they ran at 80-90 G a second on the
+//     card whether a round issued one hash, four or all eight, and one a
+//     round issues the fewest (18.8 M on the measured shard below, against
+//     24.4 M and 33.6 M) and was the fastest (0.235 ms, against 0.295 and
+//     0.374).
+//   - Ranks by owner: a group counts its lanes per owner with
+//     __match_any_sync (a lane's rank among its peers), a warp an owner
+//     scans the 64 groups' counts into offsets in the tile, and a decoupled
+//     look-back (Merrill and Garland's single-pass scan, as in K1 and K4;
+//     each tile's state and count for an owner in one 64-bit word) gives
+//     the owner's positives in the tiles before. So ranks ascend with the
+//     lane, as the stable argsort's do; a tile whose prefix crosses cap
+//     sets the overflow flag.
+//   - Nothing but the outputs and 8 bytes of look-back state a tile and
+//     owner goes to device memory; the queries are read once.
+// Measured on an H100 80GB HBM3 at 700 W (kernel_bench.py, a shard of
+// 2^22 lanes over 4 owners, 1.84 M positives): 0.235 ms, of which the
+// memsets 0.021 and the pass 0.201.
+// K13 is the simple design: a thread a slot; the search is a plain lower
+// bound with its loads in order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -48,32 +71,45 @@ namespace {
 using u64 = unsigned long long;
 
 constexpr u64 SENTINEL = ~0ull;
-constexpr int TILE = 256;  // route_count and route_place: a thread a lane
-constexpr int WARPS = TILE / 32;
+constexpr int THREADS = 256, WARPS = THREADS / 32, PER = 8, TILE = THREADS * PER;
+constexpr int GROUPS = TILE / 32;  // a tile's groups of 32 lanes, in lane order: group r * WARPS + warp
 constexpr int MAX_SHARDS = 64;
-constexpr int SCAN_THREADS = 1024;
+constexpr u64 STATE_AGGREGATE = 1, STATE_INCLUSIVE = 2;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __constant__ u64 BLOOM_CONSTS[8] = {
     0x9E3779B97F4A7C15ull, 0xC2B2AE3D27D4EB4Full, 0xD6E8FEB86659FD93ull, 0xA0761D6478BD642Full,
     0xE7037ED1A0B428DBull, 0x8EBC6AF09C88C6E3ull, 0x589965CC75374CC3ull, 0x1D8E4E27C47D124Full,
 };
 
-__device__ __forceinline__ bool bloom_positive(u64 q, const uint32_t* __restrict__ bits, int log_bits,
-                                               int n_hash) {
-    bool pos = true;
-    for (int i = 0; i < n_hash; i++) {
-        u64 h = (q ^ (q >> 33)) * BLOOM_CONSTS[i];
-        h ^= h >> 29;
-        const u64 p = h >> (64 - log_bits);
-        pos &= (__ldg(bits + (p >> 5)) >> (p & 31)) & 1u;
-    }
-    return pos;
+// the bit of hash i of a query, from x = q ^ (q >> 33)
+__device__ __forceinline__ u64 bloom_bit(u64 x, int i, int shift) {
+    u64 h = x * BLOOM_CONSTS[i];
+    h ^= h >> 29;
+    return h >> shift;
 }
 
-// the lane's owner, or n for a Bloom negative
-__device__ __forceinline__ int owner_of(u64 q, const u64* s_bounds, int n, const uint32_t* bits, int log_bits,
-                                        int n_hash) {
-    if (!bloom_positive(q, bits, log_bits, n_hash)) return n;
+// The lanes of `live` (a bit a lane) that are Bloom-positive: round i
+// issues hash i of every live lane, then tests them.
+__device__ __forceinline__ uint32_t bloom_live(const u64 (&q)[PER], uint32_t live, const uint32_t* __restrict__ bits,
+                                               int log_bits, int n_hash) {
+    const int shift = 64 - log_bits;
+    u64 x[PER];
+#pragma unroll
+    for (int r = 0; r < PER; r++) x[r] = q[r] ^ (q[r] >> 33);
+    for (int i = 0; i < n_hash && live; i++) {
+        uint32_t w[PER];
+#pragma unroll
+        for (int r = 0; r < PER; r++) w[r] = live >> r & 1 ? __ldg(bits + (bloom_bit(x[r], i, shift) >> 5)) : ~0u;
+#pragma unroll
+        for (int r = 0; r < PER; r++)
+            if (!(w[r] >> (bloom_bit(x[r], i, shift) & 31) & 1)) live &= ~(1u << r);
+    }
+    return live;
+}
+
+// the owner of a positive query: the last bound <= q, clipped to 0
+__device__ __forceinline__ int owner_of(u64 q, const u64* s_bounds, int n) {
     int lo = 0, hi = n;  // the count of bounds <= q
     while (lo < hi) {
         const int mid = (lo + hi) >> 1;
@@ -82,94 +118,113 @@ __device__ __forceinline__ int owner_of(u64 q, const u64* s_bounds, int n, const
     return lo == 0 ? 0 : lo - 1;
 }
 
-__global__ void __launch_bounds__(TILE) route_count_kernel(
+__device__ __forceinline__ void publish(u64* state, u64 kind, unsigned count) {
+    atomicExch(state, (kind << 32) | count);
+}
+
+// states: n_tiles * n words (tile t, owner o at t * n + o), then the tile
+// counter; all 0 on entry. The send buffers hold all-ones bytes on entry.
+__global__ void __launch_bounds__(THREADS) route_kernel(
     const long long* __restrict__ queries, int64_t lanes, const uint32_t* __restrict__ bits, int log_bits,
-    int n_hash, const long long* __restrict__ bounds, int n, int* __restrict__ owners,
-    int* __restrict__ tile_counts)
+    int n_hash, const long long* __restrict__ bounds, int n, int64_t cap, long long* __restrict__ send_q,
+    int* __restrict__ send_lane, int* __restrict__ overflow, u64* states, unsigned* tile_counter)
 {
     __shared__ u64 s_bounds[MAX_SHARDS];
-    __shared__ int s_cnt[MAX_SHARDS + 1];
-    for (int i = threadIdx.x; i < n; i += TILE) s_bounds[i] = (u64)bounds[i];
-    for (int i = threadIdx.x; i <= n; i += TILE) s_cnt[i] = 0;
+    // owner o, group g at o * GROUPS + g: the group's count, then its offset in the tile
+    __shared__ __align__(16) int s_cnt[MAX_SHARDS * GROUPS];
+    __shared__ unsigned s_agg[MAX_SHARDS];     // the owner's positives in the tile
+    __shared__ int64_t s_before[MAX_SHARDS];   // the owner's positives in the tiles before
+    __shared__ unsigned s_tile;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid == 0) s_tile = atomicAdd(tile_counter, 1u);
+    for (int i = tid; i < n; i += THREADS) s_bounds[i] = (u64)bounds[i];
+    for (int i = tid; i < n * GROUPS; i += THREADS) s_cnt[i] = 0;
     __syncthreads();
-    const int64_t lane = (int64_t)blockIdx.x * TILE + threadIdx.x;
-    if (lane < lanes) {
-        const int o = owner_of((u64)queries[lane], s_bounds, n, bits, log_bits, n_hash);
-        owners[lane] = o;
-        atomicAdd(&s_cnt[o], 1);
+    const int64_t tile = s_tile, l0 = tile * TILE + tid;  // the thread's r-th lane: l0 + r * THREADS
+
+    u64 q[PER];
+    uint32_t live = 0;
+#pragma unroll
+    for (int r = 0; r < PER; r++) {
+        const int64_t l = l0 + r * THREADS;
+        q[r] = SENTINEL;
+        if (l < lanes) {
+            q[r] = (u64)queries[l];
+            live |= 1u << r;
+        }
+    }
+    live = bloom_live(q, live, bits, log_bits, n_hash);
+
+    int own[PER];  // owner (n: none) in the low 8 bits, rank among the group's peers above
+#pragma unroll
+    for (int r = 0; r < PER; r++) {
+        const int o = live >> r & 1 ? owner_of(q[r], s_bounds, n) : n;
+        const unsigned peers = __match_any_sync(FULL, o);
+        const int rank = __popc(peers & ((1u << lane) - 1));
+        if (rank == 0 && o < n) s_cnt[o * GROUPS + r * WARPS + warp] = __popc(peers);
+        own[r] = o | rank << 8;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < n; i += TILE) tile_counts[(int64_t)blockIdx.x * n + i] = s_cnt[i];
-}
 
-// one block per owner: exclusive scan of its tile counts (in place), its
-// total against cap, and the padding of its slots past the total
-__global__ void __launch_bounds__(SCAN_THREADS) route_scan_kernel(
-    int* __restrict__ tile_counts, int64_t n_tiles, int n, int64_t cap, long long* __restrict__ send_q,
-    int* __restrict__ send_lane, int* __restrict__ overflow)
-{
-    __shared__ int s_warp[SCAN_THREADS / 32];
-    __shared__ int64_t s_carry;
-    const int o = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (threadIdx.x == 0) s_carry = 0;
-    __syncthreads();
-    for (int64_t t0 = 0; t0 < n_tiles; t0 += SCAN_THREADS) {
-        const int64_t t = t0 + threadIdx.x;
-        const int v = t < n_tiles ? tile_counts[t * n + o] : 0;
-        int x = v;  // inclusive warp scan
+    // a warp an owner: its groups' offsets in the tile (two groups a lane)
+    // and its tile aggregate, published at once
+    for (int o = warp; o < n; o += WARPS) {
+        int2* c = reinterpret_cast<int2*>(s_cnt + o * GROUPS) + lane;
+        const int2 v = *c;
+        unsigned inc = v.x + v.y;
 #pragma unroll
         for (int d = 1; d < 32; d <<= 1) {
-            const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-            if (lane >= d) x += y;
+            const unsigned y = __shfl_up_sync(FULL, inc, d);
+            if (lane >= d) inc += y;
         }
-        if (lane == 31) s_warp[warp] = x;
-        __syncthreads();
-        if (warp == 0) {
-            int w = s_warp[lane];
+        *c = make_int2(inc - v.x - v.y, inc - v.y);
+        if (lane == 31) {
+            s_agg[o] = inc;
+            publish(&states[tile * n + o], tile == 0 ? STATE_INCLUSIVE : STATE_AGGREGATE, inc);
+        }
+    }
+    __syncwarp();
+    // then, by the same warps, each owner's positives before the tile
+    for (int o = warp; o < n; o += WARPS) {
+        const unsigned agg = s_agg[o];
+        unsigned prefix = 0;
+        if (tile > 0) {
+            u64* st = states + o;  // tile t's word at st[t * n]
+            for (int64_t t = tile - 1;; t -= 32) {
+                const int64_t ti = t - lane;  // lane 0 holds the latest tile of the window
+                u64 w = STATE_INCLUSIVE << 32;
+                if (ti >= 0) {
+                    do {
+                        w = *(volatile u64*)&st[ti * n];
+                    } while ((w >> 32) == 0);
+                }
+                const unsigned incl = __ballot_sync(FULL, (w >> 32) == STATE_INCLUSIVE);
+                const int stop = incl ? __ffs(incl) - 1 : 31;
+                unsigned x = lane <= stop ? (unsigned)w : 0;
 #pragma unroll
-            for (int d = 1; d < 32; d <<= 1) {
-                const int y = __shfl_up_sync(0xFFFFFFFFu, w, d);
-                if (lane >= d) w += y;
+                for (int d = 16; d >= 1; d >>= 1) x += __shfl_xor_sync(FULL, x, d);
+                prefix += x;
+                if (incl) break;
             }
-            s_warp[lane] = w;  // inclusive over warps
+            if (lane == 0) publish(&st[tile * n], STATE_INCLUSIVE, prefix + agg);
         }
-        __syncthreads();
-        const int64_t carry = s_carry;
-        const int before = (warp ? s_warp[warp - 1] : 0) + x - v;
-        if (t < n_tiles) tile_counts[t * n + o] = (int)(carry + before);
-        __syncthreads();
-        if (threadIdx.x == 0) s_carry = carry + s_warp[SCAN_THREADS / 32 - 1];
-        __syncthreads();
+        if (lane == 0) {
+            s_before[o] = prefix;
+            if (prefix <= cap && prefix + agg > cap) atomicExch(overflow, 1);  // the tile that crosses cap
+        }
     }
-    const int64_t total = s_carry;
-    if (threadIdx.x == 0 && total > cap) atomicExch(overflow, 1);
-    for (int64_t r = (total < cap ? total : cap) + threadIdx.x; r < cap; r += SCAN_THREADS) {
-        send_q[o * cap + r] = (long long)SENTINEL;
-        send_lane[o * cap + r] = -1;
-    }
-}
+    __syncthreads();
 
-__global__ void __launch_bounds__(TILE) route_place_kernel(
-    const long long* __restrict__ queries, int64_t lanes, const int* __restrict__ owners,
-    const int* __restrict__ tile_offsets, int n, int64_t cap, long long* __restrict__ send_q,
-    int* __restrict__ send_lane)
-{
-    __shared__ int s_wcnt[WARPS][MAX_SHARDS + 1];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int i = threadIdx.x; i < WARPS * (MAX_SHARDS + 1); i += TILE) (&s_wcnt[0][0])[i] = 0;
-    __syncthreads();
-    const int64_t q_lane = (int64_t)blockIdx.x * TILE + threadIdx.x;
-    const int o = q_lane < lanes ? owners[q_lane] : n;
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, o);
-    const int rank_in_warp = __popc(peers & ((1u << lane) - 1));
-    if (rank_in_warp == 0) s_wcnt[warp][o] = __popc(peers);
-    __syncthreads();
-    if (o >= n) return;
-    int rank = tile_offsets[(int64_t)blockIdx.x * n + o] + rank_in_warp;
-    for (int w = 0; w < warp; w++) rank += s_wcnt[w][o];
-    if (rank < cap) {
-        send_q[o * cap + rank] = queries[q_lane];
-        send_lane[o * cap + rank] = (int)q_lane;
+#pragma unroll
+    for (int r = 0; r < PER; r++) {
+        const int o = own[r] & 0xFF;
+        if (o < n) {
+            const int64_t rank = s_before[o] + s_cnt[o * GROUPS + r * WARPS + warp] + (own[r] >> 8);
+            if (rank < cap) {
+                send_q[o * cap + rank] = (long long)q[r];
+                send_lane[o * cap + rank] = (int)(l0 + r * THREADS);
+            }
+        }
     }
 }
 
@@ -200,26 +255,29 @@ __global__ void member_scatter_kernel(const uint8_t* __restrict__ back, const in
 
 }  // namespace
 
+// K12's lanes a tile (the wrapper sizes the look-back scratch by it)
+extern "C" int member_route_tile() { return TILE; }
+
 // K12. queries: lanes int64; bits: 2^(log_bits - 5) uint32; bounds: n int64;
-// owners: lanes int32 and tile_counts: ceil(lanes / 256) * n int32 (scratch);
 // send_q: n * cap int64, send_lane: n * cap int32; overflow: one int32, 0
-// on entry
+// on entry; states: ceil(lanes / member_route_tile()) * n + 1 words of
+// scratch
 extern "C" int member_route_launch(const void* queries, int64_t lanes, const void* bits, int log_bits,
-                                   int n_hash, const void* bounds, int n, int64_t cap, void* owners,
-                                   void* tile_counts, void* send_q, void* send_lane, void* overflow,
-                                   void* stream)
+                                   int n_hash, const void* bounds, int n, int64_t cap, void* send_q,
+                                   void* send_lane, void* overflow, void* states, void* stream)
 {
-    if (n < 1 || n > MAX_SHARDS || n_hash < 1 || n_hash > 8) return (int)cudaErrorInvalidValue;
+    if (n < 1 || n > MAX_SHARDS || n_hash < 1 || n_hash > 8 || lanes < 1 || cap < 1)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const int64_t n_tiles = (lanes + TILE - 1) / TILE;
-    route_count_kernel<<<(unsigned)n_tiles, TILE, 0, s>>>(
-        (const long long*)queries, lanes, (const uint32_t*)bits, log_bits, n_hash, (const long long*)bounds,
-        n, (int*)owners, (int*)tile_counts);
-    route_scan_kernel<<<n, SCAN_THREADS, 0, s>>>((int*)tile_counts, n_tiles, n, cap, (long long*)send_q,
-                                                  (int*)send_lane, (int*)overflow);
-    route_place_kernel<<<(unsigned)n_tiles, TILE, 0, s>>>(
-        (const long long*)queries, lanes, (const int*)owners, (const int*)tile_counts, n, cap,
-        (long long*)send_q, (int*)send_lane);
+    cudaError_t err = cudaMemsetAsync(send_q, 0xFF, n * cap * sizeof(long long), s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(send_lane, 0xFF, n * cap * sizeof(int), s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(states, 0, (n_tiles * n + 1) * sizeof(u64), s);
+    if (err != cudaSuccess) return (int)err;
+    u64* st = (u64*)states;
+    route_kernel<<<(unsigned)n_tiles, THREADS, 0, s>>>(
+        (const long long*)queries, lanes, (const uint32_t*)bits, log_bits, n_hash, (const long long*)bounds, n, cap,
+        (long long*)send_q, (int*)send_lane, (int*)overflow, st, (unsigned*)(st + n_tiles * n));
     return (int)cudaGetLastError();
 }
 

@@ -60,3 +60,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def stage_ms(fn, iters: int, warmup: int = 2) -> dict[str, float]:
+    """Device ms per call of each kernel and memset that fn launches, by
+    torch.profiler over `iters` calls after `warmup`: {short name: ms}, the
+    name cut to the function's own (no namespace, template or arguments)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if us:
+            head = evt.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split("::")[-1].split()
+            name = head[-1] if head else evt.key
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out

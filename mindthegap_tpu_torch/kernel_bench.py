@@ -5,7 +5,8 @@ around it), K4 (the counting merge), K5 (the fill walker, with a sweep
 of its look-ahead depth), K6 (the span scan) and K7 (the
 span walker, with a sweep of its look-ahead depth); then K8, K9 and K10
 (the plane path's kernels, new since the earlier checkouts) in turns
-beside K1.
+beside K1; then K11 (sharded counting's key routing) and K12 (sharded
+membership's route, its launches apart).
 
     python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE] [--only STAGES]
 
@@ -43,9 +44,16 @@ first (nvcc -Xptxas -v). K8 (cuckoo map), K9 (bucket map) and K10 (pair
 map) scan K1's 2^22-base window of the genome over the maps of its k = 31
 set (K1's repeat set), each held to its plain version once, then timed in
 turns with K1 on the same window (K1, K8, K9, K10, K10, K9, K8, K1).
+The mesh stage prints the registers and spills of K11-K13 (nvcc -Xptxas
+-v), then times K11 on a 2^23-base flush of the same kind of reads and K12
+on shard 0 of the nine membership queries of 2^20 genome positions over
+the k = 31 set on 4 logical shards (2^22 lanes, chip_smoke.py's shape),
+each in turns with the earlier checkout's `swizzle_keys_cuda` and
+`member_route_cuda`; K12 also with the device time of each launch of
+both versions (torch.profiler) and the bitset loads it issues.
 `--only` names the stages to run (comma-separated keys of the JSON
-record: span_scan, span_walk, nw, scan, keys, walk, merge, planes; default
-all). Prints the card, one line per shape and, last, one JSON object of
+record: span_scan, span_walk, nw, scan, keys, walk, merge, planes, mesh;
+default all). Prints the card, one line per shape and, last, one JSON object of
 every time. Exits non-zero without a CUDA device.
 """
 
@@ -64,9 +72,9 @@ import numpy as np
 import torch
 
 from ._build import ptxas_usage
-from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, SECTOR_BYTES, bytes_ms, nw_bound_ms, plane_scan_sectors,
-                     scan_probe_sectors, span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
-from .device import cuda_ms
+from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, SECTOR_BYTES, bloom_probe_loads, bytes_ms, nw_bound_ms,
+                     plane_scan_sectors, scan_probe_sectors, span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
+from .device import cuda_ms, stage_ms
 from .fill import walk_device as W
 from .find import scan_device as S
 from .ops import counting_device as C
@@ -75,6 +83,8 @@ from .ops import kmers as K
 from .ops import nw_device as ND
 from .ops.span import Span
 from .ops.span_device import span_width
+from .parallel import sharded_count as SC
+from .parallel import sharded_membership as SM
 
 GENOME_LEN = 4_641_652
 STEPS = 2048
@@ -86,6 +96,7 @@ WALK_SHAPES = tuple((n, n) for n in (1, 128, 512, 1024, 1536, 2048, 4096, 6144, 
 SPAN_WALK_LANES = {45: (1, 128, 512, 768, 1024, 2048, 4096, 6144, 8192, 16384),
                    128: (1, 128, 256, 512, 1024, 2048, 4096)}
 SPAN_GENOME_128 = 2_200_000  # a smaller genome than E. coli, above one 2^21-base window
+MESH_SHARDS = 4  # chip_smoke.py's logical shards
 
 
 def load_checkout(root: str, alias: str = "prev_mindthegap_tpu_torch"):
@@ -360,6 +371,70 @@ def bench_planes(genome, solid, k, seed: int):
                       for name in order))
     return row
 
+def bench_mesh(rng, genome, solid, k, prev):
+    """K11 on a 2^23-base flush of reads (the sort_batch batch's shape),
+    and K12 on one shard of the nine membership queries of 2^20 genome
+    positions over the solid set on MESH_SHARDS logical shards (shard 0,
+    2^22 lanes, as chip_smoke.py times it): each equal to the earlier
+    kernel and to its plain version, timed in turns with the earlier one;
+    K12 also with its launches' device times apart (torch.profiler), the
+    earlier one's too, and the bitset loads it issues."""
+    prev_sc, prev_sm = prev
+    registers = {}
+    for src in ("sharded_count.cu", "sharded_member.cu"):
+        for name, regs, spill in ptxas_usage(src):
+            registers[name] = {"registers": regs, "spill_bytes": spill}
+    print("K11-K13 registers (spill bytes): " + ", ".join(f"{key} {v['registers']} ({v['spill_bytes']})"
+                                                        for key, v in registers.items()))
+    # K11: reads of 150 bases joined by an invalid base
+    flush = 1 << 23
+    n_reads = flush // 151
+    starts = rng.integers(0, genome.size - 150, n_reads)
+    buf = np.full((n_reads, 151), 255, np.uint8)
+    buf[:, :150] = genome[starts[:, None] + np.arange(150)]
+    codes = np.full(flush + k - 1, 255, np.uint8)
+    codes[: buf.size] = buf.ravel()
+    chunk = torch.from_numpy(codes).cuda()
+    const = SC.pick_swizzle_const(k)
+    want = prev_sc.swizzle_keys_cuda(chunk, k, const)
+    if not (_equal(SC.swizzle_keys_cuda(chunk, k, const), want)
+            and _equal(SC._swizzle_keys_plain(chunk, k, const), want)):
+        raise AssertionError("K11 differs from the earlier kernel or its plain version")
+    k11 = {"flush": flush, "bound_ms": bytes_ms(chunk.numel() + 16 * (chunk.numel() - k + 1))}
+    k11["prev_ms"], k11["new_ms"] = _in_turns(lambda: prev_sc.swizzle_keys_cuda(chunk, k, const),
+                                              lambda: SC.swizzle_keys_cuda(chunk, k, const), 20)
+    print(f"K11 swizzle_keys, a 2^23-base flush: in turns, earlier {k11['prev_ms']} ms, current {k11['new_ms']} ms; "
+          f"bound {k11['bound_ms']:.4f} ms (bytes)")
+    # K12: shard 0 of the nine queries of 2^20 positions on MESH_SHARDS logical shards
+    positions = 1 << 20
+    fwd, _ = K.kmers_from_codes(genome[: positions + k - 1], k)
+    mask, top = K.kmer_mask(k), np.uint64(2 * (k - 1))
+    q = np.concatenate([K.canonical_u64(fwd, k)]
+                       + [K.canonical_u64(((fwd << np.uint64(2)) | np.uint64(x)) & mask, k) for x in range(4)]
+                       + [K.canonical_u64((fwd >> np.uint64(2)) | (np.uint64(x) << top), k) for x in range(4)])
+    sm = SM.ShardedMembership([torch.device("cuda")] * MESH_SHARDS, solid)
+    rows, cap = sm.batch(q)
+    args = sm.route_args(0, rows, cap)
+    queries, bits, log_bits, n_hash, _, n, _ = args
+    want = prev_sm.member_route_cuda(*args)
+    lanes = queries.numel()
+    k12 = {"lanes": lanes, "shards": n, "cap": cap, "positives": int((want[1] >= 0).sum()),
+           "bound_ms": bytes_ms(8 * lanes + 4 * bits.numel() + 8 * n + 12 * n * cap),
+           "prev_stages_ms": stage_ms(lambda: prev_sm.member_route_cuda(*args), 10)}
+    if not (_equal(SM.member_route_cuda(*args), want) and _equal(SM._route_plain(*args), want)):
+        raise AssertionError("K12 differs from the earlier kernel or its plain version")
+    k12["loads"] = bloom_probe_loads(bits, log_bits, n_hash, queries)
+    k12["stages_ms"] = stage_ms(lambda: SM.member_route_cuda(*args), 10)
+    k12["prev_ms"], k12["new_ms"] = _in_turns(lambda: prev_sm.member_route_cuda(*args),
+                                              lambda: SM.member_route_cuda(*args), 20)
+    k12["g_sectors_per_s"] = k12["loads"] / (sum(k12["new_ms"]) / 2) / 1e6
+    print(f"K12 member_route: {lanes} lanes on {n} shards, {k12['positives']} positives, {k12['loads']} bitset loads; "
+          f"in turns, earlier {k12['prev_ms']} ms, current {k12['new_ms']} ms ({k12['g_sectors_per_s']:.1f} G "
+          f"sectors/s, a sector a load); launches {k12['stages_ms']}; earlier launches {k12['prev_stages_ms']}; "
+          f"bound {k12['bound_ms']:.4f} ms (bytes)")
+    return {"registers": registers, "swizzle_keys": k11, "member_route": k12}
+
+
 def span_registers() -> dict:
     """Registers and spill bytes of every K6 and K7 instantiation."""
     out = {}
@@ -383,7 +458,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
         return 2
-    stages = ("span_scan", "span_walk", "nw", "scan", "keys", "walk", "merge", "planes")
+    stages = ("span_scan", "span_walk", "nw", "scan", "keys", "walk", "merge", "planes", "mesh")
     only = set(args.only.split(",")) if args.only else set(stages)
     if only - set(stages):
         ap.error(f"unknown stages {sorted(only - set(stages))} (choose from {', '.join(stages)})")
@@ -421,6 +496,10 @@ def main(argv=None) -> int:
             record[name] = bench()
     if "planes" in only:
         record["planes"] = bench_planes(genome, solid, k, args.seed + 2)
+    if "mesh" in only:
+        prev_mesh = tuple(importlib.import_module(f"prev_mindthegap_tpu_torch.parallel.{m}")
+                          for m in ("sharded_count", "sharded_membership"))
+        record["mesh"] = bench_mesh(np.random.default_rng(args.seed + 3), genome, solid, k, prev_mesh)
     line = json.dumps(record)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -108,9 +108,11 @@ def _lib():
 
 
 def swizzle_keys_cuda(codes: torch.Tensor, k: int, const: int):
-    """K11 (csrc/sharded_count.cu): the same pair as _swizzle_keys_plain, a
-    thread rolling 4 windows from codes staged in shared memory. Counts its
-    launches in `swizzle_keys_cuda.launches`."""
+    """K11 (csrc/sharded_count.cu): the same pair as _swizzle_keys_plain,
+    each window read in constant work from a tile's codes staged as 2-bit
+    codes and bad bits in shared memory. The codes must be 0, 1, 2, 3 or
+    255 (invalid), as the encoders write them: the kernel keeps two bits of
+    a valid code. Counts its launches in `swizzle_keys_cuda.launches`."""
     check_kernel_tensor(codes, "codes", torch.uint8, 1)
     n = codes.shape[0]
     if not 1 <= k <= 32 or n < k:

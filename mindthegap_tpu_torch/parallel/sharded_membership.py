@@ -88,8 +88,10 @@ def _lib():
         lib.member_route_launch.restype = ctypes.c_int
         lib.member_route_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int64, *[ctypes.c_void_p] * 6,
+            ctypes.c_int, ctypes.c_int64, *[ctypes.c_void_p] * 5,
         ]
+        lib.member_route_tile.restype = ctypes.c_int
+        lib.member_route_tile.argtypes = []
         lib.member_probe_launch.restype = ctypes.c_int
         lib.member_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                                             ctypes.c_void_p, ctypes.c_void_p]
@@ -102,8 +104,10 @@ def _lib():
 
 def member_route_cuda(queries, bits, log_bits: int, n_hash: int, bounds, n: int, cap: int):
     """K12 (csrc/sharded_member.cu): the same send buffers and overflow flag
-    as _route_plain, in three launches (tile counts, a scan per owner,
-    placement). Counts one launch per call in `member_route_cuda.launches`."""
+    as _route_plain, in one pass over the lanes after the buffers are
+    filled with their padding (tiles of lanes ranked per owner, joined by a
+    decoupled look-back; a hash a round of every live lane's Bloom probes in
+    flight). Counts one launch per call in `member_route_cuda.launches`."""
     check_kernel_tensor(queries, "queries", torch.int64, 1)
     check_kernel_tensor(bits, "bits", torch.int32, 1)
     check_kernel_tensor(bounds, "bounds", torch.int64, 1)
@@ -113,14 +117,14 @@ def member_route_cuda(queries, bits, log_bits: int, n_hash: int, bounds, n: int,
                          f"cap >= 1; got n={n}, bounds {bounds.shape[0]}, bits {bits.shape[0]} at "
                          f"log_bits {log_bits}, lanes {lanes}, cap {cap}")
     dev = queries.device
-    owners = torch.empty(lanes, dtype=torch.int32, device=dev)
-    tile_counts = torch.empty(-(-lanes // 256) * n, dtype=torch.int32, device=dev)
+    lib = _lib()
+    states = torch.empty(-(-lanes // lib.member_route_tile()) * n + 1, dtype=torch.int64, device=dev)
     send_q = torch.empty(n * cap, dtype=torch.int64, device=dev)
     send_lane = torch.empty(n * cap, dtype=torch.int32, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    launch("member_route", _lib().member_route_launch,
+    launch("member_route", lib.member_route_launch,
            queries.data_ptr(), lanes, bits.data_ptr(), log_bits, n_hash, bounds.data_ptr(), n, cap,
-           owners.data_ptr(), tile_counts.data_ptr(), send_q.data_ptr(), send_lane.data_ptr(), overflow.data_ptr(),
+           send_q.data_ptr(), send_lane.data_ptr(), overflow.data_ptr(), states.data_ptr(),
            device=queries.device)
     member_route_cuda.launches += 1
     return send_q, send_lane, overflow

@@ -15,10 +15,10 @@ from mindthegap_tpu_torch.ops import kmers as K
 from mindthegap_tpu_torch.ops import nw_device as ND
 from mindthegap_tpu_torch.parallel import sharded_count as PSC
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
-from torch_tables import (MEMBER_EDGE_NAMES, PLANE_EDGE_NAMES, SCAN_EDGE_NAMES, SORTED_EDGE_NAMES, SPAN_EDGE_NAMES,
-                          SWIZZLE_EDGE_NAMES, edge_walk_case, edge_walk_span_case, key_edge_batches, member_edge_cases,
-                          merge_edge_cases, move_to_stash, plane_edge_windows, scan_edge_windows, sorted_edge_windows,
-                          span_edge_windows, swizzle_edge_chunks)
+from torch_tables import (MEMBER_EDGE_NAMES, PLANE_EDGE_NAMES, ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES, SORTED_EDGE_NAMES,
+                          SPAN_EDGE_NAMES, SWIZZLE_EDGE_NAMES, edge_walk_case, edge_walk_span_case, key_edge_batches,
+                          member_edge_cases, merge_edge_cases, move_to_stash, plane_edge_windows, route_edge_cases,
+                          scan_edge_windows, sorted_edge_windows, span_edge_windows, swizzle_edge_chunks)
 
 pytestmark = pytest.mark.cuda
 
@@ -377,16 +377,20 @@ def test_dense_redispatch_runs_k10(cuda, k):
 @pytest.mark.parametrize("name", SWIZZLE_EDGE_NAMES)
 def test_swizzle_kernel_edge_cases(cuda, name, k):
     """K11 against its plain version on its edge chunks
-    (tests/torch_tables.py swizzle_edge_chunks)."""
+    (tests/torch_tables.py swizzle_edge_chunks), aligned and as a view at
+    an odd byte offset (every unit staged byte by byte)."""
     codes = torch.from_numpy(swizzle_edge_chunks(k)[name]).to(cuda)
+    shifted = torch.empty(codes.numel() + 1, dtype=torch.uint8, device=cuda)
+    shifted[1:] = codes
     const = PSC.pick_swizzle_const(k)
-    before = PSC.swizzle_keys_cuda.launches
-    got = PSC.swizzle_keys_cuda(codes, k, const)
     want = PSC._swizzle_keys_plain(codes, k, const)
-    torch.cuda.synchronize()
-    assert PSC.swizzle_keys_cuda.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for view in (codes, shifted[1:]):
+        before = PSC.swizzle_keys_cuda.launches
+        got = PSC.swizzle_keys_cuda(view, k, const)
+        torch.cuda.synchronize()
+        assert PSC.swizzle_keys_cuda.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_swizzle_kernel_matches_plain(cuda):
@@ -400,15 +404,16 @@ def test_swizzle_kernel_matches_plain(cuda):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("name", MEMBER_EDGE_NAMES)
+@pytest.mark.parametrize("name", MEMBER_EDGE_NAMES + ROUTE_EDGE_NAMES)
 def test_member_kernels_edge_cases(cuda, name):
     """K12 (the route), then K13 (the probe on each owner, the scatter on
     each source) against their plain versions, stage by stage, on n logical
-    shards of the card (tests/torch_tables.py member_edge_cases); then the
-    whole contains against np.isin."""
+    shards of the card (tests/torch_tables.py member_edge_cases, and K12's
+    64 shards in route_edge_cases); then the whole contains against
+    np.isin."""
     from mindthegap_tpu_torch.parallel import mesh as M
 
-    keys, q, n, cap_factor = member_edge_cases()[name]
+    keys, q, n, cap_factor = {**member_edge_cases(), **route_edge_cases()}[name]
     mesh = [cuda] * n
     sm = PSM.ShardedMembership(mesh, keys, cap_factor=cap_factor)
     rows, cap = sm.batch(q)

@@ -19,7 +19,8 @@ from mindthegap_tpu_torch.ops import counting as PC
 from mindthegap_tpu_torch.ops import kmers as PK
 from mindthegap_tpu_torch.parallel import sharded_count as PSC
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
-from torch_tables import MEMBER_EDGE_NAMES, SWIZZLE_EDGE_NAMES, member_edge_cases, swizzle_edge_chunks
+from torch_tables import (MEMBER_EDGE_NAMES, ROUTE_EDGE_NAMES, SWIZZLE_EDGE_NAMES, member_edge_cases, route_edge_cases,
+                          swizzle_edge_chunks)
 
 CPU = torch.device("cpu")
 SHARDS = (1, 2, 8)
@@ -61,13 +62,14 @@ def test_sharded_membership_edge_cases(name):
         assert not got.any()
 
 
-@pytest.mark.parametrize("name", MEMBER_EDGE_NAMES)
+@pytest.mark.parametrize("name", MEMBER_EDGE_NAMES + ROUTE_EDGE_NAMES)
 def test_route_plain_orders_lanes_by_owner(name):
     """K12's plain version against a numpy statement of the JAX routing:
     per owner, its Bloom-positive lanes in ascending order (JAX's argsort is
     stable) up to cap, padded with (SENTINEL, -1); the overflow flag; then
-    K13's plain probe and scatter give np.isin on the routed lanes."""
-    keys, q, n, cap_factor = member_edge_cases()[name]
+    K13's plain probe and scatter give np.isin on the routed lanes. On the
+    edge cases of K12 and K13, and on K12's at 64 shards (route_edge_cases)."""
+    keys, q, n, cap_factor = {**member_edge_cases(), **route_edge_cases()}[name]
     sm = PSM.ShardedMembership(_logical(n), keys, cap_factor=cap_factor)
     rows, cap = sm.batch(q)
     bf = PB.build(keys if keys.size else np.zeros(1, np.uint64))

@@ -424,15 +424,18 @@ def plane_edge_windows(k: int, layout: str, seed: int = 0):
 # the device mesh: K11's chunks, K12's and K13's key sets and queries, K14's
 # windows over sorted sets
 
-SWIZZLE_EDGE_NAMES = ("reads-ns", "one-window", "all-invalid", "n-at-ends")
+SWIZZLE_EDGE_NAMES = ("reads-ns", "one-window", "all-invalid", "n-at-ends", "tile-boundaries", "ragged-16")
 
 
 def swizzle_edge_chunks(k: int, seed: int = 0):
     """{name: codes u8} for K11 at this k (1 to 32): 5,000 bases of read
-    codes joined by invalid bases with N runs across the kernel's 1,024-window
-    tiles; a chunk of exactly k bases (one window); a chunk of invalid bases
-    only; Ns as the first and last bases of a chunk one tile and a few
-    windows long."""
+    codes joined by invalid bases with N runs across the first kernel's
+    1,024-window tiles; a chunk of exactly k bases (one window); a chunk of
+    invalid bases only; Ns as the first and last bases of a chunk one tile
+    and a few windows long; 2^17 + 40 bases (at least 2^17 windows) with N
+    runs across the kernel's 2,048-window tiles and on 64-base and 16-base
+    boundaries (the staging units); 4,103 bases, a length that is not a
+    multiple of 16 (the last unit staged byte by byte)."""
     rng = np.random.default_rng(seed)
     reads = rng.integers(0, 4, 5000, dtype=np.uint8)
     reads[150::151] = 255
@@ -440,17 +443,46 @@ def swizzle_edge_chunks(k: int, seed: int = 0):
         reads[lo : lo + 10] = 255
     ends = rng.integers(0, 4, 1024 + k + 5, dtype=np.uint8)
     ends[0] = ends[-1] = 255
+    tiles = rng.integers(0, 4, (1 << 17) + 40, dtype=np.uint8)
+    for m in range(1, 64, 3):
+        tiles[2048 * m - 2 : 2048 * m + 1] = 255  # a run across a tile boundary
+    tiles[64 * np.arange(7, 2048, 37)] = 255      # first bases of 64-base spans
+    tiles[16 * np.arange(11, 8192, 53) - 1] = 255  # last bases of 16-base units
+    ragged = rng.integers(0, 4, 4103, dtype=np.uint8)
+    ragged[[0, 15, 16, 2047, 2048, 4095, 4096, 4102]] = 255
     cases = {
         "reads-ns": reads,
         "one-window": rng.integers(0, 4, k, dtype=np.uint8),
         "all-invalid": np.full(600, 255, np.uint8),
         "n-at-ends": ends,
+        "tile-boundaries": tiles,
+        "ragged-16": ragged,
     }
     assert tuple(cases) == SWIZZLE_EDGE_NAMES
     return cases
 
 
-MEMBER_EDGE_NAMES = ("mixed", "empty-set", "key-at-bound", "high-keys", "one-shard", "overflow", "one-lane")
+MEMBER_EDGE_NAMES = ("mixed", "empty-set", "key-at-bound", "high-keys", "one-shard", "overflow", "one-lane",
+                     "tiles-interleaved", "owner-at-cap", "owner-over-cap", "one-owner", "sentinel-queries",
+                     "eight-shards")
+
+
+def _owner_runs(keys, counts, seed: int):
+    """Queries on 4 shards of len(counts) lanes each: shard j's lanes hold
+    counts[j][o] keys of owner o (key shard o of `keys`, 4 even shards),
+    shuffled within the shard."""
+    rng = np.random.default_rng(seed)
+    per = keys.size // 4
+    rows, used = [], [0] * 4
+    for shard in counts:
+        row = []
+        for o, c in enumerate(shard):
+            row.append(keys[o * per + used[o] : o * per + used[o] + c])
+            used[o] += c
+        row = np.concatenate(row)
+        rng.shuffle(row)
+        rows.append(row)
+    return np.concatenate(rows)
 
 
 def member_edge_cases(seed: int = 0):
@@ -459,9 +491,16 @@ def member_edge_cases(seed: int = 0):
     empty key set; queries equal to each shard's first key (an owner bound)
     and its neighbours; keys and queries above 2^63 (unsigned order: the
     owner bounds negative as int64); one shard; a capacity of 64 (overflow,
-    the host route); a single query (lanes padded with the SENTINEL)."""
+    the host route); a single query (lanes padded with the SENTINEL);
+    2^17 lanes a shard on 4 shards, owners interleaved so that each owner's
+    lanes cross all 64 of a shard's 2,048-lane tiles; present keys only
+    (each one a Bloom positive) at a capacity of 64, with one owner's count
+    on shard 0 exactly at the capacity, and at one above it (overflow); every
+    query in one owner's key range, at a capacity that holds them all;
+    SENTINEL queries among real ones; 8 shards."""
     rng = np.random.default_rng(seed)
     keys = np.unique(rng.integers(0, 1 << 62, 5000, dtype=np.uint64))
+    keys = keys[: keys.size // 8 * 8]  # even shards: no SENTINEL padding among the keys
     mixed = np.concatenate([rng.choice(keys, 3000), rng.integers(0, 1 << 62, 3000, dtype=np.uint64)])
     rng.shuffle(mixed)
     per = -(-keys.size // 4)
@@ -470,6 +509,18 @@ def member_edge_cases(seed: int = 0):
     at_bound = np.concatenate([bounds, bounds - one, bounds + one, keys[-1:], keys[-1:] + one])
     high = np.unique(rng.integers(0, 1 << 64, 5000, dtype=np.uint64))
     high_q = np.concatenate([rng.choice(high, 2000), rng.integers(0, 1 << 64, 2000, dtype=np.uint64), high[::1250]])
+    big = np.unique(rng.integers(0, 1 << 62, 1 << 16, dtype=np.uint64))
+    big = big[: big.size // 4 * 4]
+    interleaved = np.concatenate([rng.choice(big, 1 << 18), rng.integers(0, 1 << 62, 1 << 18, dtype=np.uint64)])
+    rng.shuffle(interleaved)
+    # 4 shards of 128 lanes (512 queries), capacity 64: owner 0 on shard 0 at 64, then at 65
+    at_cap = _owner_runs(keys, [[64, 64, 0, 0], [0, 64, 64, 0], [0, 0, 64, 64], [64, 0, 0, 64]], seed)
+    over_cap = _owner_runs(keys, [[65, 63, 0, 0], [0, 64, 64, 0], [0, 0, 64, 64], [63, 0, 0, 65]], seed)
+    lo, hi = int(bounds[2]), int(bounds[3])
+    one_owner = np.concatenate([keys[2 * per : 3 * per], rng.integers(lo, hi, 1000, dtype=np.uint64)])
+    rng.shuffle(one_owner)
+    with_sentinel = mixed.copy()
+    with_sentinel[rng.choice(mixed.size, 300, replace=False)] = np.uint64(0xFFFFFFFFFFFFFFFF)
     cases = {
         "mixed": (keys, mixed, 4, 1.25),
         "empty-set": (np.zeros(0, np.uint64), mixed[:500], 4, 1.25),
@@ -478,8 +529,32 @@ def member_edge_cases(seed: int = 0):
         "one-shard": (keys, mixed, 1, 1.25),
         "overflow": (keys, mixed, 4, 0.0),
         "one-lane": (keys, keys[7:8], 4, 1.25),
+        "tiles-interleaved": (big, interleaved, 4, 1.25),
+        "owner-at-cap": (keys, at_cap, 4, 0.0),
+        "owner-over-cap": (keys, over_cap, 4, 0.0),
+        "one-owner": (keys, one_owner, 4, 4.0),
+        "sentinel-queries": (keys, with_sentinel, 4, 1.25),
+        "eight-shards": (keys, mixed, 8, 1.25),
     }
     assert tuple(cases) == MEMBER_EDGE_NAMES
+    return cases
+
+
+ROUTE_EDGE_NAMES = ("64-shards",)
+
+
+def route_edge_cases(seed: int = 0):
+    """{name: (sorted keys u64, queries u64, shards, cap_factor)} for K12 at
+    its most shards (64, beyond the JAX test mesh's 8): 2^14 keys, present
+    and absent queries over 4,096 lanes a shard (shards past the queries
+    hold SENTINEL padding only)."""
+    rng = np.random.default_rng(seed + 64)
+    keys = np.unique(rng.integers(0, 1 << 63, 1 << 14, dtype=np.uint64))
+    keys = keys[: keys.size // 64 * 64]
+    q = np.concatenate([rng.choice(keys, 96_000), rng.integers(0, 1 << 63, 96_000, dtype=np.uint64)])
+    rng.shuffle(q)
+    cases = {"64-shards": (keys, q, 64, 1.25)}
+    assert tuple(cases) == ROUTE_EDGE_NAMES
     return cases
 
 
