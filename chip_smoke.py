@@ -10,7 +10,8 @@ Phases, each of which must pass (any failure exits non-zero):
      K2 (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu),
      K5 (csrc/walk.cu), K6 (csrc/scan_span.cu), K7 (csrc/walk_span.cu),
      K8 and K9 (csrc/scan_planes.cu), K11 (csrc/sharded_count.cu), K12
-     and K13 (csrc/sharded_member.cu), K14 (csrc/scan_sorted.cu);
+     and K13 (csrc/sharded_member.cu), K14 (csrc/scan_sorted.cu), the
+     bucket index build of K13 and K14 (csrc/sorted_index.cu);
   3. hold each kernel against its plain PyTorch version on the card, exactly,
      at the main path's shapes, and time both sides: K1 (the whole
      scan_cls_qp, its exception compaction included) on a full 2^22-base
@@ -38,9 +39,12 @@ Phases, each of which must pass (any failure exits non-zero):
      reference positions over the solid set on 4 logical shards of the
      card, and once with the capacity forced to overflow (the host route),
      with K12's launches timed apart (torch.profiler) and its bitset loads
-     counted;
-     K14 on a 2^22-base window over the sorted solid set and a repeat set,
-     and at entry()'s shapes; the sharded counter on 4 logical shards with
+     counted, K13's probe through the owner's bucket index and through one
+     its wrapper builds (the build timed apart), with the sectors it reads;
+     K14 on a 2^22-base window over the sorted solid set and a repeat set
+     (its two index builds timed apart, the sectors its lookups read), and
+     at entry()'s shapes; the bucket index's build kernel on those sets,
+     the shards and the edge sets; the sharded counter on 4 logical shards with
      its capacity forced to overflow, against the host counter. The edge cases
      come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
      merge_edge_cases, edge_walk_case, span_edge_windows,
@@ -793,7 +797,7 @@ def _reset_launches():
     from mindthegap_tpu_torch.find import scan_device as S
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
-
+    from mindthegap_tpu_torch.ops import sorted_index as SI
     from mindthegap_tpu_torch.parallel import sharded_count as SC
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
 
@@ -804,7 +808,7 @@ def _reset_launches():
                 "scan_planes_qb": S.scan_planes_qb_cuda, "scan_pay_qp": S.scan_pay_qp_cuda,
                 "swizzle_keys": SC.swizzle_keys_cuda, "member_route": SM.member_route_cuda,
                 "member_probe": SM.member_probe_cuda, "member_scatter": SM.member_scatter_cuda,
-                "scan_planes_sorted": S.scan_planes_sorted_cuda}
+                "scan_planes_sorted": S.scan_planes_sorted_cuda, "sorted_index": SI.build_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
@@ -1218,10 +1222,11 @@ def _flush_buffer(reads: str, n: int) -> np.ndarray:
 
 
 def _member_stages(sm, rows: np.ndarray, cap: int) -> tuple[int, list]:
-    """K12 on each shard, K13's probe on each owner and its scatter on each
-    source, each against its plain version on the same inputs: (the largest
-    difference, the inputs of shard 0's route, owner 0's probe and shard
-    0's scatter, for the timings)."""
+    """K12 on each shard, K13's probe on each owner (through the owner's
+    bucket index, and through one its wrapper builds) and its scatter on
+    each source, each against its plain version on the same inputs: (the
+    largest difference, the inputs of shard 0's route, owner 0's probe and
+    shard 0's scatter, for the timings)."""
     from mindthegap_tpu_torch.parallel import mesh as M
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
 
@@ -1235,15 +1240,16 @@ def _member_stages(sm, rows: np.ndarray, cap: int) -> tuple[int, list]:
     recv = M.exchange([r[0].reshape(n, cap) for r in routed], sm.mesh)
     found = []
     for o in range(n):
-        got = SM.member_probe_cuda(recv[o], sm.shard_keys[o])
-        errs.append(_max_abs_err([(got, SM._probe_plain(recv[o], sm.shard_keys[o]))]))
+        got = SM.member_probe_cuda(recv[o], sm.shard_keys[o], sm.shard_index[o])
+        want = SM._probe_plain(recv[o], sm.shard_keys[o])
+        errs.append(_max_abs_err([(got, want), (SM.member_probe_cuda(recv[o], sm.shard_keys[o]), want)]))
         found.append(got.reshape(n, cap))
     back = M.exchange(found, sm.mesh)
     for d in range(n):
         got = SM.member_scatter_cuda(back[d], routed[d][1], rows.shape[1])
         errs.append(_max_abs_err([(got, SM._scatter_plain(back[d], routed[d][1], rows.shape[1]))]))
-    return max(errs), [sm.route_args(0, rows, cap), (recv[0], sm.shard_keys[0]), (back[0], routed[0][1], rows.shape[1]),
-                       int(routed[0][2].item())]
+    return max(errs), [sm.route_args(0, rows, cap), (recv[0], sm.shard_keys[0], sm.shard_index[0]),
+                       (back[0], routed[0][1], rows.shape[1]), int(routed[0][2].item())]
 
 
 def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, seed: int) -> dict:
@@ -1260,11 +1266,12 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
     import torch
 
     from mindthegap_tpu_torch import graft_entry as G
-    from mindthegap_tpu_torch.bounds import bloom_probe_loads
+    from mindthegap_tpu_torch.bounds import bloom_probe_loads, scan_sorted_sectors, sorted_lookup_sectors
     from mindthegap_tpu_torch.device import stage_ms
     from mindthegap_tpu_torch.find import scan_device as S
     from mindthegap_tpu_torch.ops import counting as CNT
     from mindthegap_tpu_torch.ops import kmers as K
+    from mindthegap_tpu_torch.ops import sorted_index as SI
     from mindthegap_tpu_torch.parallel import sharded_count as SC
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
     from torch_tables import member_edge_cases, route_edge_cases, sorted_edge_windows, swizzle_edge_chunks
@@ -1319,12 +1326,13 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
     idx = np.minimum(np.searchsorted(solid, q), solid.size - 1)
     if overflow or not np.array_equal(got, solid[idx] == q):
         raise AssertionError(f"sharded membership: overflow {overflow}, or its verdicts differ from the host search")
-    recv, keys = probe_args
+    recv, keys, index = probe_args
     lanes, m, per = rows.shape[1], recv.numel(), keys.numel()
     records = {
         "member_route": (SM.member_route_cuda, SM._route_plain, route_args,
                          8 * lanes + sm._replicated[0][0].numel() * 4 + 8 * MESH_SHARDS + 12 * MESH_SHARDS * cap),
-        "member_probe": (SM.member_probe_cuda, SM._probe_plain, probe_args, 8 * m + 8 * per + m),
+        "member_probe": (SM.member_probe_cuda, lambda recv, keys, _index: SM._probe_plain(recv, keys), probe_args,
+                         8 * m + 8 * per + m),
         "member_scatter": (SM.member_scatter_cuda, SM._scatter_plain, scatter_args, m + 4 * m + lanes),
     }
     # the library yardstick of the probe: torch.searchsorted, the gather and the compare (the
@@ -1352,6 +1360,14 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
             raise AssertionError(f"sharded membership edge case {name} differs from np.isin")
     for name in records:
         out[name]["max_abs_err"] = max(err, *edge_errs)
+    # K13's probe with the index its wrapper builds, the build apart (torch.profiler), and its sectors
+    probe_stages = stage_ms(lambda: SM.member_probe_cuda(recv, keys), iters=10)
+    sectors = sorted_lookup_sectors(keys, index, recv)
+    out["member_probe"]["unindexed_ms"] = _cuda_ms(lambda: SM.member_probe_cuda(recv, keys), iters=10, warmup=2)
+    print(f"K13 member_probe on owner 0: {int((recv != -1).sum())} of {m} slots real (the rest SENTINEL padding, "
+          f"answered without a lookup), {sectors} sectors read, {sectors / out['member_probe']['ms'] / 1e6:.1f} G "
+          f"sectors/s; with the index built in the wrapper {out['member_probe']['unindexed_ms']:.4f} ms, by launch "
+          "(torch.profiler, device ms a call): " + ", ".join(f"{name} {t:.4f}" for name, t in probe_stages.items()))
     print(f"K12/K13: {q.size} queries ({MEMBER_POSITIONS} positions x 9) on {MESH_SHARDS} logical shards of "
           f"{per} keys, {lanes} lanes and {cap} slots an owner; max_abs_err {err}, edge cases and the forced overflow "
           f"(cap 64: the host route, exact) {max(edge_errs)}; " + "; ".join(
@@ -1374,10 +1390,12 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
     codes[np.random.default_rng(seed).integers(0, window, 64)] = 255
     args = (torch.from_numpy(codes).to(cuda), torch.from_numpy(K.as_i64(solid)).to(cuda),
             torch.from_numpy(K.as_i64(repeat)).to(cuda), k)
-    got = S.scan_planes_sorted_cuda(*args)
+    indexes = S.set_indexes(*args[1:3])
     want = S._scan_planes_sorted_plain(*args)
-    errs = [_max_abs_err((got[key], want[key]) for key in S.PLANE_KEYS)]
-    ms = _cuda_ms(lambda: S.scan_planes_sorted_cuda(*args), iters=5, warmup=1)
+    errs = [_max_abs_err((got[key], want[key]) for key in S.PLANE_KEYS)
+            for got in (S.scan_planes_sorted_cuda(*args, indexes), S.scan_planes_sorted_cuda(*args))]
+    ms = _cuda_ms(lambda: S.scan_planes_sorted_cuda(*args, indexes), iters=5, warmup=1)
+    built_ms = _cuda_ms(lambda: S.scan_planes_sorted_cuda(*args), iters=5, warmup=1)
     plain_ms = _cuda_ms(lambda: S._scan_planes_sorted_plain(*args), iters=2)
     bound = _bytes_bound_ms(window + 8 * (solid.size + repeat.size) + 20 * (window - k + 1))
     fn, eargs = G.entry()
@@ -1391,13 +1409,46 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
                                          S._scan_planes_sorted_plain(*eargs).values())))
     torch.cuda.synchronize()
     contained = int(want["contains"].sum())
+    stages = stage_ms(lambda: S.scan_planes_sorted_cuda(*args), iters=5)
+    sectors = scan_sorted_sectors(*args)
     out["scan_planes_sorted"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound,
-                                 "entry_ms": entry_ms}
+                                 "built_ms": built_ms, "entry_ms": entry_ms}
     print(f"K14 scan_planes_sorted: window {window}, k {k}, solid {solid.size}, repeat {repeat.size}, "
           f"{contained} positions contained, max_abs_err {max(errs)} (with entry()'s shapes and the edge windows at "
-          f"k 2, 3, 31, 32; tolerance 0: exact), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"k 2, 3, 31, 32; tolerance 0: exact), kernel {ms:.4f} ms with the sets' indexes passed in, "
+          f"{built_ms:.4f} ms with the two index builds in the wrapper, plain {plain_ms:.4f} ms, bound "
           f"{bound['bound_ms']:.4f} ms (bytes: each input read once, 20 B of planes a position); entry()'s "
-          f"2^14-base window over 2^16 keys {entry_ms:.4f} ms")
+          f"2^14-base window over 2^16 keys {entry_ms:.4f} ms (its indexes built once by entry())")
+    print("K14 with the index builds, by launch (torch.profiler, device ms a call): "
+          + ", ".join(f"{name} {t:.4f}" for name, t in stages.items())
+          + f"; {sectors} sectors read by the lookups, {sectors / ms / 1e6:.1f} G sectors/s")
+
+    # the bucket index's build kernel on K14's and K13's sets, and on the edge sets of both
+    errs = []
+    for keys_ in (args[1], args[2], *sm.shard_keys):
+        for halve in (0, 1, 2):  # about 1, 2 and 4 keys a bucket
+            log_b = max(1, SI.log_buckets(keys_.shape[0]) - halve)
+            errs.append(_max_abs_err(zip(SI.build_cuda(keys_, log_b), SI._build_plain(keys_, log_b))))
+    for ek in (2, 3, 31, 32):
+        for _ecodes, es, er in sorted_edge_windows(ek).values():
+            for eset in (es, er):
+                et = torch.from_numpy(K.as_i64(eset)).to(cuda)
+                log_b = SI.log_buckets(et.shape[0])
+                errs.append(_max_abs_err(zip(SI.build_cuda(et, log_b), SI._build_plain(et, log_b))))
+    for ekeys, _eq, en, ecf in member_edge_cases().values():
+        for et in SM.ShardedMembership([cuda] * en, ekeys, cap_factor=ecf).shard_keys:
+            log_b = SI.log_buckets(et.shape[0])
+            errs.append(_max_abs_err(zip(SI.build_cuda(et, log_b), SI._build_plain(et, log_b))))
+    torch.cuda.synchronize()
+    log_b = SI.log_buckets(args[1].shape[0])
+    out["sorted_index"] = {"max_abs_err": max(errs),
+                           "ms": _cuda_ms(lambda: SI.build_cuda(args[1], log_b), iters=20, warmup=2),
+                           "plain_ms": _cuda_ms(lambda: SI._build_plain(args[1], log_b), iters=3),
+                           **_bytes_bound_ms(8 * args[1].numel() + 4 * ((1 << log_b) + 1) + 32)}
+    print(f"bucket index build: {args[1].numel()} keys in 2^{log_b} buckets, max_abs_err {max(errs)} (with the "
+          f"repeat set and the {MESH_SHARDS} shards at 1, 2 and 4 keys a bucket, and the edge sets of "
+          f"K13 and K14; tolerance 0: exact), kernel {out['sorted_index']['ms']:.4f} ms, plain "
+          f"{out['sorted_index']['plain_ms']:.4f} ms, bound {out['sorted_index']['bound_ms']:.4f} ms (bytes)")
 
     # the sharded counter on MESH_SHARDS logical shards, its capacity forced to overflow (the host route)
     part = _flush_buffer(reads, 1 << 22)
@@ -1473,7 +1524,7 @@ def mesh_path(work: str, reads: str) -> dict:
     if tuple(planes["fwd"].shape) != (args[0].numel() - 30,):
         raise AssertionError("entry() gave planes of another shape")
     for name in ("scan_pay_qp", "swizzle_keys", "walk_batch", "member_route", "member_probe", "member_scatter",
-                 "scan_planes_sorted"):
+                 "scan_planes_sorted", "sorted_index"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the mesh path")
     print("mesh path (in-process): find -graph -scan-engine sharded (one-device mesh) " + _wall(times["ms"])
@@ -1500,12 +1551,12 @@ def build_kernels():
     from mindthegap_tpu_torch.find import scan_device as S
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
-
+    from mindthegap_tpu_torch.ops import sorted_index as SI
     from mindthegap_tpu_torch.parallel import sharded_count as SC
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
 
     loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib, S._span_scan_lib, W._walk_span_lib,
-               S._planes_lib, SC._lib, SM._lib, S._sorted_lib)
+               S._planes_lib, SC._lib, SM._lib, S._sorted_lib, SI._lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
@@ -1529,7 +1580,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     build_kernels()
-    print(f"kernel build (nvcc, sm_90a, 11 sources in parallel): {time.perf_counter() - t0:.1f} s")
+    print(f"kernel build (nvcc, sm_90a, 12 sources in parallel): {time.perf_counter() - t0:.1f} s")
 
     seed = 20261016
     k = 31
@@ -1565,7 +1616,8 @@ def main() -> int:
                         ("K8", planes["scan_planes_q"]), ("K9", planes["scan_planes_qb"]),
                         ("K10", planes["scan_pay_qp"]), ("K11", mesh["swizzle_keys"]),
                         ("K12", mesh["member_route"]), ("K13", mesh["member_probe"]),
-                        ("K13", mesh["member_scatter"]), ("K14", mesh["scan_planes_sorted"])):
+                        ("K13", mesh["member_scatter"]), ("K14", mesh["scan_planes_sorted"]),
+                        ("the bucket index build", mesh["sorted_index"])):
             if r["max_abs_err"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
         run = main_path(work, insertions, reads)
@@ -1622,6 +1674,9 @@ def main() -> int:
         {"name": "scan_planes_sorted", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_sorted.cu",
          "replaces": "mindthegap_tpu/find/scan_device.py:88",
          "launches": run5["launches"]["scan_planes_sorted"], **mesh["scan_planes_sorted"]},
+        {"name": "sorted_index", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/sorted_index.cu",
+         "replaces": None,
+         "launches": run5["launches"]["sorted_index"], **mesh["sorted_index"]},
     ]
     print(f"auto gate record: {json.dumps(run4['gate'])}")
     print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")

@@ -11,6 +11,7 @@ from .fill import walk_device as W
 from .find import scan_device as S
 from .ops import extmap as X
 from .ops import kmers as K
+from .ops import sorted_index as SI
 from .ops import span_device as SD
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -93,6 +94,10 @@ def walk_span_bound_ms(n_app, status, lanes: int, steps: int, k: int) -> float:
     return bytes_ms(probes * wq * SECTOR_BYTES + lanes * (steps + 16 * wk + 4 + 4 + 1))
 
 
+# the keys of a bucket that a lookup through a sorted set's bucket index
+# loads at once: the mirror of csrc/sorted_index.cuh sidx::LOOKUP_KEYS
+LOOKUP_KEYS = 4
+
 # the planes K8 and K9 write for each position: fwd 8 bytes, nb_in and
 # nb_out 4 each, valid, contains, suffix_rep and prefix_rep one each
 PLANE_BYTES_PER_POSITION = 20
@@ -129,3 +134,52 @@ def bloom_probe_loads(bits: torch.Tensor, log_bits: int, n_hash: int, queries: t
         unset = ((bits[K.shr(pos, 5)] >> (pos & 31).to(torch.int32)) & 1) == 0
         loads = torch.where(unset, i + 1, loads)
     return int(loads.sum())
+
+
+def sorted_lookup_sectors(keys: torch.Tensor, index: SI.SortedIndex, queries: torch.Tensor) -> int:
+    """The 32-byte sectors that the lookups of these queries read through
+    a sorted set's bucket index, as csrc/sorted_index.cuh takes them (keys,
+    index and queries on one device, the index from ops/sorted_index.py):
+    none for a query outside [lo, hi] (SENTINEL among them); else the
+    sector of its bucket's two starts (two for one bucket in eight), the
+    sectors of the bucket's first LOOKUP_KEYS keys, and, where the bucket
+    is longer and those keys are all below the query, one a bisection step
+    and one for the last compare."""
+    scan = LOOKUP_KEYS
+    lo, hi, shift, _real = index.head
+    inside = ~(K.ult(queries, lo) | K.ult(hi, queries))
+    q = queries[inside]
+    j = K.shr(q - lo, int(shift))
+    begin, end = index.start[j].long(), index.start[j + 1].long()
+    n = (end - begin).clamp(max=scan)
+    some = n > 0
+    sectors = int(inside.sum()) + int((j % 8 == 7).sum())
+    sectors += int(((8 * (begin + n - 1)) // SECTOR_BYTES - (8 * begin) // SECTOR_BYTES + 1)[some].sum())
+    more = (end - begin > scan) & K.ult(keys[torch.where(end - begin > scan, begin + scan - 1, 0)], q)
+    a, b = torch.where(more, begin + scan, 0), torch.where(more, end, 0)
+    while bool((live := a < b).any()):
+        sectors += int(live.sum())
+        mid = (a + b) // 2
+        less = live & K.ult(keys[torch.where(live, mid, 0)], q)
+        a = torch.where(less, mid + 1, a)
+        b = torch.where(live & ~less, mid, b)
+    return sectors + int((more & (a < end)).sum())
+
+
+def scan_sorted_sectors(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int) -> int:
+    """The sectors K14's lookups read on one window (arguments as
+    scan_planes_sorted takes them): sorted_lookup_sectors over each
+    position's canonical k-mer and two (k-1)-mers, and over its eight
+    neighbours where the k-mer is in the solid set, each set through the
+    index ops/sorted_index.py builds for it."""
+    fwd, _ = S.rolling_kmers(codes, k)
+    canon = K.canonical_u64(fwd, k)
+    contained = S._member(solid, canon)
+    mask, km1 = K.i64(K.kmer_mask(k)), K.i64(K.kmer_mask(k - 1))
+    f = fwd[contained]
+    nbrs = [K.canonical_u64(((f << 2) | x) & mask, k) for x in range(4)]
+    nbrs += [K.canonical_u64(K.shr(f, 2) | K.i64(x << (2 * (k - 1))), k) for x in range(4)]
+    words = (torch.cat([canon, *nbrs]),
+             torch.cat([K.canonical_u64(fwd & km1, k - 1), K.canonical_u64(K.shr(fwd, 2) & km1, k - 1)]))
+    return sum(sorted_lookup_sectors(keys, SI._build_plain(keys, SI.log_buckets(keys.shape[0])), q)
+               for keys, q in zip((solid, repeat), words))

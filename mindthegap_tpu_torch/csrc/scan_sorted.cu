@@ -16,19 +16,38 @@
 //   their canonical form in the solid set, both 0 where contains is false,
 //   suffix_rep / prefix_rep = the canonical (k-1)-mer suffix / prefix is in
 //   the repeat set.
-// Membership is a lower bound in unsigned order, then equality.
+// Membership is what a lower bound in unsigned order, then equality, gives.
 //
 // Bound on this card: bytes, each input read once (the window, the two
-// sets) and 20 bytes of planes written per position. The searches read far
-// more: about log2(N) dependent sectors each, 1 + 8 (where contained) + 2
-// searches per position, the first levels shared through L2.
+// sets) and 20 bytes of planes written per position. The lookups read
+// more: 1 + 8 (where contained) + 2 a position, each a random sector of a
+// set's bucket index and one or two of its keys.
 //
-// The design is the simple one: a block of 256 threads stages its 256 + k
-// - 1 codes in shared memory; a thread takes one position, rolls its k-mer
-// from shared memory and runs its searches one after another.
+// The design: each set comes with its bucket index (sorted_index.cuh,
+// built by sorted_index.cu once for a fixed set, or in the same stream
+// just before), so a lookup is two dependent steps, its bucket's bounds
+// and then the bucket's first sidx::LOOKUP_KEYS = 4 keys, where a binary
+// search over the whole set took ~23. A
+// block of 256 threads stages its 256 + k - 1 codes in shared memory; a
+// thread takes one position, rolls its k-mer from shared memory and forms
+// all eleven canonical words from one reverse complement. Round one
+// issues the index loads of the k-mer and its two (k-1)-mers before any
+// key load, then the keys of all three; the `contains` verdict gates
+// round two, the eight neighbours, issued the same way.
+// Measured on an H100 80GB HBM3 at 700 W (kernel_bench.py, a 2^22-base
+// window over 4.67 M keys, 4.19 M positions contained): 0.74 ms with the
+// indexes passed in, 0.79 with their builds (the first version, binary
+// searches: 4.80); with the builds, 0.80 ms at about 1 key a bucket, 0.96
+// at 2, 1.27 at 4. Loading 2 keys at once instead of 4 took 0.95 ms at 1
+// key a bucket; issuing the neighbours' lookups with the k-mer's, before
+// `contains` resolved, 0.79 (1.5% less, where nearly every position is
+// contained, at the cost of eight needless lookups for every position that
+// is not; the gate stays).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "sorted_index.cuh"
 
 namespace {
 
@@ -46,24 +65,13 @@ __device__ __forceinline__ u64 revcomp(u64 x, int k) {
     return x >> (64 - 2 * k);
 }
 
-__device__ __forceinline__ u64 canonical(u64 x, int k) {
-    const u64 rc = revcomp(x, k);
-    return x < rc ? x : rc;
-}
-
-__device__ __forceinline__ bool member(const long long* __restrict__ a, int64_t n, u64 key) {
-    if (n == 0) return false;
-    int64_t lo = 0, hi = n;
-    while (lo < hi) {
-        const int64_t mid = (lo + hi) >> 1;
-        if ((u64)__ldg(a + mid) < key) lo = mid + 1; else hi = mid;
-    }
-    return (u64)__ldg(a + (lo < n - 1 ? lo : n - 1)) == key;
-}
+__device__ __forceinline__ u64 umin(u64 a, u64 b) { return a < b ? a : b; }
 
 __global__ void __launch_bounds__(THREADS) scan_sorted_kernel(
     const uint8_t* __restrict__ codes, int64_t w, int k, const long long* __restrict__ solid, int64_t n_solid,
-    const long long* __restrict__ repeat, int64_t n_repeat, long long* __restrict__ fwd_out,
+    const int* __restrict__ solid_start, const long long* __restrict__ solid_head,
+    const long long* __restrict__ repeat, int64_t n_repeat, const int* __restrict__ repeat_start,
+    const long long* __restrict__ repeat_head, long long* __restrict__ fwd_out,
     bool* __restrict__ valid_out, bool* __restrict__ contains_out, int* __restrict__ nb_in_out,
     int* __restrict__ nb_out_out, bool* __restrict__ suffix_out, bool* __restrict__ prefix_out)
 {
@@ -82,38 +90,70 @@ __global__ void __launch_bounds__(THREADS) scan_sorted_kernel(
         valid &= c != 255;
         fwd = (fwd << 2) | (c == 255 ? 0 : c);
     }
+    const sidx::Index S = sidx::load_index(solid, n_solid, solid_start, solid_head);
+    const sidx::Index R = sidx::load_index(repeat, n_repeat, repeat_start, repeat_head);
     const u64 mask = k == 32 ? ~0ull : (1ull << (2 * k)) - 1;
-    const bool contains = member(solid, n_solid, canonical(fwd, k));
+    const u64 km1 = (1ull << (2 * (k - 1))) - 1;
+    const int top = 2 * (k - 1);
+    // rc(succ x) = rc >> 2 | comp(x) << top; rc(pred x) = (rc << 2 & mask) | comp(x);
+    // the suffix's reverse complement is rc >> 2, the prefix's rc & km1
+    const u64 rc = revcomp(fwd, k);
+    const u64 q[3] = {umin(fwd, rc), umin(fwd & km1, rc >> 2), umin((fwd >> 2) & km1, rc & km1)};
+
+    int2 r[3];
+    r[0] = sidx::bucket_range(S, q[0]);
+    r[1] = sidx::bucket_range(R, q[1]);
+    r[2] = sidx::bucket_range(R, q[2]);
+    u64 kv[3][sidx::LOOKUP_KEYS];
+    sidx::load_keys(S, r[0], kv[0]);
+    sidx::load_keys(R, r[1], kv[1]);
+    sidx::load_keys(R, r[2], kv[2]);
+    const bool contains = sidx::resolve(S, r[0], kv[0], q[0]);
     int nb_in = 0, nb_out = 0;
     if (contains) {
+        u64 nq[8], nkv[8][sidx::LOOKUP_KEYS];
+        int2 nr[8];
+#pragma unroll
         for (u64 x = 0; x < 4; x++) {
-            nb_out += member(solid, n_solid, canonical(((fwd << 2) | x) & mask, k));
-            nb_in += member(solid, n_solid, canonical((fwd >> 2) | (x << (2 * (k - 1))), k));
+            nq[x] = umin(((fwd << 2) | x) & mask, (rc >> 2) | ((x ^ 2) << top));
+            nq[4 + x] = umin((fwd >> 2) | (x << top), ((rc << 2) & mask) | (x ^ 2));
+        }
+#pragma unroll
+        for (int x = 0; x < 8; x++) nr[x] = sidx::bucket_range(S, nq[x]);
+#pragma unroll
+        for (int x = 0; x < 8; x++) sidx::load_keys(S, nr[x], nkv[x]);
+#pragma unroll
+        for (int x = 0; x < 4; x++) {
+            nb_out += sidx::resolve(S, nr[x], nkv[x], nq[x]);
+            nb_in += sidx::resolve(S, nr[4 + x], nkv[4 + x], nq[4 + x]);
         }
     }
-    const u64 km1 = (1ull << (2 * (k - 1))) - 1;
     fwd_out[p] = (long long)fwd;
     valid_out[p] = valid;
     contains_out[p] = contains;
     nb_in_out[p] = nb_in;
     nb_out_out[p] = nb_out;
-    suffix_out[p] = member(repeat, n_repeat, canonical(fwd & km1, k - 1));
-    prefix_out[p] = member(repeat, n_repeat, canonical((fwd >> 2) & km1, k - 1));
+    suffix_out[p] = sidx::resolve(R, r[1], kv[1], q[1]);
+    prefix_out[p] = sidx::resolve(R, r[2], kv[2], q[2]);
 }
 
 }  // namespace
 
 // codes: w bytes; solid: n_solid and repeat: n_repeat sorted int64 words
-// (either may be empty); the seven planes: w - k + 1 each (fwd int64, the
+// (either may be empty), each with its bucket index (start, head) from
+// sorted_index_launch; the seven planes: w - k + 1 each (fwd int64, the
 // counts int32, the rest bool)
 extern "C" int scan_sorted_launch(const void* codes, int64_t w, int k, const void* solid, int64_t n_solid,
-                                  const void* repeat, int64_t n_repeat, void* fwd, void* valid, void* contains,
-                                  void* nb_in, void* nb_out, void* suffix_rep, void* prefix_rep, void* stream)
+                                  const void* solid_start, const void* solid_head, const void* repeat,
+                                  int64_t n_repeat, const void* repeat_start, const void* repeat_head, void* fwd,
+                                  void* valid, void* contains, void* nb_in, void* nb_out, void* suffix_rep,
+                                  void* prefix_rep, void* stream)
 {
     const int64_t p = w - k + 1;
     scan_sorted_kernel<<<(unsigned)((p + THREADS - 1) / THREADS), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, w, k, (const long long*)solid, n_solid, (const long long*)repeat, n_repeat,
-        (long long*)fwd, (bool*)valid, (bool*)contains, (int*)nb_in, (int*)nb_out, (bool*)suffix_rep,
-        (bool*)prefix_rep);
+        (const uint8_t*)codes, w, k, (const long long*)solid, n_solid, (const int*)solid_start,
+        (const long long*)solid_head, (const long long*)repeat, n_repeat, (const int*)repeat_start,
+        (const long long*)repeat_head, (long long*)fwd, (bool*)valid, (bool*)contains, (int*)nb_in, (int*)nb_out,
+        (bool*)suffix_rep, (bool*)prefix_rep);
     return (int)cudaGetLastError();
 }

@@ -6,8 +6,8 @@
 // Replaces: mindthegap_tpu/parallel/sharded_membership.py
 // ShardedMembership._build_fn's shard_fn, an XLA program on the TPU: the
 // Bloom probe and the owner routing into fixed-capacity send buffers (K12),
-// and the owner's binary search with the verdicts scattered back into lane
-// order (K13). The all_to_all exchanges between them are copies of the
+// and the owner's search (jnp.searchsorted) with the verdicts scattered
+// back into lane order (K13). The all_to_all exchanges between them are copies of the
 // send buffers between the shards (the wrapper's caller).
 //
 // Keys are u64 words held in int64; every compare here is unsigned, and the
@@ -28,8 +28,8 @@
 // Bound on this card: bytes. K12 reads 8 bytes a lane and the bitset
 // (replicated, 12 bits a key), writes 12 bytes a slot; K13 reads the
 // shard once (8 bytes a key) and 8 + 1 bytes a slot, writes a byte a lane.
-// Each Bloom probe and each binary-search step is a random 32-byte sector
-// when the bitset or the shard is above the 50 MB L2.
+// Each Bloom probe and each step of the owner's lookup is a random 32-byte
+// sector when the bitset or the shard is above the 50 MB L2.
 //
 // K12's design, one pass over the lanes:
 //   - The padding is a fill: (SENTINEL, -1) is all-ones bytes in both
@@ -60,11 +60,19 @@
 // Measured on an H100 80GB HBM3 at 700 W (kernel_bench.py, a shard of
 // 2^22 lanes over 4 owners, 1.84 M positives): 0.235 ms, of which the
 // memsets 0.021 and the pass 0.201.
-// K13 is the simple design: a thread a slot; the search is a plain lower
-// bound with its loads in order.
+// K13's probe looks up through the shard's bucket index (sorted_index.cuh,
+// built once per owner when the shards are placed): its bucket's bounds,
+// then the bucket's first keys, two dependent steps where a binary search
+// over the shard took ~21. Most slots are the padding (SENTINEL), answered
+// from the index's header with no load: found exactly on a shard whose
+// keys end in SENTINEL. A thread takes 4 slots, 256 apart, and issues the
+// loads of all of them before it resolves any. K13's scatter is a thread a
+// slot.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "sorted_index.cuh"
 
 namespace {
 
@@ -76,6 +84,7 @@ constexpr int GROUPS = TILE / 32;  // a tile's groups of 32 lanes, in lane order
 constexpr int MAX_SHARDS = 64;
 constexpr u64 STATE_AGGREGATE = 1, STATE_INCLUSIVE = 2;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int PROBE_THREADS = 256, PROBE_PER = 4;
 
 __constant__ u64 BLOOM_CONSTS[8] = {
     0x9E3779B97F4A7C15ull, 0xC2B2AE3D27D4EB4Full, 0xD6E8FEB86659FD93ull, 0xA0761D6478BD642Full,
@@ -228,20 +237,31 @@ __global__ void __launch_bounds__(THREADS) route_kernel(
     }
 }
 
-__global__ void member_probe_kernel(const long long* __restrict__ recv, int64_t m,
-                                    const long long* __restrict__ keys, int64_t n_keys,
-                                    uint8_t* __restrict__ found)
+// K13's probe: a thread takes PROBE_PER slots, PROBE_THREADS apart, and
+// issues the loads of all of them before it resolves any
+__global__ void __launch_bounds__(PROBE_THREADS) member_probe_kernel(
+    const long long* __restrict__ recv, int64_t m, const long long* __restrict__ keys, int64_t n_keys,
+    const int* __restrict__ start, const long long* __restrict__ head, uint8_t* __restrict__ found)
 {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m) return;
-    const u64 q = (u64)recv[i];
-    int64_t lo = 0, hi = n_keys;  // lower bound: the first key >= q
-    while (lo < hi) {
-        const int64_t mid = (lo + hi) >> 1;
-        if ((u64)__ldg(keys + mid) < q) lo = mid + 1; else hi = mid;
+    const sidx::Index x = sidx::load_index(keys, n_keys, start, head);
+    const int64_t i0 = (int64_t)blockIdx.x * PROBE_THREADS * PROBE_PER + threadIdx.x;
+    u64 q[PROBE_PER];
+    int2 r[PROBE_PER];
+    u64 kv[PROBE_PER][sidx::LOOKUP_KEYS];
+#pragma unroll
+    for (int t = 0; t < PROBE_PER; t++) {
+        const int64_t i = i0 + t * PROBE_THREADS;
+        q[t] = i < m ? (u64)recv[i] : SENTINEL;  // padding (SENTINEL) needs no load
     }
-    const int64_t idx = lo < n_keys - 1 ? lo : n_keys - 1;
-    found[i] = (u64)__ldg(keys + idx) == q;
+#pragma unroll
+    for (int t = 0; t < PROBE_PER; t++) r[t] = sidx::bucket_range(x, q[t]);
+#pragma unroll
+    for (int t = 0; t < PROBE_PER; t++) sidx::load_keys(x, r[t], kv[t]);
+#pragma unroll
+    for (int t = 0; t < PROBE_PER; t++) {
+        const int64_t i = i0 + t * PROBE_THREADS;
+        if (i < m) found[i] = sidx::resolve(x, r[t], kv[t], q[t]);
+    }
 }
 
 __global__ void member_scatter_kernel(const uint8_t* __restrict__ back, const int* __restrict__ send_lane,
@@ -282,13 +302,15 @@ extern "C" int member_route_launch(const void* queries, int64_t lanes, const voi
 }
 
 // K13 on the owner. recv: m int64 queries; keys: the shard's n_keys >= 1
-// sorted int64 keys; found: m bytes
-extern "C" int member_probe_launch(const void* recv, int64_t m, const void* keys, int64_t n_keys, void* found,
-                                   void* stream)
+// sorted int64 keys with their bucket index (start, head) from
+// sorted_index_launch; found: m bytes
+extern "C" int member_probe_launch(const void* recv, int64_t m, const void* keys, int64_t n_keys, const void* start,
+                                   const void* head, void* found, void* stream)
 {
-    const int threads = 256;
-    member_probe_kernel<<<(unsigned)((m + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-        (const long long*)recv, m, (const long long*)keys, n_keys, (uint8_t*)found);
+    const int64_t per_block = (int64_t)PROBE_THREADS * PROBE_PER;
+    member_probe_kernel<<<(unsigned)((m + per_block - 1) / per_block), PROBE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const long long*)recv, m, (const long long*)keys, n_keys, (const int*)start, (const long long*)head,
+        (uint8_t*)found);
     return (int)cudaGetLastError();
 }
 

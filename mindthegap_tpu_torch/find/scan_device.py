@@ -19,8 +19,9 @@ sends it to an automaton in one of these forms:
 - scan_pay_q_span (32 < k <= 256, the span map QMapSpan): payload bytes
   with repeat and strand bits; the hand kernel K6 (csrc/scan_span.cu);
 - scan_planes_sorted (k <= 32, the solid and repeat sets as sorted words,
-  no map): the seven planes by binary searches — the graft entry point and
-  parallel/mesh.py sharded_scan; the hand kernel K14 (csrc/scan_sorted.cu),
+  no map): the seven planes by membership lookups — the graft entry point
+  and parallel/mesh.py sharded_scan; the hand kernel K14
+  (csrc/scan_sorted.cu, over each set's bucket index, ops/sorted_index.py),
   with compute_planes_device, its windowed host wrapper.
 
 Each dispatcher runs its kernel on a CUDA tensor and its plain version
@@ -41,6 +42,7 @@ import torch
 from ..device import check_kernel_tensor, launch
 from ..ops import extmap as X
 from ..ops import kmers as K
+from ..ops import sorted_index as SI
 
 INVALID = 255
 
@@ -729,17 +731,30 @@ def _sorted_lib():
         lib = cuda_library("scan_sorted.cu", "libmtg_scan_sorted.so")
         lib.scan_sorted_launch.restype = ctypes.c_int
         lib.scan_sorted_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, *[ctypes.c_void_p] * 7, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+            *[ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p] * 2,
+            *[ctypes.c_void_p] * 8,
         ]
         _SORTED_LIB = lib
     return _SORTED_LIB
 
 
-def scan_planes_sorted_cuda(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int) -> dict:
-    """K14 (csrc/scan_sorted.cu): the same planes as _scan_planes_sorted_plain,
-    a thread a position, its codes staged in shared memory. Counts one
-    launch per window in `scan_planes_sorted_cuda.launches`."""
+def set_indexes(solid: torch.Tensor, repeat: torch.Tensor):
+    """The bucket indexes (ops/sorted_index.py) of the solid and the repeat
+    set on a CUDA device, for a caller that holds the sets fixed over many
+    scan_planes_sorted calls to build once and pass in; None on the CPU,
+    whose plain version needs none."""
+    return (SI.build(solid), SI.build(repeat)) if solid.is_cuda else None
+
+
+def scan_planes_sorted_cuda(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int,
+                            indexes=None) -> dict:
+    """K14 (csrc/scan_sorted.cu): the same planes as _scan_planes_sorted_plain.
+    `indexes` are the sets' bucket indexes (set_indexes); where none are
+    given, the wrapper builds them first (two launches of the build kernel,
+    in the same stream). Then a thread a position looks its eleven words up
+    in two dependent steps each. Counts one launch per window in
+    `scan_planes_sorted_cuda.launches`."""
     check_kernel_tensor(codes, "codes", torch.uint8, 1)
     check_kernel_tensor(solid, "solid", torch.int64, 1)
     check_kernel_tensor(repeat, "repeat", torch.int64, 1)
@@ -751,11 +766,14 @@ def scan_planes_sorted_cuda(codes: torch.Tensor, solid: torch.Tensor, repeat: to
     out = {"fwd": torch.empty(p, dtype=torch.int64, device=dev)}
     for key in PLANE_KEYS[1:]:
         out[key] = torch.empty(p, dtype=torch.int32 if key.startswith("nb_") else torch.bool, device=dev)
-    # an empty set is never read: any valid address stands in for it
+    if indexes is None:
+        indexes = set_indexes(solid, repeat)
+    # an empty set's keys are never read: any valid address stands in for them
+    sets = [arg for keys, index in zip((solid, repeat), indexes)
+            for arg in (keys.data_ptr() or codes.data_ptr(), keys.shape[0], index.start.data_ptr(),
+                        index.head.data_ptr())]
     launch("scan_sorted", _sorted_lib().scan_sorted_launch,
-           codes.data_ptr(), w, k, solid.data_ptr() or codes.data_ptr(), solid.shape[0],
-           repeat.data_ptr() or codes.data_ptr(), repeat.shape[0],
-           *(out[key].data_ptr() for key in PLANE_KEYS),
+           codes.data_ptr(), w, k, *sets, *(out[key].data_ptr() for key in PLANE_KEYS),
            device=dev)
     scan_planes_sorted_cuda.launches += 1
     return out
@@ -764,15 +782,19 @@ def scan_planes_sorted_cuda(codes: torch.Tensor, solid: torch.Tensor, repeat: to
 scan_planes_sorted_cuda.launches = 0
 
 
-def scan_planes_sorted(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int) -> dict:
+def scan_planes_sorted(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int,
+                       indexes=None) -> dict:
     """The plane pass of one padded window over sorted sets (the JAX
     package's scan_planes_device; k <= 32): codes u8[W] (255 = invalid),
     the solid set and the (k-1)-mer repeat set as int64 u64 words sorted in
-    unsigned order. Returns the seven planes of find/scan.py Planes, each
-    [W - k + 1] (fwd int64, nb_in/nb_out int32, the rest bool). On a CUDA
-    tensor this runs the kernel K14; on a CPU tensor its plain version."""
-    fn = scan_planes_sorted_cuda if codes.is_cuda else _scan_planes_sorted_plain
-    return fn(codes, solid, repeat, k)
+    unsigned order, and optionally their bucket indexes (set_indexes, built
+    once by a caller that holds the sets fixed). Returns the seven planes
+    of find/scan.py Planes, each [W - k + 1] (fwd int64, nb_in/nb_out
+    int32, the rest bool). On a CUDA tensor this runs the kernel K14; on a
+    CPU tensor its plain version."""
+    if codes.is_cuda:
+        return scan_planes_sorted_cuda(codes, solid, repeat, k, indexes)
+    return _scan_planes_sorted_plain(codes, solid, repeat, k)
 
 
 def compute_planes_device(codes: np.ndarray, k: int, solid_sorted, repeat_sorted, device,
@@ -788,6 +810,7 @@ def compute_planes_device(codes: np.ndarray, k: int, solid_sorted, repeat_sorted
         return Planes(*(z.astype(t) for t in (bool, np.uint64, bool, np.int32, np.int32, bool, bool)))
     solid = torch.from_numpy(K.as_i64(solid_sorted)).to(device)
     repeat = torch.from_numpy(K.as_i64(repeat_sorted)).to(device)
+    indexes = set_indexes(solid, repeat)
     outs = {key: [] for key in PLANE_KEYS}
     npos = codes.shape[0] - k + 1
     pos = 0
@@ -796,7 +819,7 @@ def compute_planes_device(codes: np.ndarray, k: int, solid_sorted, repeat_sorted
         chunk = np.full(window, INVALID, np.uint8)
         part = codes[pos : pos + take + k - 1]
         chunk[: part.shape[0]] = part
-        res = scan_planes_sorted(torch.from_numpy(chunk).to(device), solid, repeat, k)
+        res = scan_planes_sorted(torch.from_numpy(chunk).to(device), solid, repeat, k, indexes)
         for key in PLANE_KEYS:
             outs[key].append(res[key][:take].cpu().numpy())
         pos += take

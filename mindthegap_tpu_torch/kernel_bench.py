@@ -50,11 +50,19 @@ on shard 0 of the nine membership queries of 2^20 genome positions over
 the k = 31 set on 4 logical shards (2^22 lanes, chip_smoke.py's shape),
 each in turns with the earlier checkout's `swizzle_keys_cuda` and
 `member_route_cuda`; K12 also with the device time of each launch of
-both versions (torch.profiler) and the bitset loads it issues.
-`--only` names the stages to run (comma-separated keys of the JSON
-record: span_scan, span_walk, nw, scan, keys, walk, merge, planes, mesh;
-default all). Prints the card, one line per shape and, last, one JSON object of
-every time. Exits non-zero without a CUDA device.
+both versions (torch.profiler) and the bitset loads it issues. The sorted
+stage prints the registers of the bucket index's build kernel, K13 and
+K14, then times K14 (`scan_planes_sorted_cuda`) on chip_smoke.py's
+2^22-base window over the k = 31 set and at entry()'s shapes (through
+entry()'s own function), and K13's probe (`member_probe_cuda`) on owner 0
+of the K12 shape above (5.24 M slots), each in turns with the earlier
+checkout's, with the sets' bucket indexes passed in and built inside the
+wrapper, with the index builds' device time apart (torch.profiler) and
+the sectors the lookups read (bounds.py). `--only` names the stages to run
+(comma-separated keys of the JSON record: span_scan, span_walk, nw, scan,
+keys, walk, merge, planes, mesh, sorted; default all). Prints the card,
+one line per shape and, last, one JSON object of every time. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -73,7 +81,8 @@ import torch
 
 from ._build import ptxas_usage
 from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, SECTOR_BYTES, bloom_probe_loads, bytes_ms, nw_bound_ms,
-                     plane_scan_sectors, scan_probe_sectors, span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
+                     plane_scan_sectors, scan_probe_sectors, scan_sorted_sectors, sorted_lookup_sectors,
+                     span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
 from .device import cuda_ms, stage_ms
 from .fill import walk_device as W
 from .find import scan_device as S
@@ -81,6 +90,7 @@ from .ops import counting_device as C
 from .ops import extmap as X
 from .ops import kmers as K
 from .ops import nw_device as ND
+from .ops import sorted_index as SI
 from .ops.span import Span
 from .ops.span_device import span_width
 from .parallel import sharded_count as SC
@@ -406,14 +416,8 @@ def bench_mesh(rng, genome, solid, k, prev):
     print(f"K11 swizzle_keys, a 2^23-base flush: in turns, earlier {k11['prev_ms']} ms, current {k11['new_ms']} ms; "
           f"bound {k11['bound_ms']:.4f} ms (bytes)")
     # K12: shard 0 of the nine queries of 2^20 positions on MESH_SHARDS logical shards
-    positions = 1 << 20
-    fwd, _ = K.kmers_from_codes(genome[: positions + k - 1], k)
-    mask, top = K.kmer_mask(k), np.uint64(2 * (k - 1))
-    q = np.concatenate([K.canonical_u64(fwd, k)]
-                       + [K.canonical_u64(((fwd << np.uint64(2)) | np.uint64(x)) & mask, k) for x in range(4)]
-                       + [K.canonical_u64((fwd >> np.uint64(2)) | (np.uint64(x) << top), k) for x in range(4)])
     sm = SM.ShardedMembership([torch.device("cuda")] * MESH_SHARDS, solid)
-    rows, cap = sm.batch(q)
+    rows, cap = sm.batch(_member_queries(genome, k))
     args = sm.route_args(0, rows, cap)
     queries, bits, log_bits, n_hash, _, n, _ = args
     want = prev_sm.member_route_cuda(*args)
@@ -433,6 +437,130 @@ def bench_mesh(rng, genome, solid, k, prev):
           f"sectors/s, a sector a load); launches {k12['stages_ms']}; earlier launches {k12['prev_stages_ms']}; "
           f"bound {k12['bound_ms']:.4f} ms (bytes)")
     return {"registers": registers, "swizzle_keys": k11, "member_route": k12}
+
+
+def _smoke_k14_args(genome, solid, k, seed: int):
+    """chip_smoke.py's K14 window: the genome's first 2^22 bases with an N
+    run and 64 isolated Ns, over the solid set and a repeat set of every
+    50th (k-1)-mer of the genome."""
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    repeat = np.unique(K.canonical_u64(rfwd[::50], k - 1))
+    codes = genome[: 1 << 22].copy()
+    codes[1000:1100] = 255
+    codes[np.random.default_rng(seed).integers(0, codes.size, 64)] = 255
+    cuda = torch.device("cuda")
+    return (torch.from_numpy(codes).to(cuda), torch.from_numpy(K.as_i64(solid)).to(cuda),
+            torch.from_numpy(K.as_i64(repeat)).to(cuda), k)
+
+
+def _member_queries(genome, k):
+    """The nine membership queries (the canonical k-mer and its eight
+    neighbours) of each of the genome's first 2^20 positions."""
+    positions = 1 << 20
+    fwd, _ = K.kmers_from_codes(genome[: positions + k - 1], k)
+    mask, top = K.kmer_mask(k), np.uint64(2 * (k - 1))
+    return np.concatenate([K.canonical_u64(fwd, k)]
+                          + [K.canonical_u64(((fwd << np.uint64(2)) | np.uint64(x)) & mask, k) for x in range(4)]
+                          + [K.canonical_u64((fwd >> np.uint64(2)) | (np.uint64(x) << top), k) for x in range(4)])
+
+
+def _member_probe_args(genome, solid, k):
+    """Owner 0's received queries and keys of chip_smoke.py's K13 shape:
+    _member_queries over the solid set on MESH_SHARDS logical shards,
+    routed by K12 and exchanged."""
+    from .parallel import mesh as M
+
+    sm = SM.ShardedMembership([torch.device("cuda")] * MESH_SHARDS, solid)
+    rows, cap = sm.batch(_member_queries(genome, k))
+    routed = [SM.route(*sm.route_args(j, rows, cap)) for j in range(MESH_SHARDS)]
+    recv = M.exchange([r[0].reshape(MESH_SHARDS, cap) for r in routed], sm.mesh)
+    return recv[0], sm.shard_keys[0]
+
+
+def _in_turns(fns: dict, iters: int, rounds: int = 1) -> dict:
+    """cuda_ms of each function, in turns: every one in order, then in
+    reverse, `rounds` times. {name: [one time a turn]}."""
+    order = list(fns)
+    times = {name: [] for name in order}
+    for name in (order + order[::-1]) * rounds:
+        times[name].append(cuda_ms(fns[name], iters))
+    return times
+
+
+def bench_sorted(genome, solid, k, seed: int, prev_s, prev_sm):
+    """K14 on chip_smoke.py's 2^22-base window over the solid set and at
+    entry()'s shapes, and K13's probe on owner 0's 5.24 M slots of
+    chip_smoke.py's K13 shape, each equal to the earlier kernel and to its
+    plain version, timed in turns with the earlier one (earlier, the index
+    passed in, the index built in the wrapper, and back; three times at
+    entry()'s shapes, where a call is short): with the device time of the
+    index builds apart from the lookups and the earlier kernel's
+    (torch.profiler), the sectors the lookups read (bounds.py) and the
+    registers of every kernel."""
+    from . import graft_entry as G
+
+    registers = {}
+    for src in ("sorted_index.cu", "scan_sorted.cu", "sharded_member.cu"):
+        for name, regs, spill in ptxas_usage(src):
+            registers[name] = {"registers": regs, "spill_bytes": spill}
+    print("index build, K13 and K14 registers (spill bytes): "
+          + ", ".join(f"{key} {v['registers']} ({v['spill_bytes']})" for key, v in registers.items()))
+    out = {"registers": registers}
+
+    # K14: the smoke's window, then entry()'s function on its own sets
+    args = _smoke_k14_args(genome, solid, k, seed)
+    indexes = S.set_indexes(*args[1:3])
+    fn, eargs = G.entry()
+    shapes = {"window": (args, lambda: S.scan_planes_sorted_cuda(*args, indexes),
+                         lambda: S.scan_planes_sorted_cuda(*args), lambda: prev_s.scan_planes_sorted_cuda(*args)),
+              "entry": ((*eargs, 31), lambda: fn(*eargs), lambda: S.scan_planes_sorted(*eargs, 31),
+                        lambda: prev_s.scan_planes_sorted(*eargs, 31))}
+    k14 = {}
+    for shape, (sargs, given, built, prev) in shapes.items():
+        want = prev()
+        if not _equal(S._scan_planes_sorted_plain(*sargs), want):
+            raise AssertionError(f"K14's plain version differs from the earlier kernel ({shape})")
+        fns = {"earlier": prev, "index passed in": given, "index built in the wrapper": built}
+        for name, f in fns.items():
+            if not _equal(f(), want):
+                raise AssertionError(f"K14 ({shape}, {name}) differs from the earlier kernel")
+        sectors = scan_sorted_sectors(*sargs)
+        v = {"ms": _in_turns(fns, *((10, 1) if shape == "window" else (200, 3))), "sectors": sectors,
+             "contained": int(want["contains"].sum()),
+             "bound_ms": bytes_ms(sargs[0].numel() + 8 * (sargs[1].numel() + sargs[2].numel())
+                                  + 20 * (sargs[0].numel() - k + 1)),
+             "stages_ms": stage_ms(built, 5), "earlier_stages_ms": stage_ms(prev, 5)}
+        v["g_sectors_per_s"] = sectors / float(np.mean(v["ms"]["index passed in"])) / 1e6
+        k14[shape] = v
+        print(f"K14 scan_planes_sorted, {shape}: a {sargs[0].numel()}-base window over {sargs[1].numel()} keys "
+              f"({v['contained']} positions contained): in turns (ms) {v['ms']}; {sectors} sectors "
+              f"({v['g_sectors_per_s']:.1f} G/s with the index passed in); by launch with the builds "
+              f"{v['stages_ms']}, the earlier {v['earlier_stages_ms']}; bound {v['bound_ms']:.4f} ms (bytes)")
+    out["scan_planes_sorted"] = k14
+
+    # K13's probe
+    recv, keys = _member_probe_args(genome, solid, k)
+    want = prev_sm.member_probe_cuda(recv, keys)
+    if not torch.equal(SM._probe_plain(recv, keys), want):
+        raise AssertionError("K13's plain probe differs from the earlier kernel")
+    index = SI.build(keys)
+    fns = {"earlier": lambda: prev_sm.member_probe_cuda(recv, keys),
+           "index passed in": lambda: SM.member_probe_cuda(recv, keys, index),
+           "index built in the wrapper": lambda: SM.member_probe_cuda(recv, keys)}
+    for name, f in fns.items():
+        if not torch.equal(f(), want):
+            raise AssertionError(f"K13's probe ({name}) differs from the earlier kernel")
+    real = int((recv != -1).sum())
+    k13 = {"slots": recv.numel(), "real": real, "keys": keys.numel(), "ms": _in_turns(fns, 20),
+           "bound_ms": bytes_ms(9 * recv.numel() + 8 * keys.numel()),
+           "sectors": sorted_lookup_sectors(keys, index, recv),
+           "stages_ms": stage_ms(fns["index built in the wrapper"], 10)}
+    k13["g_sectors_per_s"] = k13["sectors"] / float(np.mean(k13["ms"]["index passed in"])) / 1e6
+    print(f"K13 member_probe: {k13['slots']} slots ({real} real) over {k13['keys']} keys: in turns (ms) "
+          f"{k13['ms']}; {k13['sectors']} sectors ({k13['g_sectors_per_s']:.1f} G/s with the index passed in); "
+          f"by launch with the build {k13['stages_ms']}; bound {k13['bound_ms']:.4f} ms (bytes)")
+    out["member_probe"] = k13
+    return out
 
 
 def span_registers() -> dict:
@@ -458,7 +586,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
         return 2
-    stages = ("span_scan", "span_walk", "nw", "scan", "keys", "walk", "merge", "planes", "mesh")
+    stages = ("span_scan", "span_walk", "nw", "scan", "keys", "walk", "merge", "planes", "mesh", "sorted")
     only = set(args.only.split(",")) if args.only else set(stages)
     if only - set(stages):
         ap.error(f"unknown stages {sorted(only - set(stages))} (choose from {', '.join(stages)})")
@@ -500,6 +628,9 @@ def main(argv=None) -> int:
         prev_mesh = tuple(importlib.import_module(f"prev_mindthegap_tpu_torch.parallel.{m}")
                           for m in ("sharded_count", "sharded_membership"))
         record["mesh"] = bench_mesh(np.random.default_rng(args.seed + 3), genome, solid, k, prev_mesh)
+    if "sorted" in only:
+        prev_sm = importlib.import_module("prev_mindthegap_tpu_torch.parallel.sharded_membership")
+        record["sorted"] = bench_sorted(genome, solid, k, args.seed + 4, prev_s, prev_sm)
     line = json.dumps(record)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -163,15 +163,23 @@ def _split(n_rows: int, mesh: list) -> int:
 def sharded_scan(mesh: list, windows: np.ndarray, solid_sorted, repeat_sorted, k: int) -> dict:
     """The find-scan plane pass over [n_windows, W] windows (each with its
     k-1 halo), the rows split over the mesh in contiguous blocks, the sorted
-    sets on every device (scan_planes_sorted: kernel K14 on CUDA). Returns
-    the stacked planes on the host, fwd as uint64."""
-    from ..find.scan_device import PLANE_KEYS, scan_planes_sorted
+    sets and their bucket indexes placed once on every device
+    (scan_planes_sorted: kernel K14 on CUDA). Returns the stacked planes on
+    the host, fwd as uint64."""
+    from ..find.scan_device import PLANE_KEYS, scan_planes_sorted, set_indexes
 
     per = _split(windows.shape[0], mesh)
-    sets = per_device(mesh, lambda d: tuple(torch.from_numpy(K.as_i64(a)).to(d)
-                                            for a in (solid_sorted, repeat_sorted)))
-    outs = [scan_planes_sorted(torch.from_numpy(np.ascontiguousarray(w)).to(mesh[i // per]), *sets[i // per], k)
-            for i, w in enumerate(windows)]
+
+    def place(d):
+        solid, repeat = (torch.from_numpy(K.as_i64(a)).to(d) for a in (solid_sorted, repeat_sorted))
+        return solid, repeat, set_indexes(solid, repeat)
+
+    sets = per_device(mesh, place)
+    outs = []
+    for i, w in enumerate(windows):
+        solid, repeat, indexes = sets[i // per]
+        outs.append(scan_planes_sorted(torch.from_numpy(np.ascontiguousarray(w)).to(mesh[i // per]),
+                                       solid, repeat, k, indexes))
     planes = {key: np.stack([o[key].cpu().numpy() for o in outs]) for key in PLANE_KEYS}
     planes["fwd"] = planes["fwd"].view(np.uint64)
     return planes

@@ -11,7 +11,8 @@ bits a key) prefilters the queries:
      the owner shard of its key range, into fixed-capacity send buffers
      (kernel K12, csrc/sharded_member.cu);
   2. the buffers are exchanged (each owner gets its rows of every shard's);
-  3. the owner binary-searches its sorted shard (kernel K13; Bloom false
+  3. the owner looks each query up in its sorted shard (kernel K13,
+     through the shard's bucket index, ops/sorted_index.py; Bloom false
      positives die here);
   4. the verdicts go back the same way and are scattered into lane order
      (K13's scatter).
@@ -32,6 +33,7 @@ import torch
 from ..device import check_kernel_tensor, launch
 from ..ops import bloom
 from ..ops import kmers as K
+from ..ops import sorted_index as SI
 from . import mesh as M
 
 _SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -94,7 +96,7 @@ def _lib():
         lib.member_route_tile.argtypes = []
         lib.member_probe_launch.restype = ctypes.c_int
         lib.member_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                                            ctypes.c_void_p, ctypes.c_void_p]
+                                            *[ctypes.c_void_p] * 4]
         lib.member_scatter_launch.restype = ctypes.c_int
         lib.member_scatter_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                                               ctypes.c_void_p]
@@ -133,18 +135,22 @@ def member_route_cuda(queries, bits, log_bits: int, n_hash: int, bounds, n: int,
 member_route_cuda.launches = 0
 
 
-def member_probe_cuda(recv, keys):
+def member_probe_cuda(recv, keys, index: SI.SortedIndex | None = None):
     """K13's probe (csrc/sharded_member.cu): the same bytes as _probe_plain,
-    a thread a received query. Counts its launches in
+    through the shard's bucket index (ops/sorted_index.py; built here, by
+    its build kernel, when the caller has none), 4 received queries a
+    thread, the padding answered without a lookup. Counts its launches in
     `member_probe_cuda.launches`."""
     check_kernel_tensor(recv, "recv", torch.int64, 1)
     check_kernel_tensor(keys, "keys", torch.int64, 1)
     if keys.shape[0] < 1 or recv.shape[0] < 1:
         raise ValueError("K13 probes at least one query in a shard of at least one key")
+    if index is None:
+        index = SI.build(keys)
     found = torch.empty(recv.shape[0], dtype=torch.uint8, device=recv.device)
     launch("member_probe", _lib().member_probe_launch,
-           recv.data_ptr(), recv.shape[0], keys.data_ptr(), keys.shape[0],
-           found.data_ptr(),
+           recv.data_ptr(), recv.shape[0], keys.data_ptr(), keys.shape[0], index.start.data_ptr(),
+           index.head.data_ptr(), found.data_ptr(),
            device=recv.device)
     member_probe_cuda.launches += 1
     return found
@@ -182,11 +188,11 @@ def route(queries, bits, log_bits: int, n_hash: int, bounds, n: int, cap: int):
     return fn(queries, bits, log_bits, n_hash, bounds, n, cap)
 
 
-def probe(recv, keys):
+def probe(recv, keys, index: SI.SortedIndex | None = None):
     """The owner's verdicts (uint8) on its received queries, over its sorted
-    shard. On a CUDA tensor this runs K13's probe; on a CPU tensor its plain
-    version."""
-    return (member_probe_cuda if recv.is_cuda else _probe_plain)(recv, keys)
+    shard and, on the card, the shard's bucket index. On a CUDA tensor this
+    runs K13's probe; on a CPU tensor its plain version."""
+    return member_probe_cuda(recv, keys, index) if recv.is_cuda else _probe_plain(recv, keys)
 
 
 def scatter(back, send_lane, lanes: int):
@@ -219,6 +225,8 @@ class ShardedMembership:
         self._bloom_nh = bf.n_hash
         self.shard_keys = [torch.from_numpy(K.as_i64(padded[j * per : (j + 1) * per])).to(d)
                            for j, d in enumerate(mesh)]
+        # each owner's bucket index on its own card, for K13 (the plain probe needs none)
+        self.shard_index = [SI.build(t) if t.is_cuda else None for t in self.shard_keys]
         self._replicated = M.per_device(mesh, lambda d: (torch.from_numpy(bf.bits.view(np.int32)).to(d),
                                                           torch.from_numpy(K.as_i64(self._bounds)).to(d)))
 
@@ -247,7 +255,7 @@ class ShardedMembership:
         rows, cap = self.batch(keys)
         lanes = rows.shape[1]
         routed = [route(*self.route_args(j, rows, cap)) for j in range(n)]
-        found = [probe(recv, self.shard_keys[o]).reshape(n, cap)
+        found = [probe(recv, self.shard_keys[o], self.shard_index[o]).reshape(n, cap)
                  for o, recv in enumerate(M.exchange([r[0].reshape(n, cap) for r in routed], self.mesh))]
         back = M.exchange(found, self.mesh)
         out = [scatter(back[d], routed[d][1], lanes).cpu() for d in range(n)]

@@ -13,6 +13,7 @@ from mindthegap_tpu_torch.find import scan_device as S
 from mindthegap_tpu_torch.ops import extmap as X
 from mindthegap_tpu_torch.ops import kmers as K
 from mindthegap_tpu_torch.ops import nw_device as ND
+from mindthegap_tpu_torch.ops import sorted_index as SI
 from mindthegap_tpu_torch.parallel import sharded_count as PSC
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
 from torch_tables import (MEMBER_EDGE_NAMES, PLANE_EDGE_NAMES, ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES, SORTED_EDGE_NAMES,
@@ -371,7 +372,8 @@ def test_dense_redispatch_runs_k10(cuda, k):
 
 # ---------------------------------------------------------------------------
 # the device mesh: K11 (sharded_count.cu), K12 and K13 (sharded_member.cu),
-# K14 (scan_sorted.cu); the mesh's paths on logical shards of the card
+# K14 (scan_sorted.cu), the bucket index of K13 and K14 (sorted_index.cu);
+# the mesh's paths on logical shards of the card
 
 @pytest.mark.parametrize("k", [1, 2, 3, 31, 32])
 @pytest.mark.parametrize("name", SWIZZLE_EDGE_NAMES)
@@ -406,10 +408,11 @@ def test_swizzle_kernel_matches_plain(cuda):
 
 @pytest.mark.parametrize("name", MEMBER_EDGE_NAMES + ROUTE_EDGE_NAMES)
 def test_member_kernels_edge_cases(cuda, name):
-    """K12 (the route), then K13 (the probe on each owner, the scatter on
-    each source) against their plain versions, stage by stage, on n logical
-    shards of the card (tests/torch_tables.py member_edge_cases, and K12's
-    64 shards in route_edge_cases); then the whole contains against
+    """K12 (the route), then K13 (the probe on each owner, through the
+    owner's bucket index and through one built in the wrapper, the scatter
+    on each source) against their plain versions, stage by stage, on n
+    logical shards of the card (tests/torch_tables.py member_edge_cases, and
+    K12's 64 shards in route_edge_cases); then the whole contains against
     np.isin."""
     from mindthegap_tpu_torch.parallel import mesh as M
 
@@ -426,8 +429,9 @@ def test_member_kernels_edge_cases(cuda, name):
         routed.append(got)
     found = []
     for o, recv in enumerate(M.exchange([r[0].reshape(n, cap) for r in routed], mesh)):
-        got = PSM.member_probe_cuda(recv, sm.shard_keys[o])
+        got = PSM.member_probe_cuda(recv, sm.shard_keys[o], sm.shard_index[o])
         assert torch.equal(got, PSM._probe_plain(recv, sm.shard_keys[o]))
+        assert torch.equal(PSM.member_probe_cuda(recv, sm.shard_keys[o]), got)  # the index built in the wrapper
         found.append(got.reshape(n, cap))
     for d, back in enumerate(M.exchange(found, mesh)):
         got = PSM.member_scatter_cuda(back, routed[d][1], rows.shape[1])
@@ -450,24 +454,64 @@ def test_scan_sorted_kernel_edge_cases(cuda, name, k):
         assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
 
 
+def _check_index_kernel(keys: torch.Tensor):
+    for halve in (0, 1, 2):  # about 1, 2 and 4 keys a bucket
+        log_b = max(1, SI.log_buckets(keys.shape[0]) - halve)
+        before = SI.build_cuda.launches
+        got, want = SI.build_cuda(keys, log_b), SI._build_plain(keys, log_b)
+        assert SI.build_cuda.launches == before + 1
+        assert torch.equal(got.start, want.start) and torch.equal(got.head, want.head)
+
+
+@pytest.mark.parametrize("name", MEMBER_EDGE_NAMES)
+def test_sorted_index_kernel_on_member_shards(cuda, name):
+    """The bucket index's build kernel against its plain version on every
+    owner's shard of K13's edge cases (SENTINEL padding included)."""
+    keys, _q, n, cap_factor = member_edge_cases()[name]
+    for shard in PSM.ShardedMembership([cuda] * n, keys, cap_factor=cap_factor).shard_keys:
+        _check_index_kernel(shard)
+
+
+@pytest.mark.parametrize("k", [2, 3, 31, 32])
+@pytest.mark.parametrize("name", SORTED_EDGE_NAMES)
+def test_sorted_index_kernel_on_sorted_sets(cuda, name, k):
+    """The build kernel against its plain version on K14's solid and repeat
+    sets of each edge window."""
+    _codes, solid, repeat = sorted_edge_windows(k)[name]
+    for keys in (solid, repeat):
+        _check_index_kernel(torch.from_numpy(K.as_i64(keys)).to(cuda))
+
+
 def test_entry_runs_k14(cuda):
-    """entry() on the card: its function is K14, equal to the plain pass."""
+    """entry() on the card: it builds each set's bucket index once (the
+    build kernel), its function is K14 alone on those sets, equal to the
+    plain pass, and builds the indexes of any other sets in the call."""
     from mindthegap_tpu_torch import graft_entry as G
 
+    before = SI.build_cuda.launches
     fn, args = G.entry()
-    assert all(a.is_cuda for a in args)
-    before = S.scan_planes_sorted_cuda.launches
-    got = fn(*args)
-    assert S.scan_planes_sorted_cuda.launches == before + 1
+    assert all(a.is_cuda for a in args) and SI.build_cuda.launches == before + 2
     want = S._scan_planes_sorted_plain(*args, 31)
+    other = (args[0], args[1].clone(), args[2])
+    for sets, builds in ((args, 0), (args, 0), (other, 2)):
+        before = S.scan_planes_sorted_cuda.launches, SI.build_cuda.launches
+        got = fn(*sets)
+        assert (S.scan_planes_sorted_cuda.launches, SI.build_cuda.launches) == (before[0] + 1, before[1] + builds)
+        for key in S.PLANE_KEYS:
+            assert torch.equal(got[key], want[key]), key
+    args[2][0] = args[2][1]  # in place: the repeat set's index no longer holds
+    before = SI.build_cuda.launches
+    got = fn(*args)
+    assert SI.build_cuda.launches == before + 2
     for key in S.PLANE_KEYS:
-        assert torch.equal(got[key], want[key]), key
+        assert torch.equal(got[key], S._scan_planes_sorted_plain(*args, 31)[key]), key
 
 
 def _check_mesh_paths(mesh):
     """On `mesh`: the sharded counter (K11) equals the host counter, also
     when its capacity overflows; sharded membership (K12, K13) equals
-    np.isin; the dryrun's value checks pass."""
+    np.isin, each owner's bucket index on the owner's card; the dryrun's
+    value checks pass."""
     from mindthegap_tpu_torch import graft_entry as G
     from mindthegap_tpu_torch.ops import counting as C
     from mindthegap_tpu_torch.parallel import mesh as M
@@ -491,7 +535,10 @@ def _check_mesh_paths(mesh):
         np.testing.assert_array_equal(got.histogram, want.histogram)
     before = (PSM.member_route_cuda.launches, PSM.member_probe_cuda.launches, PSM.member_scatter_cuda.launches)
     q = np.concatenate([want.kmers[::5], want.kmers[::7] ^ np.uint64(1)])
-    np.testing.assert_array_equal(PSM.ShardedMembership(mesh, want.kmers).contains(q), np.isin(q, want.kmers))
+    sm = PSM.ShardedMembership(mesh, want.kmers)
+    for dev, index in zip(mesh, sm.shard_index):  # each owner's bucket index on the owner's card
+        assert index.start.device == index.head.device == torch.empty(0, device=dev).device
+    np.testing.assert_array_equal(sm.contains(q), np.isin(q, want.kmers))
     after = (PSM.member_route_cuda.launches, PSM.member_probe_cuda.launches, PSM.member_scatter_cuda.launches)
     assert all(a == b + len(mesh) for a, b in zip(after, before))
     with M.logical_devices(mesh):

@@ -464,7 +464,8 @@ def swizzle_edge_chunks(k: int, seed: int = 0):
 
 MEMBER_EDGE_NAMES = ("mixed", "empty-set", "key-at-bound", "high-keys", "one-shard", "overflow", "one-lane",
                      "tiles-interleaved", "owner-at-cap", "owner-over-cap", "one-owner", "sentinel-queries",
-                     "eight-shards")
+                     "eight-shards", "one-far-key", "narrow-range", "sentinel-tail-1", "sentinel-tail-2",
+                     "sentinel-tail-3", "single-key", "outside-range")
 
 
 def _owner_runs(keys, counts, seed: int):
@@ -497,7 +498,13 @@ def member_edge_cases(seed: int = 0):
     (each one a Bloom positive) at a capacity of 64, with one owner's count
     on shard 0 exactly at the capacity, and at one above it (overflow); every
     query in one owner's key range, at a capacity that holds them all;
-    SENTINEL queries among real ones; 8 shards."""
+    SENTINEL queries among real ones; 8 shards. Then the sets that skew
+    the owners' bucket indexes (ops/sorted_index.py): 1,999 keys 3 apart
+    and one far key (the last shard's keys but one in its first bucket);
+    16 values 64 times each (a range smaller than the bucket count, every
+    key a duplicate); key counts that leave 1, 2 and 3 SENTINEL keys at the
+    end of the last shard (its padding slots found there); a single key
+    (three shards of SENTINEL alone); queries below and above every key."""
     rng = np.random.default_rng(seed)
     keys = np.unique(rng.integers(0, 1 << 62, 5000, dtype=np.uint64))
     keys = keys[: keys.size // 8 * 8]  # even shards: no SENTINEL padding among the keys
@@ -536,6 +543,25 @@ def member_edge_cases(seed: int = 0):
         "sentinel-queries": (keys, with_sentinel, 4, 1.25),
         "eight-shards": (keys, mixed, 8, 1.25),
     }
+    srng = np.random.default_rng(seed + 1)  # the skewed sets' own draws
+    cluster = np.arange(1999, dtype=np.uint64) * np.uint64(3) + np.uint64(1000)
+    far = np.uint64((1 << 62) + 12345)
+    far_q = np.concatenate([srng.choice(cluster, 1500), srng.integers(900, 7100, 1500, dtype=np.uint64),
+                            [far, far - one, far + one], srng.integers(0, 1 << 63, 200, dtype=np.uint64)])
+    narrow = np.repeat(np.arange(100, 116, dtype=np.uint64), 64)
+    cases["one-far-key"] = (np.append(cluster, far), far_q, 4, 1.25)
+    cases["narrow-range"] = (narrow, srng.integers(90, 130, 2000, dtype=np.uint64), 4, 1.25)
+    for tail in (1, 2, 3):
+        tkeys = np.unique(srng.integers(0, 1 << 62, 1200, dtype=np.uint64))[: 1000 - tail]
+        tq = np.concatenate([srng.choice(tkeys, 1000), srng.integers(0, 1 << 62, 1000, dtype=np.uint64)])
+        cases[f"sentinel-tail-{tail}"] = (tkeys, tq, 4, 1.25)
+    single = keys[100:101]
+    cases["single-key"] = (single, np.concatenate([single, single - one, single + one, mixed[:500]]), 4, 1.25)
+    inner = np.unique(srng.integers(1 << 40, 1 << 41, 3000, dtype=np.uint64))
+    outer = np.concatenate([srng.choice(inner, 1000), srng.integers(0, 1 << 40, 1000, dtype=np.uint64),
+                            srng.integers(1 << 41, 1 << 63, 1000, dtype=np.uint64), inner[[0, -1]] - one,
+                            inner[[0, -1]] + one])
+    cases["outside-range"] = (inner, outer, 4, 1.25)
     assert tuple(cases) == MEMBER_EDGE_NAMES
     return cases
 
@@ -558,7 +584,8 @@ def route_edge_cases(seed: int = 0):
     return cases
 
 
-SORTED_EDGE_NAMES = ("genome-ns", "empty-solid", "empty-repeat", "all-invalid", "shortest")
+SORTED_EDGE_NAMES = ("genome-ns", "empty-solid", "empty-repeat", "all-invalid", "shortest", "one-far-key",
+                     "narrow-range", "high-keys", "sentinel-tail", "single-key", "outside-range")
 
 
 def sorted_edge_windows(k: int, seed: int = 0):
@@ -567,7 +594,15 @@ def sorted_edge_windows(k: int, seed: int = 0):
     solid set (every third one left out, and 200 random keys added), its
     every 7th (k-1)-mer the repeat set, with N runs across the kernel's
     256-position blocks; the same window over an empty solid set and over an
-    empty repeat set; a window of invalid bases; a window of k bases."""
+    empty repeat set; a window of invalid bases; a window of k bases. Then
+    the same window over sets that skew their bucket indexes
+    (ops/sorted_index.py), each made of the window's own canonical k-mers
+    (and (k-1)-mers): the 100 smallest and one far key (all but one in the
+    first bucket, which is longer than a lookup's first loads); 16
+    consecutive words 8 times each (a range smaller than the bucket count;
+    at k = 2 the whole k-mer space); every word with 200 keys of 2^63 and
+    above (unsigned order); with a SENTINEL tail of 3 and of 1; a single
+    key; the middle half of the words (lookups below and above the range)."""
     from mindthegap_tpu_torch.ops import kmers as K
 
     rng = np.random.default_rng(seed)
@@ -589,5 +624,24 @@ def sorted_edge_windows(k: int, seed: int = 0):
         "all-invalid": (np.full(300, 255, np.uint8), solid, repeat),
         "shortest": (genome[1000 : 1000 + k].copy(), solid, repeat),
     }
+    srng = np.random.default_rng(seed + 1)  # the skewed sets' own draws
+    wfwd, _ = K.kmers_from_codes(genome[500:3500], k)
+    wrep, _ = K.kmers_from_codes(genome[500:3500], k - 1)
+    sets = (np.unique(K.canonical_u64(wfwd, k)), np.unique(K.canonical_u64(wrep, k - 1)))
+    far, sent = np.uint64((1 << 64) - 2), np.uint64(0xFFFFFFFFFFFFFFFF)
+
+    def narrow(words, width):
+        lo = max(0, min(int(words[words.size // 2]) - 8, (1 << (2 * width)) - 16))
+        return np.repeat(np.arange(lo, lo + 16, dtype=np.uint64), 8)
+
+    def high(words):
+        return np.unique(np.concatenate([words, srng.integers(1 << 63, (1 << 64) - 1, 200, dtype=np.uint64)]))
+
+    cases["one-far-key"] = (window, *(np.append(w[:100], far) for w in sets))
+    cases["narrow-range"] = (window, narrow(sets[0], k), narrow(sets[1], k - 1))
+    cases["high-keys"] = (window, high(sets[0]), high(sets[1]))
+    cases["sentinel-tail"] = (window, np.append(sets[0], [sent] * 3), np.append(sets[1], sent))
+    cases["single-key"] = (window, sets[0][sets[0].size // 3 :][:1], sets[1][:1])
+    cases["outside-range"] = (window, *(w[w.size // 4 : 3 * w.size // 4] for w in sets))
     assert tuple(cases) == SORTED_EDGE_NAMES
     return cases
