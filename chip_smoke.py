@@ -18,7 +18,11 @@ Phases, each of which must pass (any failure exits non-zero):
      window over the pair map of a bacterial-size solid set, and on its
      compaction edge cases; K8 (cuckoo map), K9 (bucket map) and K10
      (the pair map's dense stream) on the same window over the maps of the
-     same set, and on their edge windows at k 2 (K10: 3), 3, 31 and 32;
+     same set, and on their edge windows at k 2 (K10: 3), 3, 31 and 32
+     (K8 and K9 at k 31 also into plane views at unaligned offsets), and
+     K8 on its pipeline's cases at k 21, 31 and 32 (a window of over
+     1,024 tiles, a half-full map, every key absent, a full unsorted
+     stash);
      K2 on 256 seeded pairs of 50 to 10,000 bp
      (also against the native nw.cpp); K3 (+ the sort) on one default
      counting batch of 2^23 bases of the reads, and on its edge batches
@@ -40,7 +44,11 @@ Phases, each of which must pass (any failure exits non-zero):
      card, and once with the capacity forced to overflow (the host route),
      with K12's launches timed apart (torch.profiler) and its bitset loads
      counted, K13's probe through the owner's bucket index and through one
-     its wrapper builds (the build timed apart), with the sectors it reads;
+     its wrapper builds (the build timed apart), with the sectors it reads,
+     and K13's scatter on its own edge cases (whole and at unaligned
+     offsets), timed by the device time of its launches (torch.profiler:
+     its wrapper takes longer on the host than its launches on the card)
+     beside one PyTorch call of the same function (`index_put_`);
      K14 on a 2^22-base window over the sorted solid set and a repeat set
      (its two index builds timed apart, the sectors its lookups read), and
      at entry()'s shapes; the bucket index's build kernel on those sets,
@@ -48,8 +56,9 @@ Phases, each of which must pass (any failure exits non-zero):
      its capacity forced to overflow, against the host counter. The edge cases
      come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
      merge_edge_cases, edge_walk_case, span_edge_windows,
-     edge_walk_span_case, plane_edge_windows, swizzle_edge_chunks,
-     member_edge_cases, route_edge_cases, sorted_edge_windows), the generators the CUDA tests use, so the smoke and
+     edge_walk_span_case, plane_edge_windows, plane_pipeline_case,
+     swizzle_edge_chunks, member_edge_cases, route_edge_cases,
+     scatter_edge_cases, sorted_edge_windows), the generators the CUDA tests use, so the smoke and
      tests/test_torch_cuda.py check the same inputs; the script needs the
      checkout's tests/ directory for them.
      Each kernel's bound is the
@@ -328,6 +337,14 @@ def _smoke_window(ref: np.ndarray, window: int, seed: int):
     return tuple(torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
 
 
+def _plane_tables(host, layout: str):
+    """(the host map on the card, (its tables...) and its log as the plane kernels take them)."""
+    t = host.to("cuda")
+    if layout == "pair":
+        return t, (t.slots, t.stash_keys, t.stash_l, t.stash_r), host.log_size
+    return t, (t.slots, t.stash_keys, t.stash_payload), host.log_nb if layout == "bucket" else host.log_size
+
+
 def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: int) -> dict:
     """K8 (scan_planes_q, over the cuckoo map), K9 (scan_planes_qb, over the
     bucket map) and K10 (scan_pay_qp, over K1's pair map `qp`) against
@@ -342,7 +359,7 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
     from mindthegap_tpu_torch.find import scan_device as S
     from mindthegap_tpu_torch.ops import extmap as X
     from mindthegap_tpu_torch.ops import kmers as K
-    from torch_tables import plane_edge_windows
+    from torch_tables import PLANE_PIPELINE_NAMES, plane_edge_windows, plane_pipeline_case
 
     window = 1 << 22
     rfwd, _ = K.kmers_from_codes(ref, k - 1)
@@ -358,11 +375,7 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
         host = {"cuckoo": lambda: X.build_fused(solid, k, repeat), "bucket": lambda: X.build_fused_bucket(solid, k, repeat),
                 "pair": lambda: qp}[layout]()
         build_s = time.perf_counter() - t0
-        t = host.to("cuda")
-        if layout == "pair":
-            tables, log = (t.slots, t.stash_keys, t.stash_l, t.stash_r), host.log_size
-        else:
-            tables, log = (t.slots, t.stash_keys, t.stash_payload), host.log_nb if layout == "bucket" else host.log_size
+        t, tables, log = _plane_tables(host, layout)
         args = (packed, bad, *tables, log, k)
         got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
@@ -384,17 +397,32 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
             if layout == "pair" and kk < 3:
                 continue  # the pair map needs k >= 3
             eq, cases = plane_edge_windows(kk, layout)
-            te = eq.to("cuda")
-            if layout == "pair":
-                etables, elog = (te.slots, te.stash_keys, te.stash_l, te.stash_r), eq.log_size
-            else:
-                etables, elog = (te.slots, te.stash_keys, te.stash_payload), eq.log_nb if layout == "bucket" else eq.log_size
+            _, etables, elog = _plane_tables(eq, layout)
+            kerrs = []
             for codes in cases.values():
                 ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
                 g, w = kernel(ep, eb, *etables, elog, kk), plain(ep, eb, *etables, elog, kk)
-                torch.cuda.synchronize()
-                errs.append(_max_abs_err((g[key], w[key]) for key in w))
-            print(f"{label} edge cases (k {kk}: {', '.join(cases)}): max_abs_err {max(errs[-len(cases):])}")
+                kerrs.append(_max_abs_err((g[key], w[key]) for key in w))
+                if layout != "pair" and kk == 31:  # the planes as views at unaligned offsets
+                    views = {key: torch.zeros(v.numel() + 1, dtype=v.dtype, device="cuda")[1:] for key, v in w.items()}
+                    S._scan_planes_into(ep, eb, *etables, elog, kk, layout == "bucket", views)
+                    kerrs.append(_max_abs_err((views[key], w[key]) for key in w))
+            torch.cuda.synchronize()
+            errs += kerrs
+            also = "; also into plane views at unaligned offsets" if layout != "pair" and kk == 31 else ""
+            print(f"{label} edge cases (k {kk}: {', '.join(cases)}{also}): max_abs_err {max(kerrs)}")
+        if layout == "cuckoo":  # K8's pipeline: blocks taking several tiles, full miss queues, a full unsorted stash
+            kerrs = []
+            for kk in (21, 31, 32):
+                for case in PLANE_PIPELINE_NAMES:
+                    eq, codes = plane_pipeline_case(kk, case)
+                    _, etables, elog = _plane_tables(eq, layout)
+                    ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+                    g, w = kernel(ep, eb, *etables, elog, kk), plain(ep, eb, *etables, elog, kk)
+                    kerrs.append(_max_abs_err((g[key], w[key]) for key in w))
+            torch.cuda.synchronize()
+            errs += kerrs
+            print(f"{label} pipeline cases (k 21, 31, 32: {', '.join(PLANE_PIPELINE_NAMES)}): max_abs_err {max(kerrs)}")
         out[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound, "sectors": sectors,
                      "map_build_s": build_s,
                      "plane_bytes": n_pos * PLANE_BYTES_PER_POSITION if layout != "pair" else None}
@@ -1274,7 +1302,8 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
     from mindthegap_tpu_torch.ops import sorted_index as SI
     from mindthegap_tpu_torch.parallel import sharded_count as SC
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
-    from torch_tables import member_edge_cases, route_edge_cases, sorted_edge_windows, swizzle_edge_chunks
+    from torch_tables import (member_edge_cases, route_edge_cases, scatter_edge_cases, sorted_edge_windows,
+                              swizzle_edge_chunks)
 
     cuda = torch.device("cuda")
     out = {}
@@ -1358,8 +1387,41 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
         edge_errs.append(_member_stages(esm, erows, ecap)[0])
         if not np.array_equal(esm.contains(eq), np.isin(eq, ekeys)):
             raise AssertionError(f"sharded membership edge case {name} differs from np.isin")
+    # K13's scatter on its own edge cases, whole and as views at unaligned offsets (read a slot at a time)
+    for eb, el, elanes in scatter_edge_cases().values():
+        eb, el = torch.from_numpy(eb).to(cuda), torch.from_numpy(el).to(cuda)
+        ob = torch.empty(eb.numel() + 1, dtype=torch.uint8, device=cuda)
+        ol = torch.empty(el.numel() + 1, dtype=torch.int32, device=cuda)
+        ob[1:], ol[1:] = eb, el
+        want = SM._scatter_plain(eb, el, elanes)
+        for b, l in ((eb, el), (ob[1:], ol[1:])):
+            edge_errs.append(_max_abs_err([(SM.member_scatter_cuda(b, l, elanes), want)]))
     for name in records:
         out[name]["max_abs_err"] = max(err, *edge_errs)
+    # K13's scatter is shorter on the card than its wrapper on the host: CUDA events around the wrapper time the
+    # host's launch rate, so its time (and the library call's) is the device time of its launches (torch.profiler);
+    # the library call, index_put_ on zeroed lanes, has its real slots picked outside the timing
+    s_back, s_lane, s_lanes = scatter_args
+    s_real = s_lane >= 0
+    lane_real, verdict_real = s_lane[s_real].long(), s_back[s_real] != 0
+
+    def lib_scatter():
+        return torch.zeros(s_lanes, dtype=torch.bool, device=cuda).index_put_((lane_real,), verdict_real)
+
+    if not torch.equal(lib_scatter(), SM.member_scatter_cuda(*scatter_args)):
+        raise AssertionError("index_put_'s lanes differ from K13's scatter")
+    scatter_stages = stage_ms(lambda: SM.member_scatter_cuda(*scatter_args), iters=20)
+    lib_stages = stage_ms(lib_scatter, iters=20)
+    rec = out["member_scatter"]
+    rec.update(events_ms=rec["ms"], ms=sum(scatter_stages.values()), library_ms=sum(lib_stages.values()),
+               library_events_ms=_cuda_ms(lib_scatter, iters=10, warmup=2))
+    print(f"K13 member_scatter on shard 0: {int(s_real.sum())} of {s_lane.numel()} slots real, {s_lanes} lanes; "
+          "device time by launch (torch.profiler, ms a call) "
+          + ", ".join(f"{name} {t:.4f}" for name, t in scatter_stages.items())
+          + f" = {rec['ms']:.4f} ms (CUDA events around the wrapper {rec['events_ms']:.4f}); index_put_ "
+          + ", ".join(f"{name} {t:.4f}" for name, t in lib_stages.items())
+          + f" = {rec['library_ms']:.4f} ms (events {rec['library_events_ms']:.4f}); the edge cases (whole and at "
+          f"unaligned offsets) max_abs_err {max(edge_errs)}")
     # K13's probe with the index its wrapper builds, the build apart (torch.profiler), and its sectors
     probe_stages = stage_ms(lambda: SM.member_probe_cuda(recv, keys), iters=10)
     sectors = sorted_lookup_sectors(keys, index, recv)

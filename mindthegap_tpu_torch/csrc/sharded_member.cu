@@ -66,8 +66,18 @@
 // over the shard took ~21. Most slots are the padding (SENTINEL), answered
 // from the index's header with no load: found exactly on a shard whose
 // keys end in SENTINEL. A thread takes 4 slots, 256 apart, and issues the
-// loads of all of them before it resolves any. K13's scatter is a thread a
-// slot.
+// loads of all of them before it resolves any.
+// K13's scatter reads 4 bytes of lane a slot and writes one byte a real
+// one. A block takes 1,024 consecutive slots: a thread loads a quad of
+// them, its lanes in one 16-byte load and its four verdict bytes in one
+// 4-byte load only where the quad holds a real lane; the block passes them
+// through shared memory so that a warp's stores go to 32 consecutive
+// slots' lanes (in a segment of an owner's real slots they ascend: a few
+// sectors a store; stored straight from registers, a thread's quads would
+// spread a warp's stores over 128 slots' lanes).
+// Padding may stand anywhere (the plain version's contract). Lanes not
+// 16-byte aligned, or verdicts not 4-byte aligned, are read a slot at a
+// time. The lanes are zeroed first by a memset on the same stream.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,6 +95,7 @@ constexpr int MAX_SHARDS = 64;
 constexpr u64 STATE_AGGREGATE = 1, STATE_INCLUSIVE = 2;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int PROBE_THREADS = 256, PROBE_PER = 4;
+constexpr int SCATTER_THREADS = 256;
 
 __constant__ u64 BLOOM_CONSTS[8] = {
     0x9E3779B97F4A7C15ull, 0xC2B2AE3D27D4EB4Full, 0xD6E8FEB86659FD93ull, 0xA0761D6478BD642Full,
@@ -264,13 +275,44 @@ __global__ void __launch_bounds__(PROBE_THREADS) member_probe_kernel(
     }
 }
 
-__global__ void member_scatter_kernel(const uint8_t* __restrict__ back, const int* __restrict__ send_lane,
-                                      int64_t m, bool* __restrict__ out)
+// the lanes of slots 4q .. 4q + 3 (-1 past m): one 16-byte load where all
+// four are in and the lanes are aligned
+__device__ __forceinline__ int4 quad_lanes(const int* __restrict__ send_lane, int64_t q, int64_t m, bool vec) {
+    if (vec && 4 * q + 4 <= m) return __ldg(reinterpret_cast<const int4*>(send_lane) + q);
+    int l[4];
+#pragma unroll
+    for (int j = 0; j < 4; j++) l[j] = 4 * q + j < m ? __ldg(send_lane + 4 * q + j) : -1;
+    return make_int4(l[0], l[1], l[2], l[3]);
+}
+
+// the verdicts of slots 4q .. 4q + 3 (0 past m), a byte each
+__device__ __forceinline__ uint32_t quad_verdicts(const uint8_t* __restrict__ back, int64_t q, int64_t m, bool vec) {
+    if (vec && 4 * q + 4 <= m) return __ldg(reinterpret_cast<const unsigned*>(back) + q);
+    uint32_t v = 0;
+#pragma unroll
+    for (int j = 0; j < 4; j++) v |= 4 * q + j < m ? (uint32_t)__ldg(back + 4 * q + j) << (8 * j) : 0u;
+    return v;
+}
+
+__global__ void __launch_bounds__(SCATTER_THREADS) member_scatter_kernel(
+    const uint8_t* __restrict__ back, const int* __restrict__ send_lane, int64_t m, bool vec, bool* __restrict__ out)
 {
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m) return;
-    const int lane = send_lane[i];
-    if (lane >= 0) out[lane] = back[i] != 0;
+    __shared__ int4 s_lane[SCATTER_THREADS];
+    __shared__ uint32_t s_verdict[SCATTER_THREADS];
+    const int64_t q = (int64_t)blockIdx.x * SCATTER_THREADS + threadIdx.x;  // the thread's quad
+    const int4 l = q < (m + 3) / 4 ? quad_lanes(send_lane, q, m, vec) : make_int4(-1, -1, -1, -1);
+    s_lane[threadIdx.x] = l;
+    // all padding: every lane's sign bit set
+    s_verdict[threadIdx.x] = (l.x & l.y & l.z & l.w) < 0 ? 0u : quad_verdicts(back, q, m, vec);
+    __syncthreads();
+    const int* lanes = reinterpret_cast<const int*>(s_lane);
+    const uint8_t* verdicts = reinterpret_cast<const uint8_t*>(s_verdict);
+#pragma unroll
+    for (int r = 0; r < 4; r++) {
+        const int j = threadIdx.x + r * SCATTER_THREADS;  // the slot in the block's
+        const int lane = lanes[j];
+        if (lane >= 0) out[lane] = verdicts[j] != 0;
+    }
 }
 
 }  // namespace
@@ -315,11 +357,17 @@ extern "C" int member_probe_launch(const void* recv, int64_t m, const void* keys
 }
 
 // K13 on the source. back: m verdict bytes in slot order; send_lane: the m
-// slots' lanes (-1: padding); out: the lanes' bools, false on entry
-extern "C" int member_scatter_launch(const void* back, const void* send_lane, int64_t m, void* out, void* stream)
+// slots' lanes (-1: padding), each in [0, lanes) or -1; out: the lanes'
+// bools, zeroed here first
+extern "C" int member_scatter_launch(const void* back, const void* send_lane, int64_t m, void* out, int64_t lanes,
+                                     void* stream)
 {
-    const int threads = 256;
-    member_scatter_kernel<<<(unsigned)((m + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)back, (const int*)send_lane, m, (bool*)out);
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaMemsetAsync(out, 0, lanes, s);
+    if (err != cudaSuccess) return (int)err;
+    const bool vec = (uintptr_t)send_lane % 16 == 0 && (uintptr_t)back % 4 == 0;
+    const int64_t per_block = 4 * SCATTER_THREADS;
+    member_scatter_kernel<<<(unsigned)((m + per_block - 1) / per_block), SCATTER_THREADS, 0, s>>>(
+        (const uint8_t*)back, (const int*)send_lane, m, vec, (bool*)out);
     return (int)cudaGetLastError();
 }

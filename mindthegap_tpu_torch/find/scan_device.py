@@ -511,6 +511,19 @@ def _planes_lib():
 
 
 def _scan_planes_cuda(packed, badbits, slots, stash_k, stash_v, log: int, k: int, bucket: bool) -> dict:
+    p = max(packed.shape[0] * 4 - k + 1, 0)
+    out = {key: torch.empty(p, dtype=_plane_dtype(key), device=packed.device) for key in PLANE_KEYS}
+    _scan_planes_into(packed, badbits, slots, stash_k, stash_v, log, k, bucket, out)
+    return out
+
+
+def _plane_dtype(key: str) -> torch.dtype:
+    return torch.int64 if key == "fwd" else torch.int32 if key.startswith("nb_") else torch.bool
+
+
+def _scan_planes_into(packed, badbits, slots, stash_k, stash_v, log: int, k: int, bucket: bool, out: dict):
+    """K8 or K9 into the planes `out` ({PLANE_KEYS: P entries}, views at
+    any offset: those not 16-byte aligned are written element by element)."""
     check_kernel_tensor(packed, "packed", torch.uint8, 1)
     check_kernel_tensor(badbits, "badbits", torch.uint8, 1)
     check_kernel_tensor(slots, "slots", torch.int64, 1)
@@ -530,24 +543,25 @@ def _scan_planes_cuda(packed, badbits, slots, stash_k, stash_v, log: int, k: int
         raise ValueError("the stash must hold 1..64 keys and as many payloads")
     if not 2 <= k <= 32 or w < k or w >= 1 << 31:
         raise ValueError(f"k must be in [2, 32] and the window in [k, 2^31), got k={k}, window={w}")
-    dev = packed.device
     p = w - k + 1
-    out = {"fwd": torch.empty(p, dtype=torch.int64, device=dev)}
-    for key in PLANE_KEYS[1:]:
-        out[key] = torch.empty(p, dtype=torch.int32 if key.startswith("nb_") else torch.bool, device=dev)
+    for key in PLANE_KEYS:
+        t = out[key]
+        if t.shape != (p,) or t.dtype != _plane_dtype(key) or t.device != packed.device or t.stride() != (1,):
+            raise ValueError(f"plane {key} must hold {p} contiguous {_plane_dtype(key)} on {packed.device}")
     launch("scan_planes", _planes_lib().scan_planes_launch,
            packed.data_ptr(), badbits.data_ptr(), w, slots.data_ptr(), log, int(bucket),
            stash_k.data_ptr(), stash_v.data_ptr(), n_stash, k,
            *(out[key].data_ptr() for key in PLANE_KEYS),
-           device=dev)
-    return out
+           device=packed.device)
 
 
 def scan_planes_q_cuda(packed, badbits, slots, stash_k, stash_v, log_size: int, k: int) -> dict:
     """K8 (csrc/scan_planes.cu over the cuckoo map): the same planes as
-    _scan_planes_q_plain, each thread probing 4 consecutive (k-1)-mers
-    (the second slot only after a miss) from bases staged in shared
-    memory. Counts one launch per window in `scan_planes_q_cuda.launches`."""
+    _scan_planes_q_plain, in one launch of persistent blocks over tiles of
+    1,024 positions: a tile's first-choice probes in flight with the tile
+    before's second-choice probes (the keys that missed, queued in shared
+    memory) and plane stores. Counts one launch per window in
+    `scan_planes_q_cuda.launches`."""
     out = _scan_planes_cuda(packed, badbits, slots, stash_k, stash_v, log_size, k, bucket=False)
     scan_planes_q_cuda.launches += 1
     return out

@@ -3,10 +3,12 @@ repository, in one process on the same card and inputs: K1 (the whole
 scan_cls_qp), K2 (the NW match counts), K3 (k-mer keys, and sort_batch
 around it), K4 (the counting merge), K5 (the fill walker, with a sweep
 of its look-ahead depth), K6 (the span scan) and K7 (the
-span walker, with a sweep of its look-ahead depth); then K8, K9 and K10
-(the plane path's kernels, new since the earlier checkouts) in turns
-beside K1; then K11 (sharded counting's key routing) and K12 (sharded
-membership's route, its launches apart).
+span walker, with a sweep of its look-ahead depth); then K8 and K9 (the
+plane path's kernels over the cuckoo and bucket maps) in turns with the
+earlier checkout's and beside K1 and K10, with the card's random-sector
+yardstick; then K11 (sharded counting's key routing) and K12 (sharded
+membership's route, its launches apart); then K14 and K13 (the owner's
+probe and the scatter back).
 
     python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE] [--only STAGES]
 
@@ -40,10 +42,17 @@ with a repeat set of every 50th (k-1)-mer of the scanned window) and of a
 runs and isolated Ns, K7 walks from the genome's k-mers with a budget of
 10,000 and 2,048 steps at every look-ahead depth (k = 45: 1 to 16,384
 lanes; k = 128: 1 to 4,096), each against the earlier kernel in turns. The registers and spills of every K6 and K7 instantiation come
-first (nvcc -Xptxas -v). K8 (cuckoo map), K9 (bucket map) and K10 (pair
-map) scan K1's 2^22-base window of the genome over the maps of its k = 31
-set (K1's repeat set), each held to its plain version once, then timed in
-turns with K1 on the same window (K1, K8, K9, K10, K10, K9, K8, K1).
+first (nvcc -Xptxas -v). The planes stage prints the registers and spills
+of scan_planes.cu's kernels, then K8 (cuckoo map), K9 (bucket map) and
+K10 (pair map) scan K1's 2^22-base window of the genome over the maps of
+its k = 31 set (K1's repeat set), each held to its plain version once (K8
+and K9 also the earlier checkout's `scan_planes_q_cuda` and
+`scan_planes_qb_cuda`), then all of them and K1 are timed in turns, twice
+(each in order, then back), with K8's and K9's launches by torch.profiler;
+last the random-sector yardstick: torch.index_select of 2^22 random rows
+of a 128 MB int64 table, and of as many rows as K8's probes read sectors,
+in sectors a second, and K8's time at that rate (its probes) and at 3.35
+TB/s (its planes).
 The mesh stage prints the registers and spills of K11-K13 (nvcc -Xptxas
 -v), then times K11 on a 2^23-base flush of the same kind of reads and K12
 on shard 0 of the nine membership queries of 2^20 genome positions over
@@ -58,7 +67,13 @@ entry()'s own function), and K13's probe (`member_probe_cuda`) on owner 0
 of the K12 shape above (5.24 M slots), each in turns with the earlier
 checkout's, with the sets' bucket indexes passed in and built inside the
 wrapper, with the index builds' device time apart (torch.profiler) and
-the sectors the lookups read (bounds.py). `--only` names the stages to run
+the sectors the lookups read (bounds.py); then K13's scatter
+(`member_scatter_cuda`) of shard 0's verdicts back into its 2^22 lanes, in
+turns with the earlier checkout's and with one PyTorch call of the same
+function (`index_put_` on zeroed lanes, the real slots picked outside the
+timing), by CUDA events (the host's launch rate, where a call's host side
+is the longer) and by each launch's device time (torch.profiler, in
+turns). `--only` names the stages to run
 (comma-separated keys of the JSON record: span_scan, span_walk, nw, scan,
 keys, walk, merge, planes, mesh, sorted; default all). Prints the card,
 one line per shape and, last, one JSON object of every time. Exits
@@ -80,9 +95,9 @@ import numpy as np
 import torch
 
 from ._build import ptxas_usage
-from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, SECTOR_BYTES, bloom_probe_loads, bytes_ms, nw_bound_ms,
-                     plane_scan_sectors, scan_probe_sectors, scan_sorted_sectors, sorted_lookup_sectors,
-                     span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
+from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, PLANE_BYTES_PER_POSITION, SECTOR_BYTES, bloom_probe_loads,
+                     bytes_ms, nw_bound_ms, plane_scan_sectors, scan_probe_sectors, scan_sorted_sectors,
+                     sorted_lookup_sectors, span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
 from .device import cuda_ms, stage_ms
 from .fill import walk_device as W
 from .find import scan_device as S
@@ -339,10 +354,29 @@ def bench_span_walk(rng, fwd, qms, k, prev_w):
 
 
 
-def bench_planes(genome, solid, k, seed: int):
+def random_sector_rate(n_rows: int, seed: int, table_mb: int = 128) -> dict:
+    """The card's rate of random reads from a table far above the 50 MB
+    L2: torch.index_select of n_rows random rows of a table_mb MB int64
+    table (each row one 32-byte sector), three times. {"rows", "ms": [one
+    time a run], "g_sectors_per_s": at the best run}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.randint(-(1 << 62), 1 << 62, (table_mb << 17,), dtype=torch.int64, device="cuda", generator=gen)
+    idx = torch.randint(0, table.numel(), (n_rows,), device="cuda", generator=gen)
+    ms = [cuda_ms(lambda: torch.index_select(table, 0, idx), 20) for _ in range(3)]
+    return {"rows": n_rows, "table_mb": table_mb, "ms": ms, "g_sectors_per_s": n_rows / min(ms) / 1e6}
+
+
+def bench_planes(genome, solid, k, seed: int, prev_s):
     """K8, K9 and K10 on K1's window (bench_scan's: the same N runs from
     the same seed's draws are not reused, so the window is made here from
-    `seed`), each equal to its plain version, then in turns with K1."""
+    `seed`), each equal to its plain version (K8 and K9 also to the earlier
+    checkout's), then in turns, twice, with the earlier K8 and K9 and with
+    K1; the registers and spills of scan_planes.cu's kernels first, and
+    last the random-sector yardstick (random_sector_rate) at 2^22 rows and
+    at the rows K8's probes read."""
+    registers = {name: {"registers": regs, "spill_bytes": spill} for name, regs, spill in ptxas_usage("scan_planes.cu")}
+    print("scan_planes.cu registers (spill bytes): " + ", ".join(f"{key} {v['registers']} ({v['spill_bytes']})"
+                                                                for key, v in registers.items()))
     window = 1 << 22
     rng = np.random.default_rng(seed)
     rfwd, _ = K.kmers_from_codes(genome, k - 1)
@@ -355,31 +389,41 @@ def bench_planes(genome, solid, k, seed: int):
                   X.build_fused_bucket(solid, k, repeat))
     tp, tm, tb = qp.to("cuda"), qm.to("cuda"), qb.to("cuda")
     pair = (packed, bad, tp.slots, tp.stash_keys, tp.stash_l, tp.stash_r, qp.log_size, k)
-    calls = {"K1": lambda: S.scan_cls_qp_cuda(*pair, (window - k + 2 + 3) // 4 * 4 // 8),
-             "K8": lambda: S.scan_planes_q_cuda(packed, bad, tm.slots, tm.stash_keys, tm.stash_payload, qm.log_size, k),
-             "K9": lambda: S.scan_planes_qb_cuda(packed, bad, tb.slots, tb.stash_keys, tb.stash_payload, qb.log_nb, k),
+    q_args = (packed, bad, tm.slots, tm.stash_keys, tm.stash_payload, qm.log_size, k)
+    qb_args = (packed, bad, tb.slots, tb.stash_keys, tb.stash_payload, qb.log_nb, k)
+    calls = {"earlier K8": lambda: prev_s.scan_planes_q_cuda(*q_args), "K8": lambda: S.scan_planes_q_cuda(*q_args),
+             "earlier K9": lambda: prev_s.scan_planes_qb_cuda(*qb_args), "K9": lambda: S.scan_planes_qb_cuda(*qb_args),
+             "K1": lambda: S.scan_cls_qp_cuda(*pair, (window - k + 2 + 3) // 4 * 4 // 8),
              "K10": lambda: S.scan_pay_qp_cuda(*pair)}
-    plains = {"K8": lambda: S._scan_planes_q_plain(packed, bad, tm.slots, tm.stash_keys, tm.stash_payload,
-                                                   qm.log_size, k),
-              "K9": lambda: S._scan_planes_qb_plain(packed, bad, tb.slots, tb.stash_keys, tb.stash_payload,
-                                                    qb.log_nb, k),
-              "K10": lambda: S._scan_pay_qp_plain(*pair)}
+    plains = {"K8": lambda: S._scan_planes_q_plain(*q_args), "K9": lambda: S._scan_planes_qb_plain(*qb_args),
+              "K10": lambda: S._scan_pay_qp_plain(*pair), "earlier K8": lambda: S._scan_planes_q_plain(*q_args),
+              "earlier K9": lambda: S._scan_planes_qb_plain(*qb_args)}
     for name, plain in plains.items():
         if not _equal(calls[name](), plain()):
             raise AssertionError(f"{name} differs from its plain version")
-    order = ["K1", "K8", "K9", "K10"]
-    times = {name: [] for name in order}
-    for name in order + order[::-1]:
-        times[name].append(cuda_ms(calls[name], 20))
+    times = _turns(calls, 20, rounds=2)
     sectors = {"K1": scan_probe_sectors(packed, bad, tp, k), "K8": plane_scan_sectors(packed, bad, tm, k),
                "K9": plane_scan_sectors(packed, bad, tb, k)}
     sectors["K10"] = sectors["K1"]
-    row = {"window": window, "ms": times, "sectors": sectors,
-           "table_mb": {"K1": qp.nbytes >> 20, "K8": qm.nbytes >> 20, "K9": qb.nbytes >> 20, "K10": qp.nbytes >> 20}}
-    print("plane kernels on K1's 2^22-base window, in turns (K1, K8, K9, K10, K10, K9, K8, K1): "
-          + ", ".join(f"{name} {times[name]} ms ({sectors[name]} sectors, table {row['table_mb'][name]} MB)"
-                      for name in order))
+    n_pos = window - k + 1
+    row = {"window": window, "registers": registers, "ms": times, "sectors": sectors,
+           "table_mb": {"K1": qp.nbytes >> 20, "K8": qm.nbytes >> 20, "K9": qb.nbytes >> 20, "K10": qp.nbytes >> 20},
+           "stages_ms": {name: stage_ms(calls[name], 10) for name in ("earlier K8", "K8", "earlier K9", "K9")},
+           "bound_ms": {name: bytes_ms(sectors[name] * SECTOR_BYTES + packed.numel() + bad.numel()
+                                       + PLANE_BYTES_PER_POSITION * n_pos) for name in ("K8", "K9")}}
+    print(f"plane kernels on K1's 2^22-base window, in turns twice ({', '.join(calls)}, and back): "
+          + ", ".join(f"{name} {times[name]} ms" for name in calls)
+          + "; " + ", ".join(f"{name} {sectors[name]} sectors (table {row['table_mb'][name]} MB)" for name in sectors)
+          + f"; by launch (torch.profiler) {row['stages_ms']}; bounds (bytes) {row['bound_ms']}")
+    yard = [random_sector_rate(n, seed) for n in (1 << 22, sectors["K8"])]
+    rate = max(y["g_sectors_per_s"] for y in yard) * 1e9
+    row["random_sectors"] = yard
+    row["k8_ceiling_ms"] = sectors["K8"] / rate * 1e3 + bytes_ms(PLANE_BYTES_PER_POSITION * n_pos)
+    print("random-sector yardstick, torch.index_select of random rows of a 128 MB int64 table: "
+          + "; ".join(f"{y['rows']} rows {y['ms']} ms, {y['g_sectors_per_s']:.1f} G sectors/s" for y in yard)
+          + f"; K8's probes at that rate and its planes at 3.35 TB/s: {row['k8_ceiling_ms']:.4f} ms")
     return row
+
 
 def bench_mesh(rng, genome, solid, k, prev):
     """K11 on a 2^23-base flush of reads (the sort_batch batch's shape),
@@ -464,20 +508,24 @@ def _member_queries(genome, k):
                           + [K.canonical_u64((fwd >> np.uint64(2)) | (np.uint64(x) << top), k) for x in range(4)])
 
 
-def _member_probe_args(genome, solid, k):
-    """Owner 0's received queries and keys of chip_smoke.py's K13 shape:
-    _member_queries over the solid set on MESH_SHARDS logical shards,
-    routed by K12 and exchanged."""
+def _member_shard0(genome, solid, k):
+    """chip_smoke.py's K13 shape: _member_queries over the solid set on
+    MESH_SHARDS logical shards, routed by K12 and exchanged, probed by K13
+    and exchanged back. (owner 0's received queries, its keys; shard 0's
+    verdicts in slot order, its slots' lanes, its lane count)."""
     from .parallel import mesh as M
 
     sm = SM.ShardedMembership([torch.device("cuda")] * MESH_SHARDS, solid)
     rows, cap = sm.batch(_member_queries(genome, k))
     routed = [SM.route(*sm.route_args(j, rows, cap)) for j in range(MESH_SHARDS)]
     recv = M.exchange([r[0].reshape(MESH_SHARDS, cap) for r in routed], sm.mesh)
-    return recv[0], sm.shard_keys[0]
+    found = [SM.probe(recv[o], sm.shard_keys[o], sm.shard_index[o]).reshape(MESH_SHARDS, cap)
+             for o in range(MESH_SHARDS)]
+    back = M.exchange(found, sm.mesh)
+    return recv[0], sm.shard_keys[0], back[0].reshape(-1), routed[0][1], rows.shape[1]
 
 
-def _in_turns(fns: dict, iters: int, rounds: int = 1) -> dict:
+def _turns(fns: dict, iters: int, rounds: int = 1) -> dict:
     """cuda_ms of each function, in turns: every one in order, then in
     reverse, `rounds` times. {name: [one time a turn]}."""
     order = list(fns)
@@ -525,7 +573,7 @@ def bench_sorted(genome, solid, k, seed: int, prev_s, prev_sm):
             if not _equal(f(), want):
                 raise AssertionError(f"K14 ({shape}, {name}) differs from the earlier kernel")
         sectors = scan_sorted_sectors(*sargs)
-        v = {"ms": _in_turns(fns, *((10, 1) if shape == "window" else (200, 3))), "sectors": sectors,
+        v = {"ms": _turns(fns, *((10, 1) if shape == "window" else (200, 3))), "sectors": sectors,
              "contained": int(want["contains"].sum()),
              "bound_ms": bytes_ms(sargs[0].numel() + 8 * (sargs[1].numel() + sargs[2].numel())
                                   + 20 * (sargs[0].numel() - k + 1)),
@@ -539,7 +587,7 @@ def bench_sorted(genome, solid, k, seed: int, prev_s, prev_sm):
     out["scan_planes_sorted"] = k14
 
     # K13's probe
-    recv, keys = _member_probe_args(genome, solid, k)
+    recv, keys, back, send_lane, lanes = _member_shard0(genome, solid, k)
     want = prev_sm.member_probe_cuda(recv, keys)
     if not torch.equal(SM._probe_plain(recv, keys), want):
         raise AssertionError("K13's plain probe differs from the earlier kernel")
@@ -551,7 +599,7 @@ def bench_sorted(genome, solid, k, seed: int, prev_s, prev_sm):
         if not torch.equal(f(), want):
             raise AssertionError(f"K13's probe ({name}) differs from the earlier kernel")
     real = int((recv != -1).sum())
-    k13 = {"slots": recv.numel(), "real": real, "keys": keys.numel(), "ms": _in_turns(fns, 20),
+    k13 = {"slots": recv.numel(), "real": real, "keys": keys.numel(), "ms": _turns(fns, 20),
            "bound_ms": bytes_ms(9 * recv.numel() + 8 * keys.numel()),
            "sectors": sorted_lookup_sectors(keys, index, recv),
            "stages_ms": stage_ms(fns["index built in the wrapper"], 10)}
@@ -560,6 +608,30 @@ def bench_sorted(genome, solid, k, seed: int, prev_s, prev_sm):
           f"{k13['ms']}; {k13['sectors']} sectors ({k13['g_sectors_per_s']:.1f} G/s with the index passed in); "
           f"by launch with the build {k13['stages_ms']}; bound {k13['bound_ms']:.4f} ms (bytes)")
     out["member_probe"] = k13
+
+    # K13's scatter, and one PyTorch call of the same function (the real slots picked outside the timing)
+    want = prev_sm.member_scatter_cuda(back, send_lane, lanes)
+    real = send_lane >= 0
+    lane_real, verdict_real = send_lane[real].long(), back[real] != 0
+    fns = {"earlier": lambda: prev_sm.member_scatter_cuda(back, send_lane, lanes),
+           "current": lambda: SM.member_scatter_cuda(back, send_lane, lanes),
+           "index_put_": lambda: torch.zeros(lanes, dtype=torch.bool, device="cuda").index_put_((lane_real,),
+                                                                                              verdict_real)}
+    if not torch.equal(SM._scatter_plain(back, send_lane, lanes), want):
+        raise AssertionError("K13's plain scatter differs from the earlier kernel")
+    for name, f in fns.items():
+        if not torch.equal(f(), want):
+            raise AssertionError(f"K13's scatter ({name}) differs from the earlier kernel")
+    m = send_lane.numel()
+    stages = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        stages[name].append(stage_ms(fns[name], 20))
+    k13s = {"slots": m, "real": int(real.sum()), "lanes": lanes, "ms": _turns(fns, 50, 2), "stages_ms": stages,
+            "bound_ms": bytes_ms(m + 4 * m + lanes)}
+    print(f"K13 member_scatter: {m} slots ({k13s['real']} real) into {lanes} lanes: in turns (ms, the host's launch "
+          f"rate where a call's host side is longer than its device time) {k13s['ms']}; device time by launch "
+          f"(torch.profiler, in turns) {stages}; bound {k13s['bound_ms']:.4f} ms (bytes)")
+    out["member_scatter"] = k13s
     return out
 
 
@@ -623,7 +695,7 @@ def main(argv=None) -> int:
         if name in only:
             record[name] = bench()
     if "planes" in only:
-        record["planes"] = bench_planes(genome, solid, k, args.seed + 2)
+        record["planes"] = bench_planes(genome, solid, k, args.seed + 2, prev_s)
     if "mesh" in only:
         prev_mesh = tuple(importlib.import_module(f"prev_mindthegap_tpu_torch.parallel.{m}")
                           for m in ("sharded_count", "sharded_membership"))

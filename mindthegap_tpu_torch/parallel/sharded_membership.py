@@ -99,7 +99,7 @@ def _lib():
                                             *[ctypes.c_void_p] * 4]
         lib.member_scatter_launch.restype = ctypes.c_int
         lib.member_scatter_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                                              ctypes.c_void_p]
+                                              ctypes.c_int64, ctypes.c_void_p]
         _LIB = lib
     return _LIB
 
@@ -161,15 +161,18 @@ member_probe_cuda.launches = 0
 
 def member_scatter_cuda(back, send_lane, lanes: int):
     """K13's scatter (csrc/sharded_member.cu): the same lanes as
-    _scatter_plain, a thread a slot. Counts its launches in
+    _scatter_plain, after a memset of the lanes: 4 slots a thread, their
+    lanes in a 16-byte load and their verdicts only where one is real, a
+    block's 1,024 slots through shared memory so that a warp stores for 32
+    consecutive slots. Counts its launches in
     `member_scatter_cuda.launches`."""
     check_kernel_tensor(back, "back", torch.uint8, 1)
     check_kernel_tensor(send_lane, "send_lane", torch.int32, 1)
     if back.shape != send_lane.shape or back.shape[0] < 1:
         raise ValueError("K13's scatter takes a lane for each of at least one verdict")
-    out = torch.zeros(lanes, dtype=torch.bool, device=back.device)
+    out = torch.empty(lanes, dtype=torch.bool, device=back.device)
     launch("member_scatter", _lib().member_scatter_launch,
-           back.data_ptr(), send_lane.data_ptr(), back.shape[0], out.data_ptr(),
+           back.data_ptr(), send_lane.data_ptr(), back.shape[0], out.data_ptr(), lanes,
            device=back.device)
     member_scatter_cuda.launches += 1
     return out

@@ -16,10 +16,11 @@ from mindthegap_tpu_torch.ops import nw_device as ND
 from mindthegap_tpu_torch.ops import sorted_index as SI
 from mindthegap_tpu_torch.parallel import sharded_count as PSC
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
-from torch_tables import (MEMBER_EDGE_NAMES, PLANE_EDGE_NAMES, ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES, SORTED_EDGE_NAMES,
-                          SPAN_EDGE_NAMES, SWIZZLE_EDGE_NAMES, edge_walk_case, edge_walk_span_case, key_edge_batches,
-                          member_edge_cases, merge_edge_cases, move_to_stash, plane_edge_windows, route_edge_cases,
-                          scan_edge_windows, sorted_edge_windows, span_edge_windows, swizzle_edge_chunks)
+from torch_tables import (MEMBER_EDGE_NAMES, PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES,
+                          SCATTER_EDGE_NAMES, SORTED_EDGE_NAMES, SPAN_EDGE_NAMES, SWIZZLE_EDGE_NAMES, edge_walk_case,
+                          edge_walk_span_case, key_edge_batches, member_edge_cases, merge_edge_cases, move_to_stash,
+                          plane_edge_windows, plane_pipeline_case, route_edge_cases, scan_edge_windows,
+                          scatter_edge_cases, sorted_edge_windows, span_edge_windows, swizzle_edge_chunks)
 
 pytestmark = pytest.mark.cuda
 
@@ -345,6 +346,36 @@ def test_plane_kernel_matches_plain(cuda, layout, k):
         assert want["contains"].float().mean() > 0.9 and want["suffix_rep"].any()
 
 
+@pytest.mark.parametrize("k", [21, 31, 32])
+@pytest.mark.parametrize("name", PLANE_PIPELINE_NAMES)
+def test_plane_kernel_pipeline_cases(cuda, name, k):
+    """K8 against its plain version on its pipeline's cases
+    (tests/torch_tables.py plane_pipeline_case): persistent blocks taking
+    several tiles, a ragged last tile, a queue of second-slot keys, a queue
+    of every key of a tile, a full unsorted stash; one launch a call."""
+    qm, codes = plane_pipeline_case(k, name)
+    _check_plane_kernel("cuckoo", _plane_args(qm, "cuckoo", codes, cuda) + (k,))
+
+
+@pytest.mark.parametrize("layout", ["cuckoo", "bucket"])
+def test_plane_kernel_unaligned_planes(cuda, layout):
+    """K8 and K9 write planes that are views at unaligned offsets (through
+    _scan_planes_into: the wrappers allocate their planes aligned) element
+    by element, equal to the plain version; K8 on its long window too."""
+    qm, cases = plane_edge_windows(31, layout)
+    windows = [(qm, codes) for codes in cases.values()]
+    if layout == "cuckoo":
+        windows.append(plane_pipeline_case(31, "long-ragged"))
+    for qm, codes in windows:
+        args = _plane_args(qm, layout, codes, cuda) + (31,)
+        want = getattr(S, _PLANE_KERNELS[layout][1])(*args)
+        views = {key: torch.zeros(v.numel() + 1, dtype=v.dtype, device=cuda)[1:] for key, v in want.items()}
+        S._scan_planes_into(*args, layout == "bucket", views)
+        torch.cuda.synchronize()
+        for key in S.PLANE_KEYS:
+            assert torch.equal(views[key], want[key]), key
+
+
 @pytest.mark.parametrize("k", [21, 31])
 def test_dense_redispatch_runs_k10(cuda, k):
     """K1's feed at exc_cap 0 sends every window dense through K10 (one
@@ -437,6 +468,26 @@ def test_member_kernels_edge_cases(cuda, name):
         got = PSM.member_scatter_cuda(back, routed[d][1], rows.shape[1])
         assert torch.equal(got, PSM._scatter_plain(back, routed[d][1], rows.shape[1]))
     np.testing.assert_array_equal(sm.contains(q), np.isin(q, keys))
+
+
+@pytest.mark.parametrize("name", SCATTER_EDGE_NAMES)
+def test_scatter_kernel_edge_cases(cuda, name):
+    """K13's scatter against its plain version on its edge cases
+    (tests/torch_tables.py scatter_edge_cases), its inputs whole and as
+    views at unaligned offsets (lanes 4 bytes, verdicts 1 byte in: read a
+    slot at a time); one launch a call."""
+    back, send_lane, lanes = scatter_edge_cases()[name]
+    b, l = torch.from_numpy(back).to(cuda), torch.from_numpy(send_lane).to(cuda)
+    bo = torch.empty(b.numel() + 1, dtype=torch.uint8, device=cuda)
+    lo = torch.empty(l.numel() + 1, dtype=torch.int32, device=cuda)
+    bo[1:], lo[1:] = b, l
+    want = PSM._scatter_plain(b, l, lanes)
+    for vb, vl in ((b, l), (bo[1:], lo[1:])):
+        before = PSM.member_scatter_cuda.launches
+        got = PSM.member_scatter_cuda(vb, vl, lanes)
+        torch.cuda.synchronize()
+        assert PSM.member_scatter_cuda.launches == before + 1
+        assert got.dtype == torch.bool and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("k", [2, 3, 21, 31, 32])

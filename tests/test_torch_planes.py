@@ -23,7 +23,8 @@ from mindthegap_tpu_torch.find import scan_device as PS
 from mindthegap_tpu_torch.ops import extmap as PX
 from mindthegap_tpu_torch.ops import kmers as PK
 from mindthegap_tpu_torch.ops.span import Span
-from torch_tables import PLANE_EDGE_NAMES, SPAN_EDGE_NAMES, plane_edge_windows, span_edge_windows
+from torch_tables import (PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, SPAN_EDGE_NAMES, plane_edge_windows,
+                          plane_pipeline_case, span_edge_windows)
 
 PLANE_FIELDS = ("valid", "fwd", "contains", "nb_in", "nb_out", "suffix_rep", "prefix_rep", "fwd_rows")
 
@@ -189,6 +190,25 @@ def test_plane_pass_matches_jax(name, k, layout):
         np.testing.assert_array_equal(g.view(np.uint64) if key == "fwd" else g, np.asarray(want[key]), err_msg=key)
     if name == "genome-ns-stash":
         assert got["contains"].float().mean() > 0.8 and not got["valid"].all()
+
+
+@pytest.mark.parametrize("k", [21, 31, 32])
+@pytest.mark.parametrize("name", PLANE_PIPELINE_NAMES)
+def test_plane_pass_pipeline_cases_match_jax(name, k):
+    """The plain version of K8 equals scan_planes_device_q on the cases of
+    K8's pipeline (tests/torch_tables.py plane_pipeline_case): a window of
+    over 1,024 tiles with a ragged last one, a half-full map (many keys in
+    their second slot), every key absent, a full unsorted stash."""
+    qm, codes = plane_pipeline_case(k, name)
+    got = _port_plane_pass("cuckoo", qm, codes, k)
+    want = _jax_plane_pass("cuckoo", qm, codes, k)
+    for key in PS.PLANE_KEYS:
+        g = got[key].numpy()
+        np.testing.assert_array_equal(g.view(np.uint64) if key == "fwd" else g, np.asarray(want[key]), err_msg=key)
+    if name == "all-absent":
+        assert not got["contains"].any()
+    elif name != "long-ragged":
+        assert got["contains"].float().mean() > 0.9
 
 
 @pytest.mark.parametrize("k", [3, 21, 31, 32])

@@ -6,6 +6,7 @@ set and forced capacity overflows (the exact host routes). The JAX
 ShardedStreamingCounter is held to the host StreamingCounter on the same
 synthetic reads."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -19,8 +20,8 @@ from mindthegap_tpu_torch.ops import counting as PC
 from mindthegap_tpu_torch.ops import kmers as PK
 from mindthegap_tpu_torch.parallel import sharded_count as PSC
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
-from torch_tables import (MEMBER_EDGE_NAMES, ROUTE_EDGE_NAMES, SWIZZLE_EDGE_NAMES, member_edge_cases, route_edge_cases,
-                          swizzle_edge_chunks)
+from torch_tables import (MEMBER_EDGE_NAMES, ROUTE_EDGE_NAMES, SCATTER_EDGE_NAMES, SWIZZLE_EDGE_NAMES,
+                          member_edge_cases, route_edge_cases, scatter_edge_cases, swizzle_edge_chunks)
 
 CPU = torch.device("cpu")
 SHARDS = (1, 2, 8)
@@ -93,6 +94,21 @@ def test_route_plain_orders_lanes_by_owner(name):
         routed = send_lane[send_lane >= 0]
         np.testing.assert_array_equal(out[routed], np.isin(rows[j][routed], shard))
         assert not np.delete(out, routed).any()
+
+
+@pytest.mark.parametrize("name", SCATTER_EDGE_NAMES)
+def test_scatter_plain_matches_jax(name):
+    """K13's plain scatter equals the JAX package's scatter back into lane
+    order (mindthegap_tpu/parallel/sharded_membership.py, the
+    `out.at[...].max` of shard_fn) on the scatter's edge cases: a ragged
+    slot count, padding anywhere, all padding, all real, one lane, owner
+    segments as K12 fills them."""
+    back, send_lane, lanes = scatter_edge_cases()[name]
+    got = PSM._scatter_plain(torch.from_numpy(back), torch.from_numpy(send_lane), lanes)
+    bl = jnp.asarray(send_lane)
+    want = jnp.zeros(lanes, bool).at[jnp.maximum(bl, 0)].max(jnp.where(bl >= 0, jnp.asarray(back) != 0, False))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def _reads(seed: int, n_reads: int = 400):

@@ -420,6 +420,91 @@ def plane_edge_windows(k: int, layout: str, seed: int = 0):
     return qm, cases
 
 
+PLANE_PIPELINE_NAMES = ("long-ragged", "second-slots", "all-absent", "full-stash-unsorted")
+
+
+def plane_pipeline_case(k: int, name: str, seed: int = 0):
+    """(host cuckoo map, codes u8[w]) of one of K8's pipeline cases at k (9
+    to 32; K8 takes tiles of 1,024 positions, persistent blocks each taking
+    several, and queues the keys that miss their first slot):
+    "long-ragged": 2^20 + 296 bases (1,024 tiles and a ragged last one) of
+    a genome whose k-mers make the map, every 50th (k-1)-mer the repeat
+    set, with N runs across tiles and isolated Ns; "second-slots": 16,000
+    bases over the map of their own k-mers built at a load factor of 0.49
+    (half full: ~28% of the keys in their second slot); "all-absent": 8,192
+    random bases over the map of an unrelated genome (every key misses its
+    first slot, so every tile's queue holds all of its keys); "full-stash-
+    unsorted": 16,000 bases of a genome over the map of its k-mers with 64
+    of them moved to the stash, the stash in descending order."""
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    rng = np.random.default_rng(seed + k)
+    none = np.zeros(0, np.uint64)
+
+    def own_map(genome, load_factor=0.35, repeat=none):
+        fwd, _ = K.kmers_from_codes(genome, k)
+        return X.build_fused(np.unique(K.canonical_u64(fwd, k)), k, repeat, load_factor=load_factor)
+
+    if name == "long-ragged":
+        genome = rng.integers(0, 4, (1 << 20) + 4096, dtype=np.uint8)
+        rfwd, _ = K.kmers_from_codes(genome, k - 1)
+        qm = own_map(genome, repeat=np.unique(K.canonical_u64(rfwd[::50], k - 1)))
+        codes = genome[1000 : 1000 + (1 << 20) + 296].copy()
+        for lo in range(1000, codes.size, 100_003):
+            codes[lo : lo + 40] = 255  # runs across tiles
+        codes[rng.integers(0, codes.size, 300)] = 255
+        return qm, codes
+    if name == "second-slots":
+        genome = rng.integers(0, 4, 16_000, dtype=np.uint8)
+        return own_map(genome, load_factor=0.49), genome
+    if name == "all-absent":
+        return own_map(rng.integers(0, 4, 16_000, dtype=np.uint8)), rng.integers(0, 4, 8192, dtype=np.uint8)
+    if name == "full-stash-unsorted":
+        genome = rng.integers(0, 4, 16_000, dtype=np.uint8)
+        qm = own_map(genome)
+        q, _ = K.kmers_from_codes(genome[5000:7000], k - 1)
+        room = 64 - int((qm.stash_keys != _SENT).sum())
+        stashed = move_to_stash_walk(qm, np.unique(K.canonical_u64(q, k - 1))[:room])
+        assert stashed.stash_keys.size == 64
+        return X.QMap(stashed.slots, stashed.log_size, stashed.stash_keys[::-1].copy(),
+                      stashed.stash_payload[::-1].copy()), genome
+    raise KeyError(name)
+
+
+SCATTER_EDGE_NAMES = ("ragged", "padding-anywhere", "all-padding", "all-real", "one-lane", "owner-segments")
+
+
+def scatter_edge_cases(seed: int = 0):
+    """{name: (verdicts u8[m], lanes int32[m], lane count)} for K13's scatter
+    (4 slots a thread, 1,024 a block): 12,295 slots (neither a multiple
+    of a block's nor a thread's), a third of them real, the padding (lane -1)
+    anywhere; every other slot real; all padding; all real (a permutation
+    of 4,099 lanes); one lane; 4 owners' segments of 1,000 slots, each a
+    real prefix in ascending lane order then padding, as K12 fills them."""
+    rng = np.random.default_rng(seed)
+
+    def case(m, lanes, real):
+        lane = np.full(m, -1, np.int32)
+        lane[real] = rng.choice(lanes, int(np.count_nonzero(real)), replace=False)
+        return rng.integers(0, 2, m).astype(np.uint8), lane, lanes
+
+    m = 12 * 1024 + 7
+    cases = {
+        "ragged": case(m, 20_000, rng.random(m) < 1 / 3),
+        "padding-anywhere": case(4000, 5000, np.arange(4000) % 2 == 1),
+        "all-padding": case(1000, 300, np.zeros(1000, bool)),
+        "all-real": case(4099, 4099, np.ones(4099, bool)),
+        "one-lane": case(9, 1, np.arange(9) == 4),
+    }
+    seg = np.full((4, 1000), -1, np.int32)
+    lanes = rng.permutation(8000)[:2200].astype(np.int32)
+    for o, (lo, hi) in enumerate(((0, 700), (700, 1300), (1300, 2200), (2200, 2200))):
+        seg[o, : hi - lo] = np.sort(lanes[lo:hi])
+    cases["owner-segments"] = (rng.integers(0, 2, 4000).astype(np.uint8), seg.reshape(-1), 8000)
+    assert tuple(cases) == SCATTER_EDGE_NAMES
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # the device mesh: K11's chunks, K12's and K13's key sets and queries, K14's
 # windows over sorted sets
