@@ -78,8 +78,14 @@ def ptxas_usage(src_name: str) -> list[tuple[str, int, int]]:
         os.remove(obj)
     if r.returncode != 0:
         raise BuildError(f"build failed: {' '.join(cmd)}\n{r.stdout}{r.stderr}")
+    return parse_ptxas(r.stdout + r.stderr)
+
+
+def parse_ptxas(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill store bytes) of every entry function in
+    the output of an nvcc -Xptxas -v build."""
     out, name, spill = [], None, 0
-    for line in (r.stdout + r.stderr).splitlines():
+    for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
             name, spill = m.group(1), 0
         elif m := re.search(r"(\d+) bytes spill stores", line):

@@ -166,6 +166,17 @@ def sorted_lookup_sectors(keys: torch.Tensor, index: SI.SortedIndex, queries: to
     return sectors + int((more & (a < end)).sum())
 
 
+def scatter_bytes(send_lane: torch.Tensor, lanes: int, back_ptr: int = 0) -> int:
+    """The bytes K13's scatter must move (send_lane as member_scatter takes
+    it, its verdicts at address back_ptr): every slot's lane, 4 bytes; the
+    32-byte sectors of the verdicts that hold a real slot's (lane >= 0: a
+    padding slot's verdict is never needed); and the lanes' bools, written
+    once."""
+    real = torch.nonzero(send_lane >= 0).flatten()
+    sectors = torch.unique_consecutive((real + back_ptr % SECTOR_BYTES) // SECTOR_BYTES).numel()
+    return 4 * send_lane.numel() + SECTOR_BYTES * sectors + lanes
+
+
 def scan_sorted_sectors(codes: torch.Tensor, solid: torch.Tensor, repeat: torch.Tensor, k: int) -> int:
     """The sectors K14's lookups read on one window (arguments as
     scan_planes_sorted takes them): sorted_lookup_sectors over each

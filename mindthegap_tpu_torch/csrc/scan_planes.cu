@@ -22,10 +22,10 @@
 // not there (K8), or the 128-byte bucket line, four sectors (K9); and the
 // 20 bytes of planes written per position (84 MB per 2^22-base window).
 // bounds.py plane_scan_sectors counts the sectors of a run's window. The
-// card reads random rows of a 128 MB table at ~30 G a second
-// (torch.index_select, kernel_bench.py's yardstick), far below 3.35 TB/s
-// over 32-byte sectors: K8's 4.80 M probe sectors of a 2^22-base window
-// take 0.16 ms at that rate.
+// card reads random rows of a 128 MB table at ~30 G a second by
+// torch.index_select and ~34 G by a hand gather with 8 loads in flight a
+// thread (plane_trials.py), far below 3.35 TB/s over 32-byte sectors: K8's
+// 4.80 M probe sectors of a 2^22-base window take 0.140 ms at 34 G/s.
 //
 // Both kernels take a block of 256 threads and stage the bases of its
 // positions in shared memory (packed_window.cuh, as K1 and K3): each
@@ -59,8 +59,10 @@
 //   Measured on an H100 80GB HBM3 at 700 W (kernel_bench.py, the 2^22
 //   window over a bacterial map): 0.173-0.175 ms in turns against
 //   0.180-0.182 for a block a tile with the second round in each warp's
-//   registers: what the window's probes alone take at the card's
-//   random-sector rate.
+//   registers. The stores cost ~0.038 ms, which neither TMA bulk copies
+//   nor coalesced stores of the planes staged in shared memory won back,
+//   and staging the next tile by cp.async gained nothing (plane_trials.py);
+//   without its stores K8 reads its probe sectors at ~36 G a second.
 // K9 (R = 2, a block a tile) issues the R bucket lines of a thread as eight
 // 16-byte loads each before reducing any; the payload past a thread's run,
 // q_{i+R}, is its right neighbour's first, taken by a shuffle (the warp's

@@ -75,9 +75,10 @@
 // slots' lanes (in a segment of an owner's real slots they ascend: a few
 // sectors a store; stored straight from registers, a thread's quads would
 // spread a warp's stores over 128 slots' lanes).
-// Padding may stand anywhere (the plain version's contract). Lanes not
-// 16-byte aligned, or verdicts not 4-byte aligned, are read a slot at a
-// time. The lanes are zeroed first by a memset on the same stream.
+// Padding may stand anywhere (the plain version's contract). The lanes
+// must be 16-byte aligned and the verdicts 4-byte aligned (the launcher
+// refuses others; the last quad past m is read a slot at a time). The
+// lanes are zeroed first by a memset on the same stream.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -276,18 +277,18 @@ __global__ void __launch_bounds__(PROBE_THREADS) member_probe_kernel(
 }
 
 // the lanes of slots 4q .. 4q + 3 (-1 past m): one 16-byte load where all
-// four are in and the lanes are aligned
-__device__ __forceinline__ int4 quad_lanes(const int* __restrict__ send_lane, int64_t q, int64_t m, bool vec) {
-    if (vec && 4 * q + 4 <= m) return __ldg(reinterpret_cast<const int4*>(send_lane) + q);
+// four are in (send_lane is 16-byte aligned)
+__device__ __forceinline__ int4 quad_lanes(const int* __restrict__ send_lane, int64_t q, int64_t m) {
+    if (4 * q + 4 <= m) return __ldg(reinterpret_cast<const int4*>(send_lane) + q);
     int l[4];
 #pragma unroll
     for (int j = 0; j < 4; j++) l[j] = 4 * q + j < m ? __ldg(send_lane + 4 * q + j) : -1;
     return make_int4(l[0], l[1], l[2], l[3]);
 }
 
-// the verdicts of slots 4q .. 4q + 3 (0 past m), a byte each
-__device__ __forceinline__ uint32_t quad_verdicts(const uint8_t* __restrict__ back, int64_t q, int64_t m, bool vec) {
-    if (vec && 4 * q + 4 <= m) return __ldg(reinterpret_cast<const unsigned*>(back) + q);
+// the verdicts of slots 4q .. 4q + 3 (0 past m), a byte each (back is 4-byte aligned)
+__device__ __forceinline__ uint32_t quad_verdicts(const uint8_t* __restrict__ back, int64_t q, int64_t m) {
+    if (4 * q + 4 <= m) return __ldg(reinterpret_cast<const unsigned*>(back) + q);
     uint32_t v = 0;
 #pragma unroll
     for (int j = 0; j < 4; j++) v |= 4 * q + j < m ? (uint32_t)__ldg(back + 4 * q + j) << (8 * j) : 0u;
@@ -295,15 +296,15 @@ __device__ __forceinline__ uint32_t quad_verdicts(const uint8_t* __restrict__ ba
 }
 
 __global__ void __launch_bounds__(SCATTER_THREADS) member_scatter_kernel(
-    const uint8_t* __restrict__ back, const int* __restrict__ send_lane, int64_t m, bool vec, bool* __restrict__ out)
+    const uint8_t* __restrict__ back, const int* __restrict__ send_lane, int64_t m, bool* __restrict__ out)
 {
     __shared__ int4 s_lane[SCATTER_THREADS];
     __shared__ uint32_t s_verdict[SCATTER_THREADS];
     const int64_t q = (int64_t)blockIdx.x * SCATTER_THREADS + threadIdx.x;  // the thread's quad
-    const int4 l = q < (m + 3) / 4 ? quad_lanes(send_lane, q, m, vec) : make_int4(-1, -1, -1, -1);
+    const int4 l = q < (m + 3) / 4 ? quad_lanes(send_lane, q, m) : make_int4(-1, -1, -1, -1);
     s_lane[threadIdx.x] = l;
     // all padding: every lane's sign bit set
-    s_verdict[threadIdx.x] = (l.x & l.y & l.z & l.w) < 0 ? 0u : quad_verdicts(back, q, m, vec);
+    s_verdict[threadIdx.x] = (l.x & l.y & l.z & l.w) < 0 ? 0u : quad_verdicts(back, q, m);
     __syncthreads();
     const int* lanes = reinterpret_cast<const int*>(s_lane);
     const uint8_t* verdicts = reinterpret_cast<const uint8_t*>(s_verdict);
@@ -356,18 +357,18 @@ extern "C" int member_probe_launch(const void* recv, int64_t m, const void* keys
     return (int)cudaGetLastError();
 }
 
-// K13 on the source. back: m verdict bytes in slot order; send_lane: the m
-// slots' lanes (-1: padding), each in [0, lanes) or -1; out: the lanes'
-// bools, zeroed here first
+// K13 on the source. back: m verdict bytes in slot order, 4-byte aligned;
+// send_lane: the m slots' lanes (-1: padding), each in [0, lanes) or -1,
+// 16-byte aligned; out: the lanes' bools, zeroed here first
 extern "C" int member_scatter_launch(const void* back, const void* send_lane, int64_t m, void* out, int64_t lanes,
                                      void* stream)
 {
+    if ((uintptr_t)send_lane % 16 != 0 || (uintptr_t)back % 4 != 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err = cudaMemsetAsync(out, 0, lanes, s);
     if (err != cudaSuccess) return (int)err;
-    const bool vec = (uintptr_t)send_lane % 16 == 0 && (uintptr_t)back % 4 == 0;
     const int64_t per_block = 4 * SCATTER_THREADS;
     member_scatter_kernel<<<(unsigned)((m + per_block - 1) / per_block), SCATTER_THREADS, 0, s>>>(
-        (const uint8_t*)back, (const int*)send_lane, m, vec, (bool*)out);
+        (const uint8_t*)back, (const int*)send_lane, m, (bool*)out);
     return (int)cudaGetLastError();
 }

@@ -51,8 +51,8 @@ and K9 also the earlier checkout's `scan_planes_q_cuda` and
 (each in order, then back), with K8's and K9's launches by torch.profiler;
 last the random-sector yardstick: torch.index_select of 2^22 random rows
 of a 128 MB int64 table, and of as many rows as K8's probes read sectors,
-in sectors a second, and K8's time at that rate (its probes) and at 3.35
-TB/s (its planes).
+in sectors a second, and the time K8's probes alone take at that rate
+(plane_trials.py also times a hand gather, which reads faster).
 The mesh stage prints the registers and spills of K11-K13 (nvcc -Xptxas
 -v), then times K11 on a 2^23-base flush of the same kind of reads and K12
 on shard 0 of the nine membership queries of 2^20 genome positions over
@@ -96,7 +96,7 @@ import torch
 
 from ._build import ptxas_usage
 from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, PLANE_BYTES_PER_POSITION, SECTOR_BYTES, bloom_probe_loads,
-                     bytes_ms, nw_bound_ms, plane_scan_sectors, scan_probe_sectors, scan_sorted_sectors,
+                     bytes_ms, nw_bound_ms, plane_scan_sectors, scan_probe_sectors, scan_sorted_sectors, scatter_bytes,
                      sorted_lookup_sectors, span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
 from .device import cuda_ms, stage_ms
 from .fill import walk_device as W
@@ -366,6 +366,21 @@ def random_sector_rate(n_rows: int, seed: int, table_mb: int = 128) -> dict:
     return {"rows": n_rows, "table_mb": table_mb, "ms": ms, "g_sectors_per_s": n_rows / min(ms) / 1e6}
 
 
+def plane_window(genome, k, seed: int, window: int = 1 << 22):
+    """The planes stage's window: the genome's first `window` bases with an
+    N run and 64 isolated Ns drawn from `seed`, packed on the card, and the
+    repeat set of the maps (every 50th (k-1)-mer of the genome). (packed,
+    bad, repeat)."""
+    rng = np.random.default_rng(seed)
+    rfwd, _ = K.kmers_from_codes(genome, k - 1)
+    repeat = np.unique(K.canonical_u64(rfwd[::50], k - 1))
+    codes = genome[:window].copy()
+    codes[1000:1100] = 255
+    codes[rng.integers(0, window, 64)] = 255
+    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    return packed, bad, repeat
+
+
 def bench_planes(genome, solid, k, seed: int, prev_s):
     """K8, K9 and K10 on K1's window (bench_scan's: the same N runs from
     the same seed's draws are not reused, so the window is made here from
@@ -378,13 +393,7 @@ def bench_planes(genome, solid, k, seed: int, prev_s):
     print("scan_planes.cu registers (spill bytes): " + ", ".join(f"{key} {v['registers']} ({v['spill_bytes']})"
                                                                 for key, v in registers.items()))
     window = 1 << 22
-    rng = np.random.default_rng(seed)
-    rfwd, _ = K.kmers_from_codes(genome, k - 1)
-    repeat = np.unique(K.canonical_u64(rfwd[::50], k - 1))
-    codes = genome[:window].copy()
-    codes[1000:1100] = 255
-    codes[rng.integers(0, window, 64)] = 255
-    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    packed, bad, repeat = plane_window(genome, k, seed, window)
     qp, qm, qb = (X.build_fused_pair(solid, k, repeat), X.build_fused(solid, k, repeat),
                   X.build_fused_bucket(solid, k, repeat))
     tp, tm, tb = qp.to("cuda"), qm.to("cuda"), qb.to("cuda")
@@ -418,10 +427,10 @@ def bench_planes(genome, solid, k, seed: int, prev_s):
     yard = [random_sector_rate(n, seed) for n in (1 << 22, sectors["K8"])]
     rate = max(y["g_sectors_per_s"] for y in yard) * 1e9
     row["random_sectors"] = yard
-    row["k8_ceiling_ms"] = sectors["K8"] / rate * 1e3 + bytes_ms(PLANE_BYTES_PER_POSITION * n_pos)
+    row["k8_probes_at_rate_ms"] = sectors["K8"] / rate * 1e3
     print("random-sector yardstick, torch.index_select of random rows of a 128 MB int64 table: "
           + "; ".join(f"{y['rows']} rows {y['ms']} ms, {y['g_sectors_per_s']:.1f} G sectors/s" for y in yard)
-          + f"; K8's probes at that rate and its planes at 3.35 TB/s: {row['k8_ceiling_ms']:.4f} ms")
+          + f"; K8's probes alone at that rate: {row['k8_probes_at_rate_ms']:.4f} ms")
     return row
 
 
@@ -627,7 +636,7 @@ def bench_sorted(genome, solid, k, seed: int, prev_s, prev_sm):
     for name in list(fns) + list(fns)[::-1]:
         stages[name].append(stage_ms(fns[name], 20))
     k13s = {"slots": m, "real": int(real.sum()), "lanes": lanes, "ms": _turns(fns, 50, 2), "stages_ms": stages,
-            "bound_ms": bytes_ms(m + 4 * m + lanes)}
+            "bound_ms": bytes_ms(scatter_bytes(send_lane, lanes, back.data_ptr()))}
     print(f"K13 member_scatter: {m} slots ({k13s['real']} real) into {lanes} lanes: in turns (ms, the host's launch "
           f"rate where a call's host side is longer than its device time) {k13s['ms']}; device time by launch "
           f"(torch.profiler, in turns) {stages}; bound {k13s['bound_ms']:.4f} ms (bytes)")

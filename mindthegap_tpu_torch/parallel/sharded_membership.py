@@ -164,12 +164,16 @@ def member_scatter_cuda(back, send_lane, lanes: int):
     _scatter_plain, after a memset of the lanes: 4 slots a thread, their
     lanes in a 16-byte load and their verdicts only where one is real, a
     block's 1,024 slots through shared memory so that a warp stores for 32
-    consecutive slots. Counts its launches in
+    consecutive slots. send_lane must be 16-byte aligned and back 4-byte
+    aligned (route's and exchange's outputs are). Counts its launches in
     `member_scatter_cuda.launches`."""
     check_kernel_tensor(back, "back", torch.uint8, 1)
     check_kernel_tensor(send_lane, "send_lane", torch.int32, 1)
     if back.shape != send_lane.shape or back.shape[0] < 1:
         raise ValueError("K13's scatter takes a lane for each of at least one verdict")
+    if send_lane.data_ptr() % 16 or back.data_ptr() % 4:
+        raise ValueError("K13's scatter reads send_lane 16 bytes and back 4 bytes at a time: send_lane must be "
+                         "16-byte aligned and back 4-byte aligned")
     out = torch.empty(lanes, dtype=torch.bool, device=back.device)
     launch("member_scatter", _lib().member_scatter_launch,
            back.data_ptr(), send_lane.data_ptr(), back.shape[0], out.data_ptr(), lanes,

@@ -473,21 +473,24 @@ def test_member_kernels_edge_cases(cuda, name):
 @pytest.mark.parametrize("name", SCATTER_EDGE_NAMES)
 def test_scatter_kernel_edge_cases(cuda, name):
     """K13's scatter against its plain version on its edge cases
-    (tests/torch_tables.py scatter_edge_cases), its inputs whole and as
-    views at unaligned offsets (lanes 4 bytes, verdicts 1 byte in: read a
-    slot at a time); one launch a call."""
+    (tests/torch_tables.py scatter_edge_cases); one launch a call. Views
+    at unaligned offsets (lanes 4 bytes, verdicts 1 byte in) are refused
+    with no launch."""
     back, send_lane, lanes = scatter_edge_cases()[name]
     b, l = torch.from_numpy(back).to(cuda), torch.from_numpy(send_lane).to(cuda)
     bo = torch.empty(b.numel() + 1, dtype=torch.uint8, device=cuda)
     lo = torch.empty(l.numel() + 1, dtype=torch.int32, device=cuda)
     bo[1:], lo[1:] = b, l
     want = PSM._scatter_plain(b, l, lanes)
-    for vb, vl in ((b, l), (bo[1:], lo[1:])):
-        before = PSM.member_scatter_cuda.launches
-        got = PSM.member_scatter_cuda(vb, vl, lanes)
-        torch.cuda.synchronize()
-        assert PSM.member_scatter_cuda.launches == before + 1
-        assert got.dtype == torch.bool and torch.equal(got, want)
+    before = PSM.member_scatter_cuda.launches
+    got = PSM.member_scatter_cuda(b, l, lanes)
+    torch.cuda.synchronize()
+    assert PSM.member_scatter_cuda.launches == before + 1
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    for vb, vl in ((bo[1:], l), (b, lo[1:])):
+        with pytest.raises(ValueError, match="aligned"):
+            PSM.member_scatter_cuda(vb, vl, lanes)
+    assert PSM.member_scatter_cuda.launches == before + 1
 
 
 @pytest.mark.parametrize("k", [2, 3, 21, 31, 32])

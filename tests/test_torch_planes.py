@@ -268,3 +268,19 @@ def test_plane_scan_sectors(layout):
         second, _ = PX.q_probe(t, keys, 1)
         assert not (first & second).any() and 0 < int(second.sum()) < int(first.sum())
         assert sectors == keys.shape[0] + int((~first).sum())
+
+
+@pytest.mark.parametrize("name", ["cp.async staging", "no stores", "bulk stores", "smem stores"])
+def test_plane_trials_apply_to_the_kernel_source(name):
+    """Each of plane_trials' K8 copies applies to csrc/scan_planes.cu: every
+    text it replaces occurs there once (the copies are built on the card
+    only), and a text that does not occur is refused."""
+    from mindthegap_tpu_torch import plane_trials as T
+    from mindthegap_tpu_torch._build import CSRC_DIR
+
+    with open(f"{CSRC_DIR}/scan_planes.cu") as f:
+        src = f.read()
+    copy = T.substituted(src, T.VARIANTS[name])
+    assert copy != src and "scan_planes_q_kernel" in copy
+    with pytest.raises(ValueError, match="once"):
+        T.substituted(src, [("no such text in the kernel", "")])

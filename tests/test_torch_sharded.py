@@ -15,6 +15,7 @@ from mindthegap_tpu.ops import counting as JC
 from mindthegap_tpu.parallel import mesh as JM
 from mindthegap_tpu.parallel import sharded_count as JSC
 from mindthegap_tpu.parallel import sharded_membership as JSM
+from mindthegap_tpu_torch import bounds as B
 from mindthegap_tpu_torch.ops import bloom as PB
 from mindthegap_tpu_torch.ops import counting as PC
 from mindthegap_tpu_torch.ops import kmers as PK
@@ -109,6 +110,21 @@ def test_scatter_plain_matches_jax(name):
     want = jnp.zeros(lanes, bool).at[jnp.maximum(bl, 0)].max(jnp.where(bl >= 0, jnp.asarray(back) != 0, False))
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", SCATTER_EDGE_NAMES)
+def test_scatter_bytes_count_the_real_slots_sectors(name):
+    """bounds.scatter_bytes: 4 bytes of lane a slot, a byte a lane written,
+    and the 32-byte sectors of verdicts that hold a real slot, counted here
+    slot by slot, with the verdicts at the start of a sector and 4 bytes
+    into one; all padding reads no verdict."""
+    back, send_lane, lanes = scatter_edge_cases()[name]
+    sl = torch.from_numpy(send_lane)
+    for ptr in (1 << 20, (1 << 20) + 4):
+        sectors = {(ptr % 32 + int(i)) // 32 for i in np.flatnonzero(send_lane >= 0)}
+        assert B.scatter_bytes(sl, lanes, ptr) == 4 * back.size + 32 * len(sectors) + lanes
+    if name == "all-padding":
+        assert B.scatter_bytes(sl, lanes) == 4 * back.size + lanes
 
 
 def _reads(seed: int, n_reads: int = 400):
