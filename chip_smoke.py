@@ -22,7 +22,9 @@ Phases, each of which must pass (any failure exits non-zero):
      (K8 and K9 at k 31 also into plane views at unaligned offsets), and
      K8 on its pipeline's cases at k 21, 31 and 32 (a window of over
      1,024 tiles, a half-full map, every key absent, a full unsorted
-     stash);
+     stash), K10 on its pipeline cases at k 3, 21, 31 and 32 (a window of
+     over 1,024 tiles, a map near its highest load factor, every pair
+     absent, a full stash in descending order);
      K2 on 256 seeded pairs of 50 to 10,000 bp
      (also against the native nw.cpp); K3 (+ the sort) on one default
      counting batch of 2^23 bases of the reads, and on its edge batches
@@ -52,13 +54,16 @@ Phases, each of which must pass (any failure exits non-zero):
      K14 on a 2^22-base window over the sorted solid set and a repeat set
      (its two index builds timed apart, the sectors its lookups read), and
      at entry()'s shapes; the bucket index's build kernel on those sets,
-     the shards and the edge sets; the sharded counter on 4 logical shards with
+     the shards and the edge sets (its own too), with the solid set's
+     build and the first and the last (SENTINEL-tailed) shard's by launch,
+     beside torch.searchsorted of the bucket numbers; the sharded counter on 4 logical shards with
      its capacity forced to overflow, against the host counter. The edge cases
      come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
      merge_edge_cases, edge_walk_case, span_edge_windows,
      edge_walk_span_case, plane_edge_windows, plane_pipeline_case,
      swizzle_edge_chunks, member_edge_cases, route_edge_cases,
-     scatter_edge_cases, sorted_edge_windows), the generators the CUDA tests use, so the smoke and
+     scatter_edge_cases, sorted_edge_windows, pair_pipeline_case,
+     index_edge_sets), the generators the CUDA tests use, so the smoke and
      tests/test_torch_cuda.py check the same inputs; the script needs the
      checkout's tests/ directory for them.
      Each kernel's bound is the
@@ -359,7 +364,8 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
     from mindthegap_tpu_torch.find import scan_device as S
     from mindthegap_tpu_torch.ops import extmap as X
     from mindthegap_tpu_torch.ops import kmers as K
-    from torch_tables import PLANE_PIPELINE_NAMES, plane_edge_windows, plane_pipeline_case
+    from torch_tables import (PAIR_PIPELINE_NAMES, PLANE_PIPELINE_NAMES, pair_pipeline_case, plane_edge_windows,
+                              plane_pipeline_case)
 
     window = 1 << 22
     rfwd, _ = K.kmers_from_codes(ref, k - 1)
@@ -423,6 +429,18 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
             torch.cuda.synchronize()
             errs += kerrs
             print(f"{label} pipeline cases (k 21, 31, 32: {', '.join(PLANE_PIPELINE_NAMES)}): max_abs_err {max(kerrs)}")
+        if layout == "pair":  # K10's pipeline cases: 1,025 tiles, a map near full, every pair absent, a full stash
+            kerrs = []
+            for kk in (3, 21, 31, 32):
+                for case in PAIR_PIPELINE_NAMES:
+                    eq, codes = pair_pipeline_case(kk, case)
+                    _, etables, elog = _plane_tables(eq, layout)
+                    ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+                    g, w = kernel(ep, eb, *etables, elog, kk), plain(ep, eb, *etables, elog, kk)
+                    kerrs.append(_max_abs_err((g[key], w[key]) for key in w))
+            torch.cuda.synchronize()
+            errs += kerrs
+            print(f"{label} pipeline cases (k 3, 21, 31, 32: {', '.join(PAIR_PIPELINE_NAMES)}): max_abs_err {max(kerrs)}")
         out[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound, "sectors": sectors,
                      "map_build_s": build_s,
                      "plane_bytes": n_pos * PLANE_BYTES_PER_POSITION if layout != "pair" else None}
@@ -1302,8 +1320,8 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
     from mindthegap_tpu_torch.ops import sorted_index as SI
     from mindthegap_tpu_torch.parallel import sharded_count as SC
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
-    from torch_tables import (member_edge_cases, route_edge_cases, scatter_edge_cases, sorted_edge_windows,
-                              swizzle_edge_chunks)
+    from torch_tables import (index_edge_sets, member_edge_cases, route_edge_cases, scatter_edge_cases,
+                              sorted_edge_windows, swizzle_edge_chunks)
 
     cuda = torch.device("cuda")
     out = {}
@@ -1499,16 +1517,40 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
         for et in SM.ShardedMembership([cuda] * en, ekeys, cap_factor=ecf).shard_keys:
             log_b = SI.log_buckets(et.shape[0])
             errs.append(_max_abs_err(zip(SI.build_cuda(et, log_b), SI._build_plain(et, log_b))))
+    for eset in index_edge_sets().values():
+        et = torch.from_numpy(K.as_i64(eset)).to(cuda)
+        for log_b in {SI.log_buckets(et.shape[0]), max(1, SI.log_buckets(et.shape[0]) - 2), 1}:
+            errs.append(_max_abs_err(zip(SI.build_cuda(et, log_b), SI._build_plain(et, log_b))))
     torch.cuda.synchronize()
+
+    def by_launch(keys_):  # device ms a call of the build, and of torch.searchsorted of its bucket numbers 0..B
+        lb = SI.log_buckets(keys_.shape[0])
+        lo, _hi, shift, real = (int(v) for v in SI._build_plain(keys_, lb).head.tolist())
+        buckets, numbers = K.shr(keys_[:real] - lo, shift), torch.arange((1 << lb) + 1, device=cuda)
+        return (sum(stage_ms(lambda: SI.build_cuda(keys_, lb), iters=20).values()),
+                sum(stage_ms(lambda: torch.searchsorted(buckets, numbers), iters=20).values()))
+
     log_b = SI.log_buckets(args[1].shape[0])
+    launch_ms, library_ms = by_launch(args[1])
+    shard_ms = {j: by_launch(sm.shard_keys[j])[0] for j in (0, MESH_SHARDS - 1)}
     out["sorted_index"] = {"max_abs_err": max(errs),
                            "ms": _cuda_ms(lambda: SI.build_cuda(args[1], log_b), iters=20, warmup=2),
                            "plain_ms": _cuda_ms(lambda: SI._build_plain(args[1], log_b), iters=3),
-                           **_bytes_bound_ms(8 * args[1].numel() + 4 * ((1 << log_b) + 1) + 32)}
+                           **_bytes_bound_ms(8 * args[1].numel() + 4 * ((1 << log_b) + 1) + 32),
+                           "library_ms": library_ms, "launch_ms": launch_ms, "shard_launch_ms": shard_ms,
+                           "ms_covers": "CUDA events around the wrapper, 20 calls; launch_ms and shard_launch_ms "
+                                        "(shard 0 and the SENTINEL-tailed last) device time by launch "
+                                        "(torch.profiler); library_ms torch.searchsorted of the bucket numbers "
+                                        "0..B into the keys' (precomputed), by launch"}
+    tail = int(sm.shard_keys[-1].numel() - int((sm.shard_keys[-1] != -1).sum()))
     print(f"bucket index build: {args[1].numel()} keys in 2^{log_b} buckets, max_abs_err {max(errs)} (with the "
-          f"repeat set and the {MESH_SHARDS} shards at 1, 2 and 4 keys a bucket, and the edge sets of "
-          f"K13 and K14; tolerance 0: exact), kernel {out['sorted_index']['ms']:.4f} ms, plain "
-          f"{out['sorted_index']['plain_ms']:.4f} ms, bound {out['sorted_index']['bound_ms']:.4f} ms (bytes)")
+          f"repeat set and the {MESH_SHARDS} shards at 1, 2 and 4 keys a bucket, the edge sets of K13 and K14 and "
+          f"its own, tests/torch_tables.py index_edge_sets; tolerance 0: exact), kernel "
+          f"{out['sorted_index']['ms']:.4f} ms ({launch_ms:.4f} by launch), plain "
+          f"{out['sorted_index']['plain_ms']:.4f} ms, bound {out['sorted_index']['bound_ms']:.4f} ms (bytes), "
+          f"torch.searchsorted of the bucket numbers {library_ms:.4f} ms by launch; by launch, shard 0's "
+          f"{sm.shard_keys[0].numel()} keys {shard_ms[0]:.4f} ms, the last shard's ({tail} SENTINEL tail) "
+          f"{shard_ms[MESH_SHARDS - 1]:.4f} ms")
 
     # the sharded counter on MESH_SHARDS logical shards, its capacity forced to overflow (the host route)
     part = _flush_buffer(reads, 1 << 22)
@@ -1738,6 +1780,8 @@ def main() -> int:
          "replaces": None,
          "launches": run5["launches"]["sorted_index"], **mesh["sorted_index"]},
     ]
+    for rec in kernels:  # the records that time otherwise say how
+        rec.setdefault("ms_covers", "CUDA events around the wrapper, the mean of its calls")
     print(f"auto gate record: {json.dumps(run4['gate'])}")
     print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,8 @@ there is no global device state.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -62,22 +64,43 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def stage_ms(fn, iters: int, warmup: int = 2) -> dict[str, float]:
+def stage_ms(fn, iters: int, warmup: int = 2, tries: int = 5) -> dict[str, float]:
     """Device ms per call of each kernel and memset that fn launches, by
     torch.profiler over `iters` calls after `warmup`: {short name: ms}, the
-    name cut to the function's own (no namespace, template or arguments)."""
+    name cut to the function's own (no namespace, template or arguments).
+    Each window opens with a profiler step of one call whose records are
+    dropped (the first launch after the profiler starts can go unrecorded).
+    A window that still lost records (no device activity, a kernel seen
+    fewer than `iters` times, or one missing a kernel that an earlier
+    window held) is taken again, up to `tries` windows; RuntimeError when
+    none was whole."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    names: set[str] = set()  # every kernel any window held
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.2)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    out: dict[str, float] = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-        if us:
-            head = evt.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split("::")[-1].split()
-            name = head[-1] if head else evt.key
-            out[name] = out.get(name, 0.0) + us / 1e3 / iters
-    return out
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        out: dict[str, float] = {}
+        seen: dict[str, int] = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+            if us and not evt.key.startswith("ProfilerStep"):  # the step's span holds its kernels' time too
+                head = evt.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split("::")[-1].split()
+                name = head[-1] if head else evt.key
+                out[name] = out.get(name, 0.0) + us / 1e3 / iters
+                seen[name] = seen.get(name, 0) + evt.count
+        names |= set(seen)
+        if names and all(seen.get(name, 0) >= iters for name in names):
+            return out
+    raise RuntimeError(f"torch.profiler lost records in {tries} windows of {iters} calls: the last counted {seen}, "
+                       f"kernels seen {sorted(names)}")

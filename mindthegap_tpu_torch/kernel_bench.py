@@ -73,7 +73,14 @@ turns with the earlier checkout's and with one PyTorch call of the same
 function (`index_put_` on zeroed lanes, the real slots picked outside the
 timing), by CUDA events (the host's launch rate, where a call's host side
 is the longer) and by each launch's device time (torch.profiler, in
-turns). `--only` names the stages to run
+turns); then the bucket index build (`SI.build_cuda`) on the solid set,
+on the first and the last (SENTINEL-tailed) key shard of 4 logical
+shards, on entry()'s two sets and on a shard of the dryrun's size, in
+turns with the earlier checkout's, by CUDA events and by each launch's
+device time, beside
+torch.searchsorted of the bucket numbers 0..B (the plain build's core)
+by launch. The planes stage also times the earlier checkout's K10 in
+turns. `--only` names the stages to run
 (comma-separated keys of the JSON record: span_scan, span_walk, nw, scan,
 keys, walk, merge, planes, mesh, sorted; default all). Prints the card,
 one line per shape and, last, one JSON object of every time. Exits
@@ -403,10 +410,11 @@ def bench_planes(genome, solid, k, seed: int, prev_s):
     calls = {"earlier K8": lambda: prev_s.scan_planes_q_cuda(*q_args), "K8": lambda: S.scan_planes_q_cuda(*q_args),
              "earlier K9": lambda: prev_s.scan_planes_qb_cuda(*qb_args), "K9": lambda: S.scan_planes_qb_cuda(*qb_args),
              "K1": lambda: S.scan_cls_qp_cuda(*pair, (window - k + 2 + 3) // 4 * 4 // 8),
-             "K10": lambda: S.scan_pay_qp_cuda(*pair)}
+             "earlier K10": lambda: prev_s.scan_pay_qp_cuda(*pair), "K10": lambda: S.scan_pay_qp_cuda(*pair)}
     plains = {"K8": lambda: S._scan_planes_q_plain(*q_args), "K9": lambda: S._scan_planes_qb_plain(*qb_args),
               "K10": lambda: S._scan_pay_qp_plain(*pair), "earlier K8": lambda: S._scan_planes_q_plain(*q_args),
-              "earlier K9": lambda: S._scan_planes_qb_plain(*qb_args)}
+              "earlier K9": lambda: S._scan_planes_qb_plain(*qb_args),
+              "earlier K10": lambda: S._scan_pay_qp_plain(*pair)}
     for name, plain in plains.items():
         if not _equal(calls[name](), plain()):
             raise AssertionError(f"{name} differs from its plain version")
@@ -417,9 +425,12 @@ def bench_planes(genome, solid, k, seed: int, prev_s):
     n_pos = window - k + 1
     row = {"window": window, "registers": registers, "ms": times, "sectors": sectors,
            "table_mb": {"K1": qp.nbytes >> 20, "K8": qm.nbytes >> 20, "K9": qb.nbytes >> 20, "K10": qp.nbytes >> 20},
-           "stages_ms": {name: stage_ms(calls[name], 10) for name in ("earlier K8", "K8", "earlier K9", "K9")},
+           "stages_ms": {name: stage_ms(calls[name], 10)
+                         for name in ("earlier K8", "K8", "earlier K9", "K9", "earlier K10", "K10")},
            "bound_ms": {name: bytes_ms(sectors[name] * SECTOR_BYTES + packed.numel() + bad.numel()
                                        + PLANE_BYTES_PER_POSITION * n_pos) for name in ("K8", "K9")}}
+    row["bound_ms"]["K10"] = bytes_ms(sectors["K10"] * SECTOR_BYTES + packed.numel() + bad.numel()
+                                      + (window - k + 2) + (window - k + 2 + 7) // 8)
     print(f"plane kernels on K1's 2^22-base window, in turns twice ({', '.join(calls)}, and back): "
           + ", ".join(f"{name} {times[name]} ms" for name in calls)
           + "; " + ", ".join(f"{name} {sectors[name]} sectors (table {row['table_mb'][name]} MB)" for name in sectors)
@@ -644,6 +655,54 @@ def bench_sorted(genome, solid, k, seed: int, prev_s, prev_sm):
     return out
 
 
+def bench_index(solid, prev_si, seed: int) -> dict:
+    """The bucket index build on every set size the port's paths build: the
+    solid set (chip_smoke.py's K14 set), the first and the last
+    (SENTINEL-tailed) key shard of MESH_SHARDS logical shards, entry()'s
+    two sets, and the first shard of 2^12 keys below 2^40 over MESH_SHARDS
+    (the dryrun's membership set); each equal to its plain version and to
+    the earlier kernel: in turns with the earlier one by CUDA events and,
+    twice, by the device time of each launch (torch.profiler; a call is
+    shorter on the card than on the host), beside one PyTorch call of the
+    function's core, torch.searchsorted of the bucket numbers 0..B into the
+    keys' bucket numbers (precomputed), by launch."""
+    from . import graft_entry as G
+
+    cuda = torch.device("cuda")
+    sm = SM.ShardedMembership([cuda] * MESH_SHARDS, solid)
+    _fn, eargs = G.entry()
+    small = np.sort(np.random.default_rng(seed).integers(0, 1 << 40, size=1 << 12, dtype=np.uint64))
+    sets = {"solid": torch.from_numpy(K.as_i64(solid)).to(cuda), "shard 0": sm.shard_keys[0],
+            f"shard {MESH_SHARDS - 1}": sm.shard_keys[-1], "entry() solid set": eargs[1],
+            "entry() repeat set": eargs[2],
+            "dryrun shard 0": SM.ShardedMembership([cuda] * MESH_SHARDS, small).shard_keys[0]}
+    out = {}
+    for name, keys in sets.items():
+        log_b = SI.log_buckets(keys.numel())
+        want = SI._build_plain(keys, log_b)
+        fns = {"earlier": lambda: prev_si.build_cuda(keys, log_b), "current": lambda: SI.build_cuda(keys, log_b)}
+        for which, f in fns.items():
+            got = f()
+            if not (torch.equal(got.start, want.start) and torch.equal(got.head, want.head)):
+                raise AssertionError(f"the {which} index build differs from its plain version ({name})")
+        lo, hi, shift, real = (int(v) for v in want.head.tolist())
+        buckets = K.shr(keys[:real] - lo, shift)
+        numbers = torch.arange((1 << log_b) + 1, device=cuda)
+        if not torch.equal(torch.searchsorted(buckets, numbers).to(torch.int32), want.start):
+            raise AssertionError(f"torch.searchsorted's starts differ from the index's ({name})")
+        stages = {which: [] for which in fns}
+        for which in (list(fns) + list(fns)[::-1]) * 2:
+            stages[which].append(sum(stage_ms(fns[which], 20).values()))
+        v = {"keys": keys.numel(), "real": real, "log_buckets": log_b, "ms": _turns(fns, 20, 2),
+             "launch_ms": stages, "library_ms": sum(stage_ms(lambda: torch.searchsorted(buckets, numbers), 20).values()),
+             "bound_ms": bytes_ms(8 * keys.numel() + 4 * numbers.numel() + 32)}
+        out[name] = v
+        print(f"bucket index build, {name}: {v['keys']} keys ({real} below SENTINEL) in 2^{log_b} buckets: in turns "
+              f"(CUDA events, ms) {v['ms']}; by launch (torch.profiler, in turns) {stages}; torch.searchsorted of "
+              f"the bucket numbers {v['library_ms']:.4f} ms by launch; bound {v['bound_ms']:.4f} ms (bytes)")
+    return out
+
+
 def span_registers() -> dict:
     """Registers and spill bytes of every K6 and K7 instantiation."""
     out = {}
@@ -712,6 +771,8 @@ def main(argv=None) -> int:
     if "sorted" in only:
         prev_sm = importlib.import_module("prev_mindthegap_tpu_torch.parallel.sharded_membership")
         record["sorted"] = bench_sorted(genome, solid, k, args.seed + 4, prev_s, prev_sm)
+        record["sorted"]["index_build"] = bench_index(
+            solid, importlib.import_module("prev_mindthegap_tpu_torch.ops.sorted_index"), args.seed + 5)
     line = json.dumps(record)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

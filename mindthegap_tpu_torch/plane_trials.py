@@ -1,14 +1,19 @@
-"""K8's design trials on one GPU, and the card's random-sector rate.
+"""Design trials of K8 and K10 on one GPU, and the card's random-sector
+rate.
 
-    python -m mindthegap_tpu_torch.plane_trials --prev DIR [--json FILE]
+    python -m mindthegap_tpu_torch.plane_trials --prev DIR [--json FILE] [--only PARTS]
 
-Copies of csrc/scan_planes.cu are made at run time from the committed
-source by the text substitutions below (each must match the source once),
-built with nvcc -Xptxas -v into `_build/trials/`, all at once, and timed in
-turns with the committed K8 and DIR's (an earlier checkout, as for
-kernel_bench's --prev) on kernel_bench's plane window (2^22 bases of a
-seeded genome of E. coli's length over the cuckoo map of its k = 31 set),
-each called through its C launcher into preallocated planes:
+Copies of csrc/scan_planes.cu (K8) and csrc/scan_qp.cu (K10) are made at
+run time by the text substitutions below (each must match its source
+once), built with nvcc -Xptxas -v into `_build/trials/`, all at once, and
+timed in turns with the committed kernel and DIR's (an earlier checkout,
+as for kernel_bench's --prev), each called through its C launcher into
+preallocated outputs. Any source that does not build stops the run.
+`--only` takes k8, k10 and yardstick (comma-separated; default all).
+
+K8, on kernel_bench's plane window (2^22 bases of a seeded genome of E.
+coli's length over the cuckoo map of its k = 31 set), copies of the
+committed source, each equal to the plain version but "no stores":
 
   - "cp.async staging": each tile's bases copied by cp.async an
     iteration before they are needed, where K8 loads them before the
@@ -21,14 +26,21 @@ each called through its C launcher into preallocated planes:
   - "smem stores": the same tile in shared memory, sent by the block's
     threads in coalesced 16-byte stores.
 
-The copies that write the planes must equal the plain version. Then the
-random-sector yardstick: torch.index_select and a hand gather with 1, 2,
-4 and 8 loads in flight a thread, of 2^22, K8's and 2^24 random rows of a
-128 MB int64 table (a row a 32-byte sector), in sectors a second; and K8's
-least time at the best of those rates: the larger of its probes at that
-rate and its bytes (inputs and planes) at 3.35 TB/s. Prints the card, one
-line a part and, last, one JSON object. Exits non-zero without a CUDA
-device.
+K10, on the same window over the pair map, its split (K10_SPLIT, timed
+only): copies of the committed K10 that each drop one part: "no probes"
+(the row loads replaced by words made from the key's hashes, so no row is
+read), "no second round" (a key not in its first row reads as absent) and
+"no stores" (pay8 and rep8 folded into one store that is never taken).
+
+Then the random-sector yardstick: torch.index_select and a hand gather
+with 1, 2, 4 and 8 loads in flight a thread, of 2^22, K8's and 2^24
+random rows of a 128 MB int64 table (a row a 32-byte sector), in sectors a
+second, and with k10 of 2^22 and 2^24 rows of a 256 MB table (the size of
+K10's pair map); K8's least time at the best of those rates over 128 MB
+(the larger of its probes at that rate and its bytes, inputs and planes,
+at 3.35 TB/s), and K10's at the best over each table size (its row
+sectors, bounds.py scan_probe_sectors). Prints the card, one line a part
+and, last, one JSON object. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ import numpy as np
 import torch
 
 from ._build import BUILD_DIR, CSRC_DIR, CUDA_ARCH_FLAGS, BuildError, nvcc_path, parse_ptxas
-from .bounds import PLANE_BYTES_PER_POSITION, SECTOR_BYTES, bytes_ms, plane_scan_sectors
+from .bounds import PLANE_BYTES_PER_POSITION, bytes_ms, plane_scan_sectors, scan_probe_sectors
 from .device import cuda_ms, stage_ms
 from .find import scan_device as S
 from .kernel_bench import GENOME_LEN, _turns, plane_window
@@ -221,6 +233,50 @@ VARIANTS = {"cp.async staging": CP_ASYNC_STAGING, "no stores": NO_STORES, "bulk 
             "smem stores": SMEM_STORES}
 TIMED_ONLY = ("no stores",)
 
+# K10's split: copies of K10 (a block a tile of 512 pairs, both first-choice
+# row loads of a thread issued together, the second choice after a miss) that
+# each drop one part, timed only
+_FIRST = """    }
+    ulonglong2 row0[P];
+#pragma unroll
+    for (int e = 0; e < P; e++) row0[e] = live[e] ? __ldg(&slots[h1[e] >> shift]) : make_ulonglong2(0, 0);
+"""
+_SECOND = """            row = __ldg(&slots[h2[e] >> shift]);
+            hit = row_hit(row, h2[e], rem_mask, 1);
+        }
+        u64 l36 = hit"""
+_STORES = """    const int64_t j0 = 2 * (m0 + P * tid);  // the thread's first entry; j0 % 8 is 0 or 4
+    if (vec && j0 + E <= n_pay) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int i = 0; i < E; i++) v |= (uint32_t)(pay[i] & 0xFF) << (8 * i);
+        *reinterpret_cast<uint32_t*>(pay8 + j0) = v;
+    } else {
+#pragma unroll
+        for (int i = 0; i < E; i++)
+            if (j0 + i < n_pay) pay8[j0 + i] = (uint8_t)pay[i];
+    }
+    unsigned nib = 0;  // entry j0 + i at bit 3 - i: np.packbits order within the byte's half
+#pragma unroll
+    for (int i = 0; i < E; i++) nib |= (unsigned)((pay[i] >> 8) & 1) << (E - 1 - i);
+    const unsigned low = __shfl_down_sync(FULL, nib, 1);
+    if ((tid & 1) == 0 && j0 / 8 < n_rep8) rep8[j0 / 8] = (uint8_t)(nib << 4 | low);
+"""
+K10_SPLIT = {
+    "no probes": [(_FIRST, _FIRST.replace(
+                       "live[e] ? __ldg(&slots[h1[e] >> shift]) : make_ulonglong2(0, 0)",
+                       "make_ulonglong2(h1[e] ^ h2[e], h2[e])")),
+                  (_SECOND, _SECOND.replace("__ldg(&slots[h2[e] >> shift])", "make_ulonglong2(h2[e], h1[e])"))],
+    "no second round": [(_SECOND, _SECOND.replace("__ldg(&slots[h2[e] >> shift])", "row0[e]")
+                         .replace("hit = row_hit(row, h2[e], rem_mask, 1);", "hit = false;"))],
+    "no stores": [(_STORES, """    const int64_t j0 = 2 * (m0 + P * tid);
+    uint32_t v = 0;
+#pragma unroll
+    for (int i = 0; i < E; i++) v = v * 31u + pay[i];
+    if (v == 0x5A5A5A5Au) pay8[j0] = (uint8_t)n_rep8;
+""")],
+}
+
 # a gather of n random rows, L loads in flight a thread, one word out a thread
 GATHER = r"""
 #include <cstdint>
@@ -267,18 +323,34 @@ def substituted(src: str, pairs) -> str:
     return src
 
 
-def build_trials(prev_csrc: str) -> dict:
-    """The committed K8, the earlier one (prev_csrc/scan_planes.cu), each
-    copy of VARIANTS and the gather, built at once: {name: (library,
-    [(kernel, registers, spill bytes)])}."""
+def trial_sources(prev_csrc: str, parts) -> dict:
+    """{name: (source text, include directory)} of every copy `parts` needs:
+    K8, the earlier one (prev_csrc/scan_planes.cu) and VARIANTS' copies;
+    K10, the earlier one (prev_csrc/scan_qp.cu) and the split of the
+    committed one; the gather."""
+    def read(folder, name):
+        with open(os.path.join(folder, name)) as f:
+            return f.read()
+
+    texts = {}
+    if "k8" in parts:
+        src = read(CSRC_DIR, "scan_planes.cu")
+        texts.update({"K8": (src, CSRC_DIR), "earlier K8": (read(prev_csrc, "scan_planes.cu"), prev_csrc),
+                      **{name: (substituted(src, pairs), CSRC_DIR) for name, pairs in VARIANTS.items()}})
+    if "k10" in parts:
+        src, prev = read(CSRC_DIR, "scan_qp.cu"), read(prev_csrc, "scan_qp.cu")
+        texts.update({"K10": (src, CSRC_DIR), "earlier K10": (prev, prev_csrc),
+                      **{f"K10 {name}": (substituted(src, pairs), CSRC_DIR) for name, pairs in K10_SPLIT.items()}})
+    if "yardstick" in parts:
+        texts["gather"] = (GATHER, CSRC_DIR)
+    return texts
+
+
+def build_trials(texts: dict) -> dict:
+    """Every source of `texts` ({name: (text, include directory)}) built at
+    once: {name: (library, [(kernel, registers, spill bytes)])}; a source
+    that does not build raises BuildError."""
     os.makedirs(TRIAL_DIR, exist_ok=True)
-    with open(os.path.join(CSRC_DIR, "scan_planes.cu")) as f:
-        src = f.read()
-    with open(os.path.join(prev_csrc, "scan_planes.cu")) as f:
-        prev = f.read()
-    texts = {"K8": (src, CSRC_DIR), "earlier K8": (prev, prev_csrc),
-             **{name: (substituted(src, pairs), CSRC_DIR) for name, pairs in VARIANTS.items()},
-             "gather": (GATHER, CSRC_DIR)}
     procs = {}
     for i, (name, (text, include)) in enumerate(texts.items()):
         path, lib = os.path.join(TRIAL_DIR, f"trial{i}.cu"), os.path.join(TRIAL_DIR, f"libtrial{i}.so")
@@ -329,36 +401,25 @@ def random_sector_rates(gather_lib, row_counts, seed: int, table_mb: int = 128) 
         ways = {"index_select": lambda: torch.index_select(table, 0, idx),
                 **{f"gather {loads}": (lambda loads=loads: gather(loads)) for loads in (1, 2, 4, 8)}}
         ms = {way: [cuda_ms(f, 20) for _ in range(3)] for way, f in ways.items()}
-        out.append({"rows": n, "ms": ms, "g_sectors_per_s": {way: n / min(t) / 1e6 for way, t in ms.items()}})
+        out.append({"rows": n, "table_mb": table_mb, "ms": ms,
+                    "g_sectors_per_s": {way: n / min(t) / 1e6 for way, t in ms.items()}})
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--prev", required=True, help="directory of an earlier checkout (as kernel_bench's --prev)")
-    ap.add_argument("--json", help="also write the JSON record to this file")
-    ap.add_argument("--seed", type=int, default=20261016)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("plane_trials: no CUDA device is available", file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
-    built = build_trials(os.path.join(args.prev, "mindthegap_tpu_torch", "csrc"))
-    registers = {name: [(kernel[-40:], regs, spill) for kernel, regs, spill in usage]
-                 for name, (_, usage) in built.items()}
-    print("registers (spill bytes): " + "; ".join(
-        f"{name}: " + ", ".join(f"{kernel} {regs} ({spill})" for kernel, regs, spill in usage)
-        for name, usage in registers.items()))
+PARTS = ("k8", "k10", "yardstick")
 
-    # kernel_bench's plane window: the same draws as its planes stage
-    rng = np.random.default_rng(args.seed)
-    k = 31
-    genome = rng.integers(0, 4, GENOME_LEN, dtype=np.uint8)
-    fwd, _ = K.kmers_from_codes(genome, k)
-    solid = np.unique(K.canonical_u64(fwd, k))
-    packed, bad, repeat = plane_window(genome, k, args.seed + 2)
+
+def _pay_launcher(lib):
+    fn = lib.scan_pay_qp_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                   *[ctypes.c_void_p] * 3, ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 3]
+    return fn
+
+
+def time_k8(built: dict, packed, bad, solid, repeat, k: int) -> dict:
+    """K8's copies into preallocated planes, each equal to the plain
+    version but the timed-only ones, in turns twice; the two K8s by launch."""
     window = packed.numel() * 4
     qm = X.build_fused(solid, k, repeat)
     tm = qm.to("cuda")
@@ -376,7 +437,7 @@ def main(argv=None) -> int:
                 raise RuntimeError("a K8 copy did not launch")
         return run
 
-    runs = {name: runner(lib) for name, (lib, _) in built.items() if name != "gather"}
+    runs = {name: runner(built[name][0]) for name in ("K8", "earlier K8", *VARIANTS)}
     for name, run in runs.items():
         for plane in planes.values():
             plane.zero_()
@@ -386,24 +447,108 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} differs from the plain version")
     sectors = plane_scan_sectors(packed, bad, tm, k)
     n_pos = window - k + 1
-    record = {"device": smi, "registers": registers, "window": window, "sectors": sectors,
-              "ms": _turns(runs, 20, rounds=2),
-              "stages_ms": {name: stage_ms(runs[name], 10) for name in ("earlier K8", "K8")}}
+    out = {"sectors": sectors, "ms": _turns(runs, 20, rounds=2),
+           "stages_ms": {name: stage_ms(runs[name], 10) for name in ("earlier K8", "K8")},
+           "bytes_ms": bytes_ms(packed.numel() + bad.numel() + PLANE_BYTES_PER_POSITION * n_pos)}
     print(f"K8 copies on kernel_bench's {window}-base window ({sectors} probe sectors), into preallocated planes, "
-          f"in turns twice (ms): {record['ms']}; by launch (torch.profiler) {record['stages_ms']}")
+          f"in turns twice (ms): {out['ms']}; by launch (torch.profiler) {out['stages_ms']}")
+    return out
 
-    yard = random_sector_rates(built["gather"][0], (1 << 22, sectors, 1 << 24), args.seed)
-    best = max(rate for row in yard for rate in row["g_sectors_per_s"].values())
-    record["random_sectors"] = yard
-    record["k8_least_ms"] = max(sectors / best / 1e6,
-                                bytes_ms(packed.numel() + bad.numel() + PLANE_BYTES_PER_POSITION * n_pos))
-    record["k8_probe_bytes_ms"] = bytes_ms(sectors * SECTOR_BYTES)
-    for row in yard:
-        print(f"random-sector yardstick, {row['rows']} random rows of a 128 MB int64 table (ms, G sectors/s): "
-              + ", ".join(f"{way} {row['ms'][way]} {row['g_sectors_per_s'][way]:.2f}" for way in row["ms"]))
-    print(f"best rate {best:.2f} G sectors/s: K8's least time at it {record['k8_least_ms']:.4f} ms (its probes "
-          f"{sectors / best / 1e6:.4f} ms; its bytes at 3.35 TB/s "
-          f"{bytes_ms(packed.numel() + bad.numel() + PLANE_BYTES_PER_POSITION * n_pos):.4f} ms)")
+
+def time_k10(built: dict, packed, bad, solid, repeat, k: int) -> dict:
+    """K10's copies over the pair map into preallocated pay8 and rep8: the
+    committed and the earlier K10 equal to the plain version, the split
+    timed only; all in turns twice, the two K10s also by launch."""
+    window = packed.numel() * 4
+    qp = X.build_fused_pair(solid, k, repeat)
+    tp = qp.to("cuda")
+    tables = (tp.slots, tp.stash_keys, tp.stash_l, tp.stash_r)
+    want = S._scan_pay_qp_plain(packed, bad, *tables, qp.log_size, k)
+    out8 = {key: torch.empty_like(v) for key, v in want.items()}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def runner(lib):
+        fn = _pay_launcher(lib)
+
+        def run():
+            if fn(packed.data_ptr(), bad.data_ptr(), window, tp.slots.data_ptr(), qp.log_size,
+                  tp.stash_keys.data_ptr(), tp.stash_l.data_ptr(), tp.stash_r.data_ptr(), tp.stash_keys.numel(), k,
+                  out8["pay8"].data_ptr(), out8["rep8"].data_ptr(), stream):
+                raise RuntimeError("a K10 copy did not launch")
+        return run
+
+    runs = {name: runner(lib) for name, (lib, _) in built.items() if "K10" in name}
+    for name in ("K10", "earlier K10"):
+        for v in out8.values():
+            v.zero_()
+        runs[name]()
+        torch.cuda.synchronize()
+        if not all(torch.equal(out8[key], want[key]) for key in want):
+            raise AssertionError(f"{name} differs from the plain version")
+    sectors = scan_probe_sectors(packed, bad, tp, k)
+    out = {"sectors": sectors, "ms": _turns(runs, 20, rounds=2),
+           "stages_ms": {name: stage_ms(runs[name], 10) for name in ("earlier K10", "K10")},
+           "bytes_ms": bytes_ms(packed.numel() + bad.numel() + sum(v.numel() for v in want.values()))}
+    print(f"K10 copies on kernel_bench's {window}-base window ({sectors} row sectors), into preallocated pay8 and "
+          f"rep8, in turns twice (ms): {out['ms']}; by launch (torch.profiler) {out['stages_ms']}")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--prev", required=True, help="directory of an earlier checkout (as kernel_bench's --prev)")
+    ap.add_argument("--json", help="also write the JSON record to this file")
+    ap.add_argument("--seed", type=int, default=20261016)
+    ap.add_argument("--only", help=f"comma-separated parts to run: {', '.join(PARTS)} (default: all)")
+    args = ap.parse_args(argv)
+    parts = set(args.only.split(",")) if args.only else set(PARTS)
+    if parts - set(PARTS):
+        ap.error(f"unknown parts {sorted(parts - set(PARTS))} (choose from {', '.join(PARTS)})")
+    if not torch.cuda.is_available():
+        print("plane_trials: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    built = build_trials(trial_sources(os.path.join(args.prev, "mindthegap_tpu_torch", "csrc"), parts))
+    registers = {name: [(kernel[-40:], regs, spill) for kernel, regs, spill in usage]
+                 for name, (_, usage) in built.items()}
+    print("registers (spill bytes): " + "; ".join(
+        f"{name}: " + ", ".join(f"{kernel} {regs} ({spill})" for kernel, regs, spill in usage)
+        for name, usage in registers.items()))
+
+    # kernel_bench's plane window: the same draws as its planes stage
+    rng = np.random.default_rng(args.seed)
+    k = 31
+    genome = rng.integers(0, 4, GENOME_LEN, dtype=np.uint8)
+    fwd, _ = K.kmers_from_codes(genome, k)
+    solid = np.unique(K.canonical_u64(fwd, k))
+    packed, bad, repeat = plane_window(genome, k, args.seed + 2)
+    record = {"device": smi, "registers": registers, "window": packed.numel() * 4}
+    if "k8" in parts:
+        record["k8"] = time_k8(built, packed, bad, solid, repeat, k)
+    if "k10" in parts:
+        record["k10"] = time_k10(built, packed, bad, solid, repeat, k)
+    if "yardstick" in parts:
+        rows = (1 << 22, *((record["k8"]["sectors"],) if "k8" in record else ()), 1 << 24)
+        yard = random_sector_rates(built["gather"][0], rows, args.seed)
+        if "k10" in record:  # the pair map's table is 256 MB: the rate over a table of that size too
+            yard += random_sector_rates(built["gather"][0], (1 << 22, 1 << 24), args.seed, table_mb=256)
+        record["random_sectors"] = yard
+        for row in yard:
+            print(f"random-sector yardstick, {row['rows']} random rows of a {row['table_mb']} MB int64 table (ms, "
+                  "G sectors/s): " + ", ".join(f"{way} {row['ms'][way]} {row['g_sectors_per_s'][way]:.2f}"
+                                               for way in row["ms"]))
+        for name, mb in (("k8", 128), ("k10", 128), ("k10", 256)):
+            if name in record:
+                r = record[name]
+                best = max(rate for row in yard if row["table_mb"] == mb for rate in row["g_sectors_per_s"].values())
+                suffix = "" if mb == 128 else f"_{mb}mb"
+                r["probes_at_best" + suffix + "_ms"] = r["sectors"] / best / 1e6
+                r["least" + suffix + "_ms"] = max(r["probes_at_best" + suffix + "_ms"], r["bytes_ms"])
+                print(f"best rate over a {mb} MB table {best:.2f} G sectors/s: {name.upper()}'s least time at it "
+                      f"{r['least' + suffix + '_ms']:.4f} ms (its probes {r['probes_at_best' + suffix + '_ms']:.4f} "
+                      f"ms; its bytes at 3.35 TB/s {r['bytes_ms']:.4f} ms)")
     line = json.dumps(record)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

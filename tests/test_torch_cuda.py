@@ -16,11 +16,12 @@ from mindthegap_tpu_torch.ops import nw_device as ND
 from mindthegap_tpu_torch.ops import sorted_index as SI
 from mindthegap_tpu_torch.parallel import sharded_count as PSC
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
-from torch_tables import (MEMBER_EDGE_NAMES, PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES,
-                          SCATTER_EDGE_NAMES, SORTED_EDGE_NAMES, SPAN_EDGE_NAMES, SWIZZLE_EDGE_NAMES, edge_walk_case,
-                          edge_walk_span_case, key_edge_batches, member_edge_cases, merge_edge_cases, move_to_stash,
-                          plane_edge_windows, plane_pipeline_case, route_edge_cases, scan_edge_windows,
-                          scatter_edge_cases, sorted_edge_windows, span_edge_windows, swizzle_edge_chunks)
+from torch_tables import (INDEX_EDGE_NAMES, MEMBER_EDGE_NAMES, PAIR_PIPELINE_NAMES, PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES,
+                          ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES, SCATTER_EDGE_NAMES, SORTED_EDGE_NAMES, SPAN_EDGE_NAMES,
+                          SWIZZLE_EDGE_NAMES, edge_walk_case, edge_walk_span_case, index_edge_sets, key_edge_batches,
+                          member_edge_cases, merge_edge_cases, move_to_stash, pair_pipeline_case, plane_edge_windows,
+                          plane_pipeline_case, route_edge_cases, scan_edge_windows, scatter_edge_cases,
+                          sorted_edge_windows, span_edge_windows, swizzle_edge_chunks)
 
 pytestmark = pytest.mark.cuda
 
@@ -357,6 +358,18 @@ def test_plane_kernel_pipeline_cases(cuda, name, k):
     _check_plane_kernel("cuckoo", _plane_args(qm, "cuckoo", codes, cuda) + (k,))
 
 
+@pytest.mark.parametrize("k", [3, 21, 31, 32])
+@pytest.mark.parametrize("name", PAIR_PIPELINE_NAMES)
+def test_pay_kernel_pipeline_cases(cuda, name, k):
+    """K10 against its plain version on its pipeline cases
+    (tests/torch_tables.py pair_pipeline_case): over 1,024 tiles with a
+    ragged last one and both parities of the last pair, a map near its
+    highest load factor, every pair missing its first row, a full stash in
+    descending order; one launch a call."""
+    qp, codes = pair_pipeline_case(k, name)
+    _check_plane_kernel("pair", _plane_args(qp, "pair", codes, cuda) + (k,))
+
+
 @pytest.mark.parametrize("layout", ["cuckoo", "bucket"])
 def test_plane_kernel_unaligned_planes(cuda, layout):
     """K8 and K9 write planes that are views at unaligned offsets (through
@@ -509,12 +522,18 @@ def test_scan_sorted_kernel_edge_cases(cuda, name, k):
 
 
 def _check_index_kernel(keys: torch.Tensor):
-    for halve in (0, 1, 2):  # about 1, 2 and 4 keys a bucket
-        log_b = max(1, SI.log_buckets(keys.shape[0]) - halve)
+    top = SI.log_buckets(keys.shape[0])
+    for log_b in sorted({top, max(1, top - 1), max(1, top - 2), 1}):  # about 1, 2 and 4 keys a bucket, 2 buckets
         before = SI.build_cuda.launches
         got, want = SI.build_cuda(keys, log_b), SI._build_plain(keys, log_b)
         assert SI.build_cuda.launches == before + 1
         assert torch.equal(got.start, want.start) and torch.equal(got.head, want.head)
+        # every start written: the launcher into outputs filled with -7 (the wrapper's may hold an earlier build)
+        start, head = torch.full_like(want.start, -7), torch.full_like(want.head, -7)
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        assert SI._lib().sorted_index_launch(keys.data_ptr() or start.data_ptr(), keys.shape[0], log_b,
+                                             start.data_ptr(), head.data_ptr(), stream) == 0
+        assert torch.equal(start, want.start) and torch.equal(head, want.head)
 
 
 @pytest.mark.parametrize("name", MEMBER_EDGE_NAMES)
@@ -534,6 +553,15 @@ def test_sorted_index_kernel_on_sorted_sets(cuda, name, k):
     _codes, solid, repeat = sorted_edge_windows(k)[name]
     for keys in (solid, repeat):
         _check_index_kernel(torch.from_numpy(K.as_i64(keys)).to(cuda))
+
+
+@pytest.mark.parametrize("name", INDEX_EDGE_NAMES)
+def test_sorted_index_kernel_on_index_edge_sets(cuda, name):
+    """The build kernel against its plain version on its own edge sets
+    (tests/torch_tables.py index_edge_sets): SENTINEL tails of one key to
+    most of the set, hi - lo just above a power of two, 2^20 keys and one
+    either side, no key, keys across 2^63."""
+    _check_index_kernel(torch.from_numpy(K.as_i64(index_edge_sets()[name])).to(cuda))
 
 
 def test_entry_runs_k14(cuda):

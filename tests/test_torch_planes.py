@@ -23,8 +23,8 @@ from mindthegap_tpu_torch.find import scan_device as PS
 from mindthegap_tpu_torch.ops import extmap as PX
 from mindthegap_tpu_torch.ops import kmers as PK
 from mindthegap_tpu_torch.ops.span import Span
-from torch_tables import (PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, SPAN_EDGE_NAMES, plane_edge_windows,
-                          plane_pipeline_case, span_edge_windows)
+from torch_tables import (PAIR_PIPELINE_NAMES, PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, SPAN_EDGE_NAMES,
+                          pair_pipeline_case, plane_edge_windows, plane_pipeline_case, span_edge_windows)
 
 PLANE_FIELDS = ("valid", "fwd", "contains", "nb_in", "nb_out", "suffix_rep", "prefix_rep", "fwd_rows")
 
@@ -227,6 +227,26 @@ def test_scan_pay_qp_plain_matches_jax(name, k):
     assert got["pay8"].shape[0] == codes.size - k + 2
 
 
+@pytest.mark.parametrize("k", [3, 21, 31, 32])
+@pytest.mark.parametrize("name", PAIR_PIPELINE_NAMES)
+def test_scan_pay_qp_plain_matches_jax_on_pipeline_cases(name, k):
+    """The plain version of K10 equals scan_pay_device_qp on K10's pipeline
+    cases (tests/torch_tables.py pair_pipeline_case): a map near
+    its highest load factor (many pairs in their second row), every pair
+    absent, a full stash in descending order, and the first 2^16 bases of
+    the long ragged window."""
+    qp, codes = pair_pipeline_case(k, name, cut=1 << 16 if name == "long-ragged" else None)
+    t = qp.to("cpu")
+    got = PS.scan_pay_qp(*_packed(codes), t.slots, t.stash_keys, t.stash_l, t.stash_r, qp.log_size, k)
+    want = JS.scan_pay_device_qp(jnp.asarray(codes), *_jax_pair(qp), qp.log_size, k)
+    for key in ("pay8", "rep8"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+    if name == "all-absent":
+        assert k < 13 or not (got["pay8"].any() or got["rep8"].any())  # short (k-2)-mers occur anywhere
+    else:
+        assert got["pay8"].bool().float().mean() > 0.5
+
+
 @pytest.mark.parametrize("k", [33, 45, 128])
 @pytest.mark.parametrize("name", SPAN_EDGE_NAMES)
 def test_plane_pass_span_matches_jax(name, k):
@@ -270,17 +290,21 @@ def test_plane_scan_sectors(layout):
         assert sectors == keys.shape[0] + int((~first).sum())
 
 
-@pytest.mark.parametrize("name", ["cp.async staging", "no stores", "bulk stores", "smem stores"])
+@pytest.mark.parametrize("name", ["cp.async staging", "no stores", "bulk stores", "smem stores",
+                                  "K10 no probes", "K10 no second round", "K10 no stores"])
 def test_plane_trials_apply_to_the_kernel_source(name):
-    """Each of plane_trials' K8 copies applies to csrc/scan_planes.cu: every
-    text it replaces occurs there once (the copies are built on the card
-    only), and a text that does not occur is refused."""
+    """Each of plane_trials' K8 copies applies to csrc/scan_planes.cu and
+    each copy of K10's split to csrc/scan_qp.cu: every text it replaces
+    occurs there once (the copies are built on the card only), and a text
+    that does not occur is refused."""
     from mindthegap_tpu_torch import plane_trials as T
     from mindthegap_tpu_torch._build import CSRC_DIR
 
-    with open(f"{CSRC_DIR}/scan_planes.cu") as f:
+    split = name.startswith("K10 ")
+    source, kernel = ("scan_qp.cu", "scan_pay_qp_kernel") if split else ("scan_planes.cu", "scan_planes_q_kernel")
+    with open(f"{CSRC_DIR}/{source}") as f:
         src = f.read()
-    copy = T.substituted(src, T.VARIANTS[name])
-    assert copy != src and "scan_planes_q_kernel" in copy
+    copy = T.substituted(src, T.K10_SPLIT[name[4:]] if split else T.VARIANTS[name])
+    assert copy != src and kernel in copy
     with pytest.raises(ValueError, match="once"):
         T.substituted(src, [("no such text in the kernel", "")])

@@ -17,7 +17,8 @@ from mindthegap_tpu_torch.find import scan_device as PS
 from mindthegap_tpu_torch.ops import kmers as PK
 from mindthegap_tpu_torch.ops import sorted_index as SI
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
-from torch_tables import MEMBER_EDGE_NAMES, SORTED_EDGE_NAMES, member_edge_cases, sorted_edge_windows
+from torch_tables import (INDEX_EDGE_NAMES, MEMBER_EDGE_NAMES, SORTED_EDGE_NAMES, index_edge_sets, member_edge_cases,
+                          sorted_edge_windows)
 
 CPU = torch.device("cpu")
 SENT = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -113,6 +114,36 @@ def test_index_on_skewed_sets(name):
     keys = _skewed_sets()[name]
     assert np.all(keys[:-1] <= keys[1:])
     _check_index(keys, _queries(keys, np.zeros(0, np.uint64), 3))
+
+
+def _numpy_index(keys: np.ndarray, log_b: int):
+    """The index by numpy alone: n_real by np.searchsorted for SENTINEL, the
+    bucket numbers in uint64, the starts by np.searchsorted of 0..B."""
+    real = int(np.searchsorted(keys, SENT))
+    if real == 0:
+        return np.zeros((1 << log_b) + 1, np.int64), [-1, 0, 0, 0]
+    lo, hi = keys[0], keys[real - 1]
+    shift = max(0, int(hi - lo).bit_length() - log_b)
+    buckets = (keys[:real] - lo) >> np.uint64(shift)
+    start = np.searchsorted(buckets, np.arange((1 << log_b) + 1, dtype=np.uint64))
+    return start, [int(PK.as_i64(np.array([lo]))[0]), int(PK.as_i64(np.array([hi]))[0]), shift, real]
+
+
+@pytest.mark.parametrize("name", INDEX_EDGE_NAMES)
+def test_build_plain_matches_numpy_on_index_edge_sets(name):
+    """The plain build equals the index made by numpy alone (_numpy_index)
+    on the build kernel's edge sets (tests/torch_tables.py
+    index_edge_sets), at about 1 and 4 keys a bucket and at 2 buckets; the
+    plain lookups hold on the smaller sets."""
+    keys = index_edge_sets()[name]
+    t = torch.from_numpy(PK.as_i64(keys))
+    for log_b in (SI.log_buckets(keys.size), max(1, SI.log_buckets(keys.size) - 2), 1):
+        got = SI._build_plain(t, log_b)
+        start, head = _numpy_index(keys, log_b)
+        np.testing.assert_array_equal(got.start.numpy(), start)
+        assert got.head.tolist() == head
+    if keys.size <= 200_000:
+        _check_index(keys, _queries(keys[:2000], np.zeros(0, np.uint64), 5))
 
 
 def test_index_header_and_starts():

@@ -471,6 +471,62 @@ def plane_pipeline_case(k: int, name: str, seed: int = 0):
     raise KeyError(name)
 
 
+PAIR_PIPELINE_NAMES = ("long-ragged", "second-slots", "all-absent", "full-stash-unsorted")
+
+
+def pair_pipeline_case(k: int, name: str, seed: int = 0, cut: int | None = None):
+    """(host pair map, codes u8[w]) of one of K10's pipeline cases at k (3
+    to 32), the windows and maps that stress its probes across tiles (512
+    pairs a block): "long-ragged": 2^20 + 296 bases (1,025 tiles, the last
+    ragged; P = w - k + 1 odd at odd k and even at even k, so k = 31 and 32
+    give rep8 both parities of its last pair) of a genome whose k-mers make
+    the map, every 50th (k-1)-mer the repeat set, with N runs across tiles
+    and isolated Ns (`cut` keeps its first `cut` bases, a multiple of 8);
+    "second-slots": 65,536 bases of a 250,000-base genome over the map of
+    its k-mers built at a load factor of 0.49, near the most the map takes
+    (~27% of the pairs in their second row at k = 31); "all-absent": 8,192
+    random bases over the map of an unrelated genome (from k = 13 on every
+    pair misses its first row); "full-stash-unsorted": 16,000 bases of a
+    genome over the map of its k-mers with 64 of its pair keys moved to the
+    stash (below k = 6, all of them and keys that no window holds), the
+    stash in descending order."""
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    rng = np.random.default_rng(seed + k)
+    none = np.zeros(0, np.uint64)
+
+    def own_map(genome, load_factor=0.35, repeat=none):
+        fwd, _ = K.kmers_from_codes(genome, k)
+        return X.build_fused_pair(np.unique(K.canonical_u64(fwd, k)), k, repeat, load_factor=load_factor)
+
+    if name == "long-ragged":
+        genome = rng.integers(0, 4, (1 << 20) + 4096, dtype=np.uint8)
+        rfwd, _ = K.kmers_from_codes(genome, k - 1)
+        qp = own_map(genome, repeat=np.unique(K.canonical_u64(rfwd[::50], k - 1)))
+        codes = genome[1000 : 1000 + (1 << 20) + 296].copy()
+        for lo in range(1000, codes.size, 100_003):
+            codes[lo : lo + 40] = 255  # runs across tiles
+        codes[rng.integers(0, codes.size, 300)] = 255
+        return qp, codes[:cut] if cut else codes
+    if name == "second-slots":
+        genome = rng.integers(0, 4, 250_000, dtype=np.uint8)
+        return own_map(genome, load_factor=0.49), genome[50_000 : 50_000 + (1 << 16)].copy()
+    if name == "all-absent":
+        return own_map(rng.integers(0, 4, 16_000, dtype=np.uint8)), rng.integers(0, 4, 8192, dtype=np.uint8)
+    if name == "full-stash-unsorted":
+        genome = rng.integers(0, 4, 16_000, dtype=np.uint8)
+        r, _ = K.kmers_from_codes(genome[5000:7000], k - 2)
+        stashed = move_to_stash(own_map(genome), np.unique(K.canonical_u64(r, k - 2))[:64])
+        # below k = 6 there are fewer than 64 (k-2)-mers: keys that no window holds fill the stash
+        fill = 64 - stashed.stash_keys.size
+        sk = np.concatenate([stashed.stash_keys, np.arange(fill, dtype=np.uint64) + np.uint64(1 << 62)])
+        sl, sr = (np.concatenate([col, rng.integers(1, 1 << 36, fill, dtype=np.uint64)])
+                  for col in (stashed.stash_l, stashed.stash_r))
+        order = np.argsort(sk)[::-1]
+        return X.QMapP(stashed.slots, stashed.log_size, k, sk[order], sl[order], sr[order]), genome
+    raise KeyError(name)
+
+
 SCATTER_EDGE_NAMES = ("ragged", "padding-anywhere", "all-padding", "all-real", "one-lane", "owner-segments")
 
 
@@ -729,4 +785,47 @@ def sorted_edge_windows(k: int, seed: int = 0):
     cases["single-key"] = (window, sets[0][sets[0].size // 3 :][:1], sets[1][:1])
     cases["outside-range"] = (window, *(w[w.size // 4 : 3 * w.size // 4] for w in sets))
     assert tuple(cases) == SORTED_EDGE_NAMES
+    return cases
+
+
+INDEX_EDGE_NAMES = ("tail-one-real", "one-sentinel", "long-tail", "range-above-power-of-two", "n-2^20-minus-1",
+                    "n-2^20", "n-2^20-plus-1", "empty", "across-2^63", "tail-31", "tail-32", "tail-33",
+                    "short-tailed", "all-sentinel-5", "all-sentinel-40")
+
+
+def index_edge_sets(seed: int = 0):
+    """{name: sorted u64 keys} for the bucket index's build
+    (ops/sorted_index.py, csrc/sorted_index.cu): one real key before a tail
+    of 5,000 SENTINELs; 100,000 keys and exactly one SENTINEL; 300,000
+    keys before a tail of 700,000 SENTINELs (the search for the first
+    SENTINEL over three of its rounds); hi - lo just above a power of two
+    (the buckets after hi's are half of them); 2^20 - 1, 2^20 and 2^20 + 1
+    keys; no key; 100,000 keys across 2^63 (unsigned order); tails of 31,
+    32 and 33 SENTINELs after 50,000 keys (the kernel reads the last 32
+    keys, then searches); 7 keys and 3 SENTINELs (fewer than 32 keys);
+    5 and 40 SENTINELs and no other key."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(n, lo=0, width=1 << 62):
+        keys = np.unique(rng.integers(0, width, n + n // 50 + 16, dtype=np.uint64) + np.uint64(lo))
+        return keys[:n]
+
+    base = np.uint64(1 << 40)
+    above = np.unique(np.concatenate([uniform(200_000, 1 << 40, 1 << 32), [base, base + np.uint64((1 << 32) + 999)]]))
+    cases = {
+        "tail-one-real": np.append(uniform(1), [_SENT] * 5000),
+        "one-sentinel": np.append(uniform(100_000), _SENT),
+        "long-tail": np.append(uniform(300_000), [_SENT] * 700_000),
+        "range-above-power-of-two": above,
+        "n-2^20-minus-1": uniform((1 << 20) - 1),
+        "n-2^20": uniform(1 << 20),
+        "n-2^20-plus-1": uniform((1 << 20) + 1),
+        "empty": np.zeros(0, np.uint64),
+        "across-2^63": uniform(100_000, (1 << 63) - (1 << 40), 1 << 41),
+        **{f"tail-{t}": np.append(uniform(50_000), [_SENT] * t) for t in (31, 32, 33)},
+        "short-tailed": np.append(uniform(7), [_SENT] * 3),
+        "all-sentinel-5": np.full(5, _SENT),
+        "all-sentinel-40": np.full(40, _SENT),
+    }
+    assert tuple(cases) == INDEX_EDGE_NAMES
     return cases
