@@ -102,8 +102,17 @@ Phases, each of which must pass (any failure exits non-zero):
      graft entry points of mindthegap_tpu_torch/graft_entry.py: entry() (K14)
      and dryrun_multichip(4), whose asserts hold its outputs to one shard's
      and to plain computations;
-  8. drive the k = 45 path on a case of its own (1,000,000 bp, 22
-     insertions, 11 SNPs, 11 deletions, 30x: cut from the E. coli size
+  8. drive the run across processes on the card: this script re-invoked as
+     2 ranks (`--rank R --world 2 --rendezvous FILE ...`, gloo through a
+     rendezvous file), each with 2 logical shards of the card in a global
+     mesh of 4, each running `find -in reads -scan-engine sharded
+     -count-engine sharded -automaton host` (K11 on its count chunks, K10
+     on its scan windows) and `fill -fill-engine device` (K5 on its jobs)
+     through the CLI; a line gives each rank's walls and launches;
+  9. drive `find -graph -profile-trace DIR` on the card, in-process: its
+     torch.profiler trace must name K1's kernel;
+  10. drive the k = 45 path on a case of its own (500,000 bp, 11
+     insertions, 6 SNPs, 6 deletions, 30x: cut from the E. coli size
      because host span counting takes ~0.7 ms a read), in-process: `find
      -kmer-size 45` (the span scan, K6), the native fill, `fill
      -fill-engine device` and `device-qb` (the span walker, K7); then a
@@ -113,14 +122,18 @@ Phases, each of which must pass (any failure exits non-zero):
      -graph -scan-engine device-qb` and `-automaton host` (K6, then
      planes_from_pay_span), and `-scan-engine sharded` (K6 on the
      one-device mesh);
-  9. check the results: every kernel launched on its path; the find
+  11. check the results: every kernel launched on its path; the find
      artifacts equal a `-device cpu` rerun on the same graph (at k = 31
      and k = 45); the device-count graph, breakpoints and VCF records
      equal the host-count run's; every plane-path run's records equal the
      default run's (at both k); the device fills' artifacts equal the
      native fill's (at both k, and over the walker's mesh); the
-     sharded-count graph equals the host-count graph byte for byte;
-     insertion recall >= 90% on every path.
+     sharded-count graph equals the host-count graph byte for byte; on
+     every rank of the distributed phase the records equal the default
+     run's, the graph the host-count graph byte for byte and the device
+     fill the native fill, and rank 0 alone is the writer; the traced
+     run's records equal the default run's; insertion recall >= 90% on
+     every path.
 
 The line before the last holds the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -995,12 +1008,12 @@ def device_path(work: str, insertions, reads: str) -> dict:
     return {"launches": counts}
 
 
-SPAN_GENOME = 1_000_000  # the span phase's genome, cut for host span counting (~0.7 ms a read)
+SPAN_GENOME = 500_000  # the span phase's genome, cut for host span counting (~0.7 ms a read)
 
 
 def span_path(work: str, seed: int) -> dict:
     """The CLI at k = 45 on its own case (a seeded genome of SPAN_GENOME bp
-    with 22 insertions, 11 SNPs and 11 deletions, 30x): `find -kmer-size
+    with 11 insertions, 6 SNPs and 6 deletions, 30x): `find -kmer-size
     45` (K6 on CUDA), the native fill, `fill -fill-engine device` and
     `device-qb` (K7), all in-process; a `find -graph -device cpu` rerun as
     a subprocess; then `find -graph` and the two device fills again under
@@ -1008,7 +1021,7 @@ def span_path(work: str, seed: int) -> dict:
     run's). Returns the kernel launch counts of the first run."""
     sub = os.path.join(work, "span")
     os.makedirs(sub)
-    ref, donor, insertions = make_case(SPAN_GENOME, n_ins=22, n_snp=11, n_del=11, seed=seed + 7)
+    ref, donor, insertions = make_case(SPAN_GENOME, n_ins=11, n_snp=6, n_del=6, seed=seed + 7)
     write_fasta(os.path.join(sub, "ref.fa"), CHROM, ref)
     reads = write_reads(os.path.join(sub, "reads"), donor, 30.0, seed + 8)
     k = str(SPAN_K)
@@ -1640,6 +1653,148 @@ def mesh_path(work: str, reads: str) -> dict:
     return {"launches": counts}
 
 
+DIST_RANKS = 2  # ranks of the distributed phase, all on the one card
+DIST_SHARDS = 2  # logical shards of the card a rank: a global mesh of 4
+DIST_TIMEOUT_S = 900  # the ranks' deadline, and their collectives' timeout
+
+
+def rank_main(argv: list[str]) -> int:
+    """One rank of the distributed phase (the script re-invoked as
+    `chip_smoke.py --rank R --world W --rendezvous FILE --work DIR --reads
+    READS`): join the gloo group, lay DIST_SHARDS logical shards of the card
+    in the global mesh, run `find -scan-engine sharded -count-engine sharded
+    -automaton host` (K11 on the rank's count chunks, K10 on its scan
+    windows) and `fill -fill-engine device` (K5 on the rank's jobs) through
+    the CLI, and print one JSON line: the walls and the launches of the
+    rank's run."""
+    import torch
+
+    from mindthegap_tpu_torch.parallel import distributed as D
+    from mindthegap_tpu_torch.parallel import mesh as M
+
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(args["--rank"]), int(args["--world"])
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    D.init_distributed(f"file://{args['--rendezvous']}", world, rank, timeout_s=DIST_TIMEOUT_S)
+    os.chdir(args["--work"])
+    launches = _reset_launches()
+    prefix = "d" if rank == 0 else f"d.rank{rank}"  # the CLI's -out of a rank other than the writer
+    with M.logical_devices([torch.device("cuda")] * DIST_SHARDS):
+        find_s, report = _cli(["find", "-in", args["--reads"], "-ref", "ref.fa", "-scan-engine", "sharded",
+                               "-count-engine", "sharded", "-automaton", "host", "-out", "d", "-profile",
+                               "-verbose", "0"])
+        fill_s, fill_report = _cli(["fill", "-graph", f"{prefix}.h5", "-bkpt", f"{prefix}.breakpoints",
+                                    "-fill-engine", "device", "-out", "df", "-profile", "-verbose", "0"])
+    torch.cuda.synchronize()
+    counts = launches()
+    print(json.dumps({"rank": rank, "writer": D.is_writer(), "prefix": prefix, "find_s": find_s,
+                      "graph_build_s": _phase(report, "graph build"), "scan_s": _scan_s(report)[1],
+                      "fill_s": fill_s, "fill_jobs_s": _phase(fill_report, "fill jobs"),
+                      "launches": {name: counts[name] for name in ("scan_pay_qp", "swizzle_keys", "walk_batch")}}))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def distributed_path(work: str, reads: str) -> dict:
+    """The run across processes on the card: this script as DIST_RANKS ranks
+    (rank_main), each with DIST_SHARDS logical shards; every rank's find
+    records must equal the main path's default run's, its graph the
+    host-count graph byte for byte, its fill the native fill's; every rank
+    must have launched K10, K11 and K5. A rank that fails, or passes the
+    deadline, fails the phase, and the others are killed."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks' own contexts share the card with this process
+    rendezvous = os.path.join(work, "rendezvous")
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world", str(DIST_RANKS),
+                               "--rendezvous", rendezvous, "--work", work, "--reads", reads],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=REPO)
+             for r in range(DIST_RANKS)]
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > DIST_TIMEOUT_S or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} exited {p.returncode} after {wall:.1f} s\n{text[-4000:]}")
+        ranks.append(json.loads(next(line for line in reversed(text.splitlines()) if line.startswith('{"rank"'))))
+
+    def path(name):
+        return os.path.join(work, name)
+
+    if [rec["writer"] for rec in ranks] != [r == 0 for r in range(DIST_RANKS)]:
+        raise AssertionError(f"rank 0 alone must be the writer: {ranks}")
+    for rec in ranks:
+        d = rec["prefix"]
+        df = "df" if rec["rank"] == 0 else f"df.rank{rec['rank']}"
+        if not _equal_records(work, "t", d):
+            raise AssertionError(f"rank {rec['rank']}'s find wrote other records than the main path's find")
+        with open(path("t.h5"), "rb") as a, open(path(f"{d}.h5"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"rank {rec['rank']}'s -count-engine sharded graph differs from host counting")
+        for ext in ("insertions.fasta", "info.txt"):
+            if not _same(path(f"tf.{ext}"), path(f"{df}.{ext}")):
+                raise AssertionError(f"rank {rec['rank']}'s fill wrote another {ext} than the native fill")
+        if _records(path("tf.insertions.vcf")) != _records(path(f"{df}.insertions.vcf")):
+            raise AssertionError(f"rank {rec['rank']}'s fill wrote other VCF records than the native fill")
+        for name, n in rec["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"rank {rec['rank']} did not launch {name}")
+    print(f"distributed path ({DIST_RANKS} gloo ranks on the card, {DIST_SHARDS} logical shards each): wall "
+          f"{wall:.1f} s; records, graph bytes and fills equal the main path's on every rank; "
+          + "; ".join(f"rank {rec['rank']}: find {rec['find_s']:.1f} s (graph build {rec['graph_build_s']:.2f} s, "
+                      f"setup + scan + replay {rec['scan_s']:.2f} s), fill -fill-engine device {rec['fill_s']:.1f} s "
+                      f"(fill jobs {rec['fill_jobs_s']:.2f} s), launches {rec['launches']}" for rec in ranks))
+    return {"wall_s": wall, "ranks": ranks}
+
+
+TRACE_KERNEL = "scan_cls_qp_kernel"  # K1's kernel, as the trace names it
+
+
+def trace_path(work: str) -> dict:
+    """`find -graph t.h5 -profile-trace DIR` on the card, in-process: the
+    trace must name K1's kernel (device activity was captured), and the run
+    must write the main path's records."""
+    launches = _reset_launches()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        wall, _ = _find_graph("tr", "-profile-trace", "trace_dir")
+    finally:
+        os.chdir(cwd)
+    counts = launches()
+    trace = os.path.join(work, "trace_dir", "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if TRACE_KERNEL in str(e.get("name", "")) and e.get("ph") == "X"]
+    if not k1:
+        raise AssertionError(f"the -profile-trace trace does not name {TRACE_KERNEL}")
+    if counts["scan_cls_qp"] <= 0:
+        raise AssertionError("find -profile-trace did not launch K1")
+    if not _equal_records(work, "t", "tr"):
+        raise AssertionError("find -profile-trace wrote other records than the run without it")
+    k1_ms = sum(float(e.get("dur", 0)) for e in k1) / 1e3
+    print(f"find -graph -profile-trace: {wall:.1f} s, trace {os.path.getsize(trace)} bytes, "
+          f"{len(events)} events, {len(k1)} of {TRACE_KERNEL} ({k1_ms:.4f} ms on the card); "
+          f"K1 launches {counts['scan_cls_qp']}; records equal the run without the option")
+    return {"wall_s": wall, "k1_events": len(k1), "k1_ms": k1_ms, "launches": counts["scan_cls_qp"]}
+
+
 def _wall(t) -> str:
     setup, scan = _scan_s(t[1])
     return f"{t[0]:.1f} s (scan engine setup {setup:.2f} s, setup + scan + replay {scan:.2f} s)"
@@ -1726,6 +1881,8 @@ def main() -> int:
         run2 = device_path(work, insertions, reads)
         run4 = plane_path(work, ref, donor)
         run5 = mesh_path(work, reads)
+        distributed_path(work, reads)
+        trace_path(work)
         run3 = span_path(work, seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1791,4 +1948,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv else main())

@@ -51,7 +51,7 @@ FIND_OPTIONS = {
     "count-engine": (True, "auto", "k-mer counting engine: auto | host | device | sharded | partitioned", False),
     "automaton": (True, "auto", "breakpoint automaton: auto | native | host", False),
     "profile": (False, None, "add per-phase wall-clock timings to the result report", False),
-    "profile-trace": (True, None, "directory for a profiler trace of the run (not yet ported)", False),
+    "profile-trace": (True, None, "directory for a torch.profiler trace of the run: DIR/trace.json, Chrome trace format (DIR/trace.rank<r>.json in a run across processes)", False),
     "device": (True, "cuda", "device of the reference scan and of -count-engine device: cuda | cpu (cpu runs the kernels' plain versions, for tests)", False),
 }
 
@@ -77,7 +77,7 @@ FILL_OPTIONS = {
     "max-memory": (True, "2000", "max memory for graph building (in MBytes)", True),
     "verbose": (True, "1", "verbosity level", True),
     "profile": (False, None, "add per-phase wall-clock timings to the result report", False),
-    "profile-trace": (True, None, "directory for a profiler trace of the run (not yet ported)", False),
+    "profile-trace": (True, None, "directory for a torch.profiler trace of the run: DIR/trace.json, Chrome trace format (DIR/trace.rank<r>.json in a run across processes)", False),
     "device": (True, "cuda", "device of the device engines (-fill-engine device|device-qb, -count-engine device): cuda | cpu (cpu runs the kernels' plain versions, for tests)", False),
 }
 
@@ -172,6 +172,16 @@ def main(argv: list[str] | None = None) -> int:
         return 1
 
     try:
+        # a launcher's run across processes (torchrun: MASTER_ADDR, WORLD_SIZE,
+        # RANK); no-op otherwise. Every rank computes the same artifacts:
+        # rank 0 writes them under -out, rank r > 0 under <out>.rank<r>
+        from .parallel import distributed as D
+
+        D.init_distributed()
+        if D.process_count() > 1 and not D.is_writer():
+            if not opts.get("out"):
+                raise OptionFailure("a run across processes needs -out")
+            opts["out"] = f"{opts['out']}.rank{D.process_index()}"
         if cmd == "find":
             from .find.runner import run_find
 

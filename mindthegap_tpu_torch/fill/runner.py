@@ -20,6 +20,7 @@ from ..device import resolve_device
 from ..graph import dbg
 from ..io.bank import Bank
 from ..ops import kmers as K
+from ..parallel import distributed as D
 from ..utils import dna, stdcompat
 from ..utils.progress import Progress
 from ..utils.properties import Properties
@@ -147,9 +148,6 @@ class Filler:
         from ..utils.phases import PhaseTimer, maybe_trace
 
         self.phases = PhaseTimer()
-        trace_ctx = maybe_trace(opts.get("profile-trace"))
-        trace_ctx.__enter__()
-
         self.fill_engine = str(opts.get("fill-engine", "auto"))
         count_engine = str(opts.get("count-engine", "auto"))
         # the device is resolved only for a device engine: the default fill
@@ -157,6 +155,8 @@ class Filler:
         self.device = None
         if self.fill_engine in _DEVICE_ENGINES or (has_in and count_engine == "device"):
             self.device = resolve_device(opts.get("device"))
+        trace_ctx = maybe_trace(opts.get("profile-trace"), self.device)
+        trace_ctx.__enter__()
 
         t0 = time.time()
         if has_in:
@@ -319,10 +319,30 @@ class Filler:
     # walker for k <= 32, the span walker for 32 < k <= 256 (both device
     # engines take it there, as in the JAX package). At k <= 32 the walk
     # lanes ride the device mesh of the process when it has more than one
-    # device (its largest power of two). The JAX package's multi-host
-    # sharding is not ported: the port runs one process.
+    # device (its largest power of two).
     # ------------------------------------------------------------------
     def _run_jobs(self, fn, co_fn, jobs):
+        # across processes: shard the jobs over the ranks (the Dispatcher
+        # fan-out at host scale), gather every rank's results and replay
+        # them in input order, so that every rank writes the same artifacts;
+        # rank 0 is the writer of record
+        nproc = D.process_count()
+        if nproc > 1:
+            lo, hi = D.shard_bounds(len(jobs), nproc, D.process_index())
+            # no fork pool in a distributed process: the process group's
+            # threads (and CUDA's state) do not survive a fork
+            saved_cores, self.nb_cores = self.nb_cores, 1
+            try:
+                local = list(self._run_jobs_local(fn, co_fn, jobs[lo:hi]))
+            finally:
+                self.nb_cores = saved_cores
+            self.n_local_jobs = len(local)
+            for chunk in D.allgather_object(local):
+                yield from chunk
+            return
+        yield from self._run_jobs_local(fn, co_fn, jobs)
+
+    def _run_jobs_local(self, fn, co_fn, jobs):
         engine = self.fill_engine
         if engine == "device-qb":
             engine = "device"  # same dispatch; the view/walker carry the layout
@@ -333,7 +353,9 @@ class Filler:
             from .walk_device import BatchWalker, run_jobs_batched
 
             mesh = None
-            if self.view.qm is not None:  # k <= 32: u64 lanes, over the mesh if there is one
+            # k <= 32: u64 lanes, over the mesh if there is one; across
+            # processes each rank walks its jobs on its own device
+            if self.view.qm is not None and D.process_count() == 1:
                 from ..parallel.mesh import make_mesh, pow2_mesh
 
                 devices = make_mesh(self.device)

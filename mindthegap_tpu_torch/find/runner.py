@@ -110,19 +110,20 @@ def _validate_scan_engine(engine: str):
         )
 
 
-def _over_budget_mesh(graph, scan_memory_mb: int, mesh: list) -> bool:
+def _over_budget_mesh(graph, scan_memory_mb: int, mesh) -> bool:
     """True when the replicated k <= 32 scan map would exceed the per-device
-    budget AND the mesh has more than one device to shard membership over
-    (the sharded-mem reroute). Budget: -scan-memory MB, else 3/4 of the
-    smallest card of the mesh; a mesh of the CPU has no default budget."""
+    budget AND the mesh (a GlobalMesh) has more than one shard to shard
+    membership over (the sharded-mem reroute). Budget: -scan-memory MB,
+    else 3/4 of the smallest card of the rank's block; a mesh of the CPU
+    has no default budget."""
     if scan_memory_mb > 0:
         budget = scan_memory_mb << 20
     else:
-        cards = [torch.cuda.get_device_properties(d).total_memory for d in mesh if d.type == "cuda"]
+        cards = [torch.cuda.get_device_properties(d).total_memory for d in mesh.local if d.type == "cuda"]
         if not cards:
             return False
         budget = 3 * min(cards) // 4
-    return _scan_map_bytes_estimate(len(graph.solid)) > budget and len(mesh) > 1
+    return _scan_map_bytes_estimate(len(graph.solid)) > budget and mesh.size > 1
 
 
 def _check_table_fits(nbytes: int, devices):
@@ -334,10 +335,11 @@ def _group_feed(k: int, window: int, n: int, dispatch, emit):
     return feed
 
 
-def _sharded_dispatch(graph, repeat_set, k: int, mesh: list):
-    """The window-sharded scan over the mesh: (dispatch, n_shards, window)
-    of parallel/mesh.py's group dispatcher, over the pair map at k <= 32
-    (kernel K10 on each shard) or the span map above (K6), on every device."""
+def _sharded_dispatch(graph, repeat_set, k: int, mesh):
+    """The window-sharded scan over the mesh (a GlobalMesh): (dispatch,
+    n_shards, window) of parallel/mesh.py's group dispatcher, over the pair
+    map at k <= 32 (kernel K10 on each shard) or the span map above (K6),
+    on every device of the rank."""
     from ..ops import extmap as X
     from ..parallel import mesh as M
 
@@ -347,12 +349,12 @@ def _sharded_dispatch(graph, repeat_set, k: int, mesh: list):
     else:
         qm, window = _build_span_map(graph, repeat_set, k), 1 << 21
         make = M.make_sharded_scan_group_span
-    _check_table_fits(qm.nbytes, mesh)
+    _check_table_fits(qm.nbytes, mesh.local)
     dispatch, n = make(mesh, qm, k, window)
     return dispatch, n, window
 
 
-def _make_sharded_pay_feed_fn(graph, repeat_set, k: int, mesh: list):
+def _make_sharded_pay_feed_fn(graph, repeat_set, k: int, mesh):
     """Payload feed of `-scan-engine sharded` for the native automaton:
     windows of a group go to the mesh's shards, each window's dense payload
     stream (pay8, rep8 and, above k = 32, str8) into the automaton in
@@ -382,7 +384,7 @@ def _stitched(k: int, feed, keys, host_fn):
     return planes_fn
 
 
-def _make_sharded_mem_plane_fn(graph, repeat_set, k: int, mesh: list, host_fn, chunk: int = 1 << 20):
+def _make_sharded_mem_plane_fn(graph, repeat_set, k: int, mesh, host_fn, chunk: int = 1 << 20):
     """`codes -> Planes` of `-scan-engine sharded-mem` (k <= 32): the solid
     set sharded by key range over the mesh, every membership probe (the
     canonical k-mer and its 8 neighbours) routed to its owner shard through
@@ -390,12 +392,18 @@ def _make_sharded_mem_plane_fn(graph, repeat_set, k: int, mesh: list, host_fn, c
     K13); the repeat planes from the replicated (k-1)-mer set on the host.
     A mesh of one device holds the whole set in its one shard and still
     routes every probe through the kernels (the JAX package takes the host
-    scan there)."""
+    scan there). It does not run across processes: the JAX package's
+    verdicts of a global mesh cannot be read back in a process that does
+    not hold every shard, so its run fails, and so does this one, before
+    the scan."""
     from ..ops import kmers as K
     from ..parallel.sharded_membership import ShardedMembership
     from .scan import Planes, _member_sorted
 
-    sm = ShardedMembership(mesh, np.asarray(graph.solid.kmers, np.uint64))
+    if mesh.size > len(mesh.local):
+        raise FinderError("ERROR: -scan-engine sharded-mem does not run across processes "
+                          "(its membership shards are not gathered to every rank)")
+    sm = ShardedMembership(mesh.local, np.asarray(graph.solid.kmers, np.uint64))
     rep_kmers = repeat_set.kmers
     mask = K.kmer_mask(k)
     km1_mask = K.kmer_mask(k - 1)
@@ -435,7 +443,7 @@ def _make_sharded_mem_plane_fn(graph, repeat_set, k: int, mesh: list, host_fn, c
     return fn
 
 
-def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device, mesh: list):
+def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device, mesh):
     """`codes -> Planes` for the plane path: the host oracle for
     `-scan-engine host` and above k = 256; at k <= 32 the cuckoo map's
     planes (`device`, K8 on CUDA), the bucket map's (`device-qb`, K9) or the
@@ -555,7 +563,7 @@ def run_find(opts: dict, out=None) -> Properties:
     from ..utils.phases import PhaseTimer, maybe_trace
 
     phases = PhaseTimer()
-    trace_ctx = maybe_trace(opts.get("profile-trace"))
+    trace_ctx = maybe_trace(opts.get("profile-trace"), device)
     trace_ctx.__enter__()
 
     t0 = time.time()
@@ -674,9 +682,12 @@ def run_find(opts: dict, out=None) -> Properties:
             # plane path. A replicated k <= 32 map over the budget on a
             # mesh of more than one device reroutes `auto` and `sharded` to
             # sharded-mem.
+            from ..parallel import distributed as D
             from ..parallel import mesh as M
 
-            mesh = M.make_mesh(device)
+            # in a run across processes the rank's devices, placed in the
+            # global mesh (a collective: every rank reaches it)
+            mesh = D.global_mesh(M.make_mesh(device))
             engine = scan_engine
             if k <= 32 and engine in ("auto", "sharded") and _over_budget_mesh(
                     graph, int(opts.get("scan-memory", 0)), mesh):

@@ -304,9 +304,9 @@ def build_graph(
     or "auto" (host; switches to the disk-partitioned out-of-core counter
     when the in-RAM counting footprint could exceed `max_memory_mb` — the
     reference's -max-memory contract, src/Finder.cpp:103-105), or
-    "sharded" (k <= 32: the mesh of `device`'s run, parallel/mesh.py,
-    counting with the k-mers routed to owner shards,
-    parallel/sharded_count.py)."""
+    "sharded" (k <= 32: the mesh of `device`'s run, parallel/mesh.py, or
+    in a run across processes the global mesh, counting with the k-mers
+    routed to owner shards, parallel/sharded_count.py)."""
     from ..io.bank import iter_codes
 
     auto = isinstance(abundance_min, str) and abundance_min == "auto"
@@ -319,10 +319,12 @@ def build_graph(
 
     if count_engine == "sharded" and k <= 32:
         from ..device import resolve_device
+        from ..parallel import distributed as D
         from ..parallel import mesh as M
         from ..parallel.sharded_count import ShardedStreamingCounter
 
-        counter = ShardedStreamingCounter(k, M.pow2_mesh(M.make_mesh(resolve_device(device))))
+        # in a run across processes the rank's block of the global mesh
+        counter = ShardedStreamingCounter(k, D.global_mesh(M.pow2_mesh(M.make_mesh(resolve_device(device)))))
     elif count_engine == "device" and k <= 32:
         from ..device import resolve_device
         from ..ops.counting_device import DeviceStreamingCounter

@@ -1,9 +1,12 @@
-"""The device mesh of one process: the window-sharded scan, distributed
-counting and the job-sharded walk (the counterpart of
-mindthegap_tpu/parallel/mesh.py, single-process half).
+"""The device mesh: the window-sharded scan, distributed counting and the
+job-sharded walk (the counterpart of mindthegap_tpu/parallel/mesh.py).
 
 A mesh is a list of torch.devices, one per shard. The CLI lays it over
-every visible CUDA device, or over the CPU under `-device cpu`. A list may
+every visible CUDA device, or over the CPU under `-device cpu`; in a run
+across processes (parallel/distributed.py) over the rank's own card, and
+the sharded engines place that block in the global mesh (`GlobalMesh`):
+each rank runs its block's shards and the results cross ranks on the
+host (`_LazyAllgather`, the counter's exchange). A list may
 repeat one device: N logical shards of it, as the JAX tests' virtual CPU
 devices are. Tests and chip_smoke.py ask for that through
 `logical_devices`, the counterpart of the process-wide device list that
@@ -26,6 +29,8 @@ import numpy as np
 import torch
 
 from ..ops import kmers as K
+from . import distributed as D
+from .distributed import GlobalMesh
 
 _LOGICAL: list | None = None
 
@@ -44,11 +49,15 @@ def logical_devices(devices):
 
 def make_mesh(device, n_devices: int | None = None) -> list[torch.device]:
     """The first n_devices (default all) of the devices a run on `device`
-    sees: every visible CUDA device, or the CPU; inside logical_devices,
-    its list. It is also the window-sharded scan's mesh (the JAX package's
-    scan_mesh, which only clamps its virtual CPU devices to the cores)."""
+    sees: every visible CUDA device, or, in a run across processes, the
+    rank's own card (the current device, which init_distributed sets); or
+    the CPU; inside logical_devices, its list. It is also the
+    window-sharded scan's mesh (the JAX package's scan_mesh, which only
+    clamps its virtual CPU devices to the cores)."""
     if _LOGICAL is not None:
         devs = list(_LOGICAL)
+    elif torch.device(device).type == "cuda" and D.process_count() > 1:
+        devs = [torch.device("cuda", torch.cuda.current_device())]
     elif torch.device(device).type == "cuda":
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
@@ -88,17 +97,48 @@ class _LazyStack:
         return a.astype(dtype) if dtype is not None else a
 
 
-def _perdev_group_dispatch(mesh: list, kernel, tables_on, window: int):
+class _LazyAllgather:
+    """The sibling of _LazyStack in a run across processes: this rank's
+    shards stay in flight until the first index or np.asarray, which waits
+    for them and gathers every rank's block, in rank order, into the global
+    stack (so the gather of group g-1 overlaps group g's compute). A
+    collective: every rank materializes the same keys in the same order,
+    which the shared feed loop guarantees."""
+
+    def __init__(self, local: _LazyStack):
+        self.local = local
+        self._all = None
+
+    def __array__(self, dtype=None, copy=None):
+        if self._all is None:
+            local = torch.from_numpy(np.asarray(self.local))
+            self._all = D.allgather_tensor(local).flatten(0, 1).numpy()
+        return self._all.astype(dtype) if dtype is not None else self._all
+
+    def __getitem__(self, i):
+        return self.__array__()[i]
+
+
+def as_global(mesh) -> GlobalMesh:
+    """A mesh as a GlobalMesh: a list is the whole mesh of one process."""
+    return mesh if isinstance(mesh, GlobalMesh) else GlobalMesh(list(mesh), 0, len(mesh))
+
+
+def _perdev_group_dispatch(mesh, kernel, tables_on, window: int):
     """Group dispatcher of the window-sharded scans: each shard takes one
     window of a [n_shards, window] group, 2-bit packed, and runs
     kernel(packed, bad, *tables) on its device's copy of the tables
     (tables_on(device)) and on a stream of its own; returns (dispatch,
-    n_shards), where dispatch(wins) returns {key: _LazyStack}."""
+    n_shards), where dispatch(wins) returns {key: _LazyStack}. Over a
+    GlobalMesh of several ranks a rank runs its block's rows and dispatch
+    returns {key: _LazyAllgather}."""
     from ..find.scan_device import pack_codes_host
 
-    tabs = per_device(mesh, tables_on)
+    gm = as_global(mesh)
+    local = gm.local
+    tabs = per_device(local, tables_on)
     streams = []
-    for d in mesh:
+    for d in local:
         s = None
         if d.type == "cuda":
             s = torch.cuda.Stream(d)
@@ -106,10 +146,10 @@ def _perdev_group_dispatch(mesh: list, kernel, tables_on, window: int):
         streams.append(s)
 
     def dispatch(wins: np.ndarray):
-        assert wins.shape == (len(mesh), window)
-        packed, bad = pack_codes_host(wins)
+        assert wins.shape == (gm.size, window)
+        packed, bad = pack_codes_host(wins[gm.offset : gm.offset + len(local)])
         outs, events = [], []
-        for j, d in enumerate(mesh):
+        for j, d in enumerate(local):
             with torch.cuda.stream(streams[j]) if streams[j] is not None else contextlib.nullcontext():
                 res = kernel(torch.from_numpy(packed[j]).to(d), torch.from_numpy(bad[j]).to(d), *tabs[j])
                 outs.append({key: v.to("cpu", non_blocking=d.type == "cuda") for key, v in res.items()})
@@ -118,17 +158,20 @@ def _perdev_group_dispatch(mesh: list, kernel, tables_on, window: int):
                     ev = torch.cuda.Event()
                     ev.record(streams[j])
                 events.append(ev)
-        return {key: _LazyStack([o[key] for o in outs], events) for key in outs[0]}
+        stacks = {key: _LazyStack([o[key] for o in outs], events) for key in outs[0]}
+        if gm.size > len(local):
+            return {key: _LazyAllgather(v) for key, v in stacks.items()}
+        return stacks
 
-    return dispatch, len(mesh)
+    return dispatch, gm.size
 
 
-def make_sharded_scan_group_qp(mesh: list, qp, k: int, window: int):
-    """Window-sharded scanner over the pair map (k <= 32): the map is placed
-    once on every device; the returned dispatch takes a [n_shards, window]
-    group and gives each window's dense payload stream (scan_pay_qp: kernel
-    K10 on CUDA), pay8 and rep8, for planes_from_pay or the native
-    automaton's payload feed."""
+def make_sharded_scan_group_qp(mesh, qp, k: int, window: int):
+    """Window-sharded scanner over the pair map (k <= 32) on a mesh (a list,
+    or a GlobalMesh): the map is placed once on every device; the returned
+    dispatch takes a [n_shards, window] group and gives each window's dense
+    payload stream (scan_pay_qp: kernel K10 on CUDA), pay8 and rep8, for
+    planes_from_pay or the native automaton's payload feed."""
     from ..find.scan_device import scan_pay_qp
 
     def tables_on(d):
@@ -139,7 +182,7 @@ def make_sharded_scan_group_qp(mesh: list, qp, k: int, window: int):
         mesh, lambda packed, bad, *t: scan_pay_qp(packed, bad, *t, qp.log_size, k), tables_on, window)
 
 
-def make_sharded_scan_group_span(mesh: list, qms, k: int, window: int):
+def make_sharded_scan_group_span(mesh, qms, k: int, window: int):
     """Span (32 < k <= 256) sibling of make_sharded_scan_group_qp: the span
     map on every device, each window's payload bytes with packed repeat and
     strand bits (scan_pay_q_span: kernel K6 on CUDA), pay8, rep8 and str8."""

@@ -12,6 +12,12 @@ host merges each owner's sorted runs flush by flush; the sum of the
 owners' histograms is the exact global histogram, and the result equals the
 host StreamingCounter's.
 
+In a run across processes the mesh is a GlobalMesh: every rank feeds the
+same reads, each runs its block's chunks, the send buffers cross ranks by
+an all_to_all, and every owner's sorted runs are gathered to every rank,
+which merges every owner. The overflow flags are gathered first, so that
+every rank takes the host route of a flush, or none does.
+
 Swizzles travel biased (XOR 2^63), so that torch.sort's signed order is
 their unsigned order and the all-ones SENTINEL of an invalid window (INT64_MAX
 biased) sorts last. The swizzle constant is chosen so that mix^-1(2^64 - 1)
@@ -28,6 +34,7 @@ import torch
 
 from ..device import check_kernel_tensor, launch
 from ..ops import kmers as K
+from . import distributed as D
 from . import mesh as M
 
 _MASK64 = (1 << 64) - 1
@@ -141,15 +148,19 @@ def swizzle_keys(codes: torch.Tensor, k: int, const: int):
 
 class ShardedStreamingCounter:
     """Drop-in for ops/counting.py StreamingCounter (k <= 32) with the
-    per-base work sharded over a mesh (a list of devices, a power of two of
-    them) and the k-mers routed to their owners."""
+    per-base work sharded over a mesh (a list of devices, or a GlobalMesh
+    across processes; a power of two of shards) and the k-mers routed to
+    their owners. `host_flushes` lists, for each flush that took the host
+    route, the shards whose segments overflowed."""
 
-    def __init__(self, k: int, mesh: list, batch_bases: int = 1 << 23, slack: float = 1.10):
+    def __init__(self, k: int, mesh, batch_bases: int = 1 << 23, slack: float = 1.10):
         assert k <= 32, "sharded counter: k <= 32 (host counter covers larger spans)"
         self.k = k
-        self.mesh = mesh
-        self.n_dev = len(mesh)
-        assert self.n_dev & (self.n_dev - 1) == 0, "mesh size must be a power of two"
+        self.mesh = M.as_global(mesh)
+        self.n_dev = self.mesh.size
+        if self.n_dev & (self.n_dev - 1):
+            raise ValueError(f"the sharded counter needs a power of two of shards, got {self.n_dev}")
+        self.host_flushes: list[list[int]] = []
         self._swz_const = pick_swizzle_const(k)
 
         # per-shard chunk of C owned positions (+ k-1 halo bases)
@@ -187,30 +198,55 @@ class ShardedStreamingCounter:
             pos = max(pos - (self.k - 1), 0)
 
     def _route(self):
-        """The flush on the mesh: each owner's received (swz, canon), sorted
-        by swz (swz biased, on the host), and whether a segment overflowed."""
+        """The flush on the mesh: (each owner's received (swz, canon), sorted
+        by swz (swz biased, on the host), in global owner order; the global
+        indices of the shards whose segments overflowed). Across processes
+        the received runs are None when any shard overflowed: the exchange
+        is skipped on every rank alike."""
         C, k, n, cap = self._C, self.k, self.n_dev, self._cap
-        swz_sends, canon_sends, overflows = [], [], []
-        for i, d in enumerate(self.mesh):
+        gm = self.mesh
+        sends, overflows = [], []
+        for j, d in enumerate(gm.local):
+            i = gm.offset + j
             chunk = torch.from_numpy(self._buf[i * C : (i + 1) * C + k - 1]).to(d)
             swz, canon = swizzle_keys(chunk, k, self._swz_const)
             swz, order = torch.sort(swz)
             (s, c), overflow = M.owner_segments(swz, [(swz, M.BIASED_SENTINEL), (canon[order], -1)], n, cap)
-            swz_sends.append(s)
-            canon_sends.append(c)
+            sends.append((s, c))
             overflows.append(overflow)
-        received = []
-        for rs, rc in zip(M.exchange(swz_sends, self.mesh), M.exchange(canon_sends, self.mesh)):
-            rs, order = torch.sort(rs)
-            received.append((rs.cpu(), rc[order].cpu()))
-        return received, any(bool(o) for o in overflows)
+        if gm.size == len(gm.local):
+            received = [self._sorted(rs, rc) for rs, rc in zip(M.exchange([s for s, _ in sends], gm.local),
+                                                               M.exchange([c for _, c in sends], gm.local))]
+            return received, [i for i, o in enumerate(overflows) if bool(o)]
+        flags = D.allgather_tensor(torch.tensor([bool(o) for o in overflows], dtype=torch.uint8)).flatten()
+        overflowed = torch.nonzero(flags).flatten().tolist()
+        if overflowed:
+            return None, overflowed
+        # [local shard, swz|canon, owner, cap] -> [rank, local shard, swz|canon, its owner, cap]
+        L, W = len(gm.local), n // len(gm.local)
+        send = torch.stack([torch.stack(sc).cpu() for sc in sends]).view(L, 2, W, L, cap)
+        recv = D.all_to_all(send.permute(2, 0, 1, 3, 4))
+        mine = []
+        for o, d in enumerate(gm.local):
+            # owner o's rows of every shard's buffers, in global shard order
+            rs, rc = recv[:, :, :, o, :].permute(2, 0, 1, 3).reshape(2, n * cap).to(d)
+            mine.append(torch.stack(self._sorted(rs, rc)))
+        everyone = D.allgather_tensor(torch.stack(mine)).flatten(0, 1)
+        return [(a, b) for a, b in everyone], []
+
+    @staticmethod
+    def _sorted(rs: torch.Tensor, rc: torch.Tensor):
+        """One owner's received (swz, canon), sorted by swz, on the host."""
+        rs, order = torch.sort(rs)
+        return rs.cpu(), rc[order].cpu()
 
     def _flush(self):
         if self._fill == 0:
             return
         self._buf[self._fill :] = 255
-        received, overflow = self._route()
-        if overflow:
+        received, overflowed = self._route()
+        if overflowed:
+            self.host_flushes.append(overflowed)
             self._flush_host_fallback()
         else:
             for d, (rs, rc) in enumerate(received):

@@ -2,8 +2,9 @@
 
 The reference reports one coarse `Time` row (difftime around the core phase,
 src/Finder.cpp:401-405). We keep that row byte-compatible and, with the
-hidden `-profile` flag, add a per-phase breakdown beneath it. `-profile-trace`
-(a jax.profiler trace in the JAX package) is not yet ported."""
+hidden `-profile` flag, add a per-phase breakdown beneath it; `-profile-trace
+DIR` additionally captures a torch.profiler trace of the run (Chrome trace
+format; the JAX package writes a jax.profiler trace instead)."""
 
 from __future__ import annotations
 
@@ -40,10 +41,28 @@ class PhaseTimer:
 
 
 @contextmanager
-def maybe_trace(trace_dir: str | None):
-    """Raises when a trace directory is given: tracing is not yet ported."""
-    if trace_dir:
-        from .. import NotYetPorted
+def maybe_trace(trace_dir: str | None, device=None):
+    """torch.profiler trace of the enclosed block when a directory is given:
+    the host's torch operations and, on a CUDA device, the card's kernels and
+    copies (CUPTI), exported as a Chrome trace to DIR/trace.json
+    (DIR/trace.rank<r>.json in a run across processes)."""
+    if not trace_dir:
+        yield
+        return
+    import os
 
-        raise NotYetPorted("-profile-trace")
-    yield
+    import torch
+
+    from ..parallel import distributed as D
+
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if on_cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    name = "trace.json" if D.process_count() == 1 else f"trace.rank{D.process_index()}.json"
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+        if on_cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(trace_dir, name))

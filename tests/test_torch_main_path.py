@@ -20,7 +20,7 @@ import pytest
 import chip_smoke as CS
 from mindthegap_tpu.fill.runner import run_fill as jax_fill
 from mindthegap_tpu.find.runner import run_find as jax_find
-from mindthegap_tpu_torch import NotYetPorted, cli
+from mindthegap_tpu_torch import cli
 from mindthegap_tpu_torch.fill.runner import run_fill as port_fill
 from mindthegap_tpu_torch.find.runner import run_find as port_find
 
@@ -191,27 +191,6 @@ def test_fill_device_engine_without_gpu_raises(runs, tmp_path, monkeypatch):
             assert cli.main(args) == 0
 
 
-@pytest.mark.parametrize("extra", [
-    ["-profile-trace", "trace_dir"],
-], ids=lambda e: " ".join(f"{a}={b}" for a, b in zip(e[0::2], e[1::2])))
-def test_unported_find_options_raise(runs, tmp_path, extra):
-    """What find does not run yet raises before the graph build: the trace.
-    The mesh engines run (test_mesh_engines_match_jax), and so does k above
-    256 (test_find_above_k256_matches_jax)."""
-    root, _ = runs
-    opts = {"in": str(root / "reads_1.fa"), "ref": str(root / "ref.fa"), "out": "u", "device": "cpu"}
-    opts.update((name.lstrip("-"), value) for name, value in zip(extra[0::2], extra[1::2]))
-    with _cwd(tmp_path):
-        with pytest.raises(NotYetPorted):
-            port_find(opts, out=io.StringIO())
-        # through the CLI the same failure is reported, and the run fails
-        report = io.StringIO()
-        with contextlib.redirect_stdout(report):
-            rc = cli.main(["find", "-in", str(root / "reads_1.fa"), "-ref", str(root / "ref.fa"),
-                           "-out", "u", "-device", "cpu", *extra])
-        assert rc == 1 and "not yet ported" in report.getvalue()
-
-
 def test_find_without_gpu_raises(runs, tmp_path, monkeypatch):
     """The CLI default device is cuda; without one the run fails, it does not
     fall back to the CPU."""
@@ -345,13 +324,3 @@ def test_find_above_k256_matches_jax(tmp_path):
     for ext in ("breakpoints", "othervariants.vcf"):
         assert _read(tmp_path, "port", f"t.{ext}") == _read(tmp_path, "jax", f"t.{ext}")
     assert any(line.startswith(">") for line in _read(tmp_path, "port", "t.breakpoints"))
-
-
-def test_multi_process_init_raises():
-    """A run across processes is not yet ported: init_distributed raises,
-    with a coordinator named or without one."""
-    from mindthegap_tpu_torch.parallel import distributed as D
-
-    for args in ((), ("localhost:1234", 2, 0)):
-        with pytest.raises(NotYetPorted):
-            D.init_distributed(*args)

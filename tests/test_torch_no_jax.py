@@ -25,6 +25,9 @@ SCRIPT = textwrap.dedent("""
     # the plane path's host modules are among them
     assert {"mindthegap_tpu_torch.find.scan", "mindthegap_tpu_torch.find.automaton",
             "mindthegap_tpu_torch.find.observers"} <= set(names)
+    # and the run across processes and the tools
+    assert {"mindthegap_tpu_torch.parallel.distributed", "mindthegap_tpu_torch.dbginfo",
+            "mindthegap_tpu_torch.compat", "mindthegap_tpu_torch.compat.gatb"} <= set(names)
     assert not any(n == "mindthegap_tpu" or n.startswith("mindthegap_tpu.") for n in sys.modules)
 
     from mindthegap_tpu_torch import cli
