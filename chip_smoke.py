@@ -9,22 +9,25 @@ Phases, each of which must pass (any failure exits non-zero):
      started together, and time the build: K1 and K10 (csrc/scan_qp.cu),
      K2 (csrc/nw.cu), K3 (csrc/count_kmers.cu), K4 (csrc/count_merge.cu),
      K5 (csrc/walk.cu), K6 (csrc/scan_span.cu), K7 (csrc/walk_span.cu),
-     K8 and K9 (csrc/scan_planes.cu), K11 (csrc/sharded_count.cu), K12
-     and K13 (csrc/sharded_member.cu), K14 (csrc/scan_sorted.cu), the
-     bucket index build of K13 and K14 (csrc/sorted_index.cu);
+     K8, K9 and K15 (csrc/scan_planes.cu), K11 (csrc/sharded_count.cu),
+     K12 and K13 (csrc/sharded_member.cu), K14 (csrc/scan_sorted.cu), the
+     bucket index build of K13 and K14 (csrc/sorted_index.cu), K16
+     (csrc/scan_planes_span.cu);
   3. hold each kernel against its plain PyTorch version on the card, exactly,
      at the main path's shapes, and time both sides: K1 (the whole
      scan_cls_qp, its exception compaction included) on a full 2^22-base
      window over the pair map of a bacterial-size solid set, and on its
-     compaction edge cases; K8 (cuckoo map), K9 (bucket map) and K10
-     (the pair map's dense stream) on the same window over the maps of the
-     same set, and on their edge windows at k 2 (K10: 3), 3, 31 and 32
-     (K8 and K9 at k 31 also into plane views at unaligned offsets), and
-     K8 on its pipeline's cases at k 21, 31 and 32 (a window of over
+     compaction edge cases; K8 (cuckoo map), K9 (bucket map), K10
+     (the pair map's dense stream) and K15 (the pair map's planes, also
+     held to K10 + planes_from_pay, the route it replaces) on the same
+     window over the maps of the same set, and on their edge windows at k 2
+     (K10 and K15: 3), 3, 31 and 32 (K8 and K9 at k 31 also into plane
+     views at unaligned offsets, K15 also over maps with no repeat set),
+     and K8 on its pipeline's cases at k 21, 31 and 32 (a window of over
      1,024 tiles, a half-full map, every key absent, a full unsorted
-     stash), K10 on its pipeline cases at k 3, 21, 31 and 32 (a window of
-     over 1,024 tiles, a map near its highest load factor, every pair
-     absent, a full stash in descending order);
+     stash), K10 and K15 on K10's pipeline cases at k 3, 21, 31 and 32 (a
+     window of over 1,024 tiles, a map near its highest load factor, every
+     pair absent, a full stash in descending order);
      K2 on 256 seeded pairs of 50 to 10,000 bp
      (also against the native nw.cpp); K3 (+ the sort) on one default
      counting batch of 2^23 bases of the reads, and on its edge batches
@@ -35,7 +38,10 @@ Phases, each of which must pass (any failure exits non-zero):
      chain latency), both layouts, and on its look-ahead edge cases at
      every depth; K6 on a full 2^21-base window at k = 45 over the span map
      of the donor's k-mers (made from the donor directly, without
-     counting), and on its edge windows at k 33 to 256; K7 on donor k-mers at k = 45 with a budget of
+     counting), and on its edge windows at k 33 to 256; K16 (the span
+     map's planes) on that window, also held to K6 + planes_from_pay_span
+     (the route it replaces), and on K6's edge windows at k 33 to 256 with
+     and without a repeat set; K7 on donor k-mers at k = 45 with a budget of
      10,000 and 2,048 steps at 4,096, 128 and 1 lanes (each at the
      look-ahead depth its rule picks), and on its edge cases at k 33 to 256
      at every depth; K11 on one 2^23-base flush of the reads, whole and
@@ -122,7 +128,14 @@ Phases, each of which must pass (any failure exits non-zero):
      -graph -scan-engine device-qb` and `-automaton host` (K6, then
      planes_from_pay_span), and `-scan-engine sharded` (K6 on the
      one-device mesh);
-  11. check the results: every kernel launched on its path; the find
+  11. drive the analysis script context_genome_wg on the outputs of the
+     main path (t.h5, k = 31: K15) and of the k = 45 path (K16), on the
+     card in-process, and the same command with `-device cpu` as a
+     subprocess (at k = 31 started right after the main path, so that it
+     runs behind phases 5-10); the two write the same bytes, and each
+     kernel launches at least once a window of the reference; the phase's
+     wall is printed;
+  12. check the results: every kernel launched on its path; the find
      artifacts equal a `-device cpu` rerun on the same graph (at k = 31
      and k = 45); the device-count graph, breakpoints and VCF records
      equal the host-count run's; every plane-path run's records equal the
@@ -365,16 +378,20 @@ def _plane_tables(host, layout: str):
 
 def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: int) -> dict:
     """K8 (scan_planes_q, over the cuckoo map), K9 (scan_planes_qb, over the
-    bucket map) and K10 (scan_pay_qp, over K1's pair map `qp`) against
-    their plain versions on K1's full 2^22-base window of the reference,
-    over the maps of the donor's solid set with K1's repeat set; then on
-    their edge windows (tests/torch_tables.py plane_edge_windows) at k 2,
-    3, 31 and 32 (K10 from 3). Returns {name: kernel record}."""
+    bucket map), K10 (scan_pay_qp, over K1's pair map `qp`) and K15
+    (scan_planes_qp, over the same map) against their plain versions on
+    K1's full 2^22-base window of the reference, over the maps of the
+    donor's solid set with K1's repeat set, K15 also against the route it
+    replaces (K10, then planes_from_pay on the host); then on their edge
+    windows (tests/torch_tables.py plane_edge_windows) at k 2, 3, 31 and
+    32 (K10 and K15 from 3; K15 also over maps with no repeat set), and K10
+    and K15 on K10's pipeline cases. Returns {name: kernel record}."""
     import torch
 
     from mindthegap_tpu_torch.bounds import (PLANE_BYTES_PER_POSITION, SECTOR_BYTES, plane_scan_sectors,
                                              scan_probe_sectors)
     from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.kernel_bench import planes_equal_route
     from mindthegap_tpu_torch.ops import extmap as X
     from mindthegap_tpu_torch.ops import kmers as K
     from torch_tables import (PAIR_PIPELINE_NAMES, PLANE_PIPELINE_NAMES, pair_pipeline_case, plane_edge_windows,
@@ -387,7 +404,9 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
     n_pos = window - k + 1
     kernels = {"scan_planes_q": ("K8", "cuckoo", S.scan_planes_q_cuda, S._scan_planes_q_plain),
                "scan_planes_qb": ("K9", "bucket", S.scan_planes_qb_cuda, S._scan_planes_qb_plain),
-               "scan_pay_qp": ("K10", "pair", S.scan_pay_qp_cuda, S._scan_pay_qp_plain)}
+               "scan_pay_qp": ("K10", "pair", S.scan_pay_qp_cuda, S._scan_pay_qp_plain),
+               "scan_planes_qp": ("K15", "pair", S.scan_planes_qp_cuda, S._scan_planes_qp_plain)}
+    window_codes = S.unpack_codes(packed, bad).cpu().numpy()
     out = {}
     for name, (label, layout, kernel, plain) in kernels.items():
         t0 = time.perf_counter()
@@ -407,10 +426,24 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
         else:
             sectors, what = plane_scan_sectors(packed, bad, t, k), f"sectors for {n_pos + 1} probes"
         bound = _bytes_bound_ms(sectors * SECTOR_BYTES + io_bytes)
+        route = {}
+        if label == "K15":  # the route it replaces on the card: K10, then planes_from_pay on the host
+            def k10_route():
+                r = S.scan_pay_qp_cuda(*args)
+                return S.planes_from_pay(r["pay8"].cpu().numpy(), r["rep8"].cpu().numpy(), window_codes, k)
+
+            t0 = time.perf_counter()
+            if not planes_equal_route(got, k10_route()):
+                raise AssertionError("K15's planes differ from K10 + planes_from_pay on the smoke's window")
+            route = {"replaced_route": "K10 + planes_from_pay", "replaced_route_ms": (time.perf_counter() - t0) * 1e3,
+                     "ms_with_copy": _cuda_ms(lambda: {key: v.cpu() for key, v in kernel(*args).items()}, iters=5)}
         print(f"{label} {name} ({layout} map): window {window}, k {k}, table {host.nbytes >> 20} MB "
               f"(built in {build_s:.1f} s), stash {int(np.asarray(host.stash_keys).size)}, max_abs_err {errs[0]} "
               f"(tolerance 0: exact), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-              f"(bytes: {sectors} {what}, {io_bytes} bytes in and out), share {bound['bound_ms'] / ms:.4f}")
+              f"(bytes: {sectors} {what}, {io_bytes} bytes in and out), share {bound['bound_ms'] / ms:.4f}"
+              + (f"; equal to K10 + planes_from_pay, which took {route['replaced_route_ms']:.1f} ms to host planes (one call, "
+                 f"the comparison with it included; K15 and the copy of its planes to the host "
+                 f"{route['ms_with_copy']:.4f} ms)" if route else ""))
         del t, tables, args, got, want
         for kk in (2, 3, 31, 32):
             if layout == "pair" and kk < 3:
@@ -418,7 +451,12 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
             eq, cases = plane_edge_windows(kk, layout)
             _, etables, elog = _plane_tables(eq, layout)
             kerrs = []
-            for codes in cases.values():
+            cases = {key: (codes, etables, elog) for key, codes in cases.items()}
+            if label == "K15":  # the empty repeat set of context_genome_wg's map
+                nq, ncases = plane_edge_windows(kk, layout, repeats=False)
+                _, ntables, nlog = _plane_tables(nq, layout)
+                cases.update({f"{key} (no repeat set)": (codes, ntables, nlog) for key, codes in ncases.items()})
+            for codes, etables, elog in cases.values():
                 ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
                 g, w = kernel(ep, eb, *etables, elog, kk), plain(ep, eb, *etables, elog, kk)
                 kerrs.append(_max_abs_err((g[key], w[key]) for key in w))
@@ -455,8 +493,8 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
             errs += kerrs
             print(f"{label} pipeline cases (k 3, 21, 31, 32: {', '.join(PAIR_PIPELINE_NAMES)}): max_abs_err {max(kerrs)}")
         out[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound, "sectors": sectors,
-                     "map_build_s": build_s,
-                     "plane_bytes": n_pos * PLANE_BYTES_PER_POSITION if layout != "pair" else None}
+                     "map_build_s": build_s, **route,
+                     "plane_bytes": n_pos * PLANE_BYTES_PER_POSITION if name != "scan_pay_qp" else None}
     return out
 
 
@@ -686,7 +724,6 @@ def check_span_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int
     from mindthegap_tpu_torch.ops.span import Span
     from torch_tables import span_edge_windows
 
-    rng = np.random.default_rng(seed)
     window = 1 << 21
     spm1 = Span(k - 1)
     q, _ = spm1.from_codes(ref[:window])
@@ -695,9 +732,7 @@ def check_span_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int
     qms = X.build_fused_span(solid, k, repeat)
     build_s = time.perf_counter() - t0
     t = qms.to("cuda")
-    codes = ref[:window].copy()
-    codes[1000:1100] = 255
-    codes[rng.integers(0, window, 64)] = 255
+    codes = _span_window(ref, window, seed)
     packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
     args = (packed, bad, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size, k)
     keys = ("pay8", "rep8", "str8")
@@ -730,6 +765,73 @@ def check_span_scan_kernel(ref: np.ndarray, solid: np.ndarray, k: int, seed: int
         print(f"K6 edge cases (k {kk}: {', '.join(cases)}): max_abs_err {max(errs[-len(cases):])}")
     return ({"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound, "sectors": sectors,
              "map_build_s": build_s}, qms)
+
+
+def _span_window(ref: np.ndarray, window: int, seed: int) -> np.ndarray:
+    """K6's and K16's window: the first `window` bases of the reference
+    with an N run and 64 isolated Ns."""
+    rng = np.random.default_rng(seed)
+    codes = ref[:window].copy()
+    codes[1000:1100] = 255
+    codes[rng.integers(0, window, 64)] = 255
+    return codes
+
+
+def check_span_plane_kernel(ref: np.ndarray, qms, k: int, seed: int) -> dict:
+    """K16 (scan_planes_q_span) against its plain version and against the
+    route it replaces on the card (K6, then planes_from_pay_span on the
+    host) on K6's 2^21-base window over K6's span map; then on K6's edge
+    windows at k 33 to 256, over maps with and without a repeat set."""
+    import torch
+
+    from mindthegap_tpu_torch.bounds import plane_pass_bound_ms
+    from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.kernel_bench import planes_equal_route
+    from torch_tables import span_edge_windows
+
+    window = 1 << 21
+    codes = _span_window(ref, window, seed)
+    t = qms.to("cuda")
+    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    args = (packed, bad, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size, k)
+    got, want = S.scan_planes_q_span_cuda(*args), S._scan_planes_q_span_plain(*args)
+    torch.cuda.synchronize()
+    errs = [_max_abs_err((got[key], want[key]) for key in want)]
+
+    def k6_route():
+        r = S.scan_pay_q_span_cuda(*args)
+        return S.planes_from_pay_span(*(r[key].cpu().numpy() for key in ("pay8", "rep8", "str8")), codes, k)
+
+    t0 = time.perf_counter()
+    if not planes_equal_route(got, k6_route()):
+        raise AssertionError("K16's planes differ from K6 + planes_from_pay_span on the smoke's window")
+    route_ms = (time.perf_counter() - t0) * 1e3
+    ms = _cuda_ms(lambda: S.scan_planes_q_span_cuda(*args), iters=20, warmup=2)
+    plain_ms = _cuda_ms(lambda: S._scan_planes_q_span_plain(*args), iters=3)
+    copy_ms = _cuda_ms(lambda: {key: v.cpu() for key, v in S.scan_planes_q_span_cuda(*args).items()}, iters=5)
+    bound_ms, sectors = plane_pass_bound_ms(packed, bad, t, k)
+    print(f"K16 scan_planes_q_span: window {window}, k {k}, max_abs_err {errs[0]} (tolerance 0: exact), equal to K6 + "
+          f"planes_from_pay_span; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the route K6 + planes_from_pay_span "
+          f"{route_ms:.1f} ms to host planes (one call, the comparison with it included; K16 and the copy of its "
+          f"planes to the host {copy_ms:.4f} ms), bound "
+          f"{bound_ms:.4f} ms (bytes: {sectors} sectors and the planes), share {bound_ms / ms:.4f}")
+    for kk in (33, 45, 64, 65, 96, 128, 129, 256):
+        kerrs = []
+        for repeats in (True, False):
+            eq, cases = span_edge_windows(kk, repeats=repeats)
+            te = eq.to("cuda")
+            for ecodes in cases.values():
+                ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(ecodes))
+                eargs = (ep, eb, te.slots, te.sat, te.stash_key64, te.stash_sat, te.stash_payload, eq.salt,
+                         eq.log_size, kk)
+                g, w = S.scan_planes_q_span_cuda(*eargs), S._scan_planes_q_span_plain(*eargs)
+                kerrs.append(_max_abs_err((g[key], w[key]) for key in w))
+        torch.cuda.synchronize()
+        errs += kerrs
+        print(f"K16 edge cases (k {kk}: {', '.join(cases)}, with and without a repeat set): max_abs_err {max(kerrs)}")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "sectors": sectors, "replaced_route": "K6 + planes_from_pay_span",
+            "replaced_route_ms": route_ms, "ms_with_copy": copy_ms}
 
 
 def check_span_walk_kernel(fwd: np.ndarray, qms, k: int, seed: int) -> dict:
@@ -867,7 +969,8 @@ def _reset_launches():
                 "scan_planes_qb": S.scan_planes_qb_cuda, "scan_pay_qp": S.scan_pay_qp_cuda,
                 "swizzle_keys": SC.swizzle_keys_cuda, "member_route": SM.member_route_cuda,
                 "member_probe": SM.member_probe_cuda, "member_scatter": SM.member_scatter_cuda,
-                "scan_planes_sorted": S.scan_planes_sorted_cuda, "sorted_index": SI.build_cuda}
+                "scan_planes_sorted": S.scan_planes_sorted_cuda, "sorted_index": SI.build_cuda,
+                "scan_planes_qp": S.scan_planes_qp_cuda, "scan_planes_q_span": S.scan_planes_q_span_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
@@ -1101,6 +1204,80 @@ def span_path(work: str, seed: int) -> dict:
     if recall < 0.9:
         raise AssertionError(f"insertion recall {recall:.4f} is below 0.9 on the k = {k} path")
     return {"launches": counts}
+
+
+def _script_args(prefix: str) -> list[str]:
+    return ["-g", f"{prefix}.h5", "-p", "ref.fa", "-b", f"{prefix}.breakpoints"]
+
+
+def start_script_cpu(sub: str, prefix: str) -> subprocess.Popen:
+    """context_genome_wg with `-device cpu` (the host plane pass) on the
+    find outputs `prefix`.* in `sub`, started as a subprocess that writes
+    ctx_cpu.breakpoints there."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen([sys.executable, "-m", "mindthegap_tpu_torch.scripts.context_genome_wg",
+                             *_script_args(prefix), "-o", "ctx_cpu.breakpoints", "-device", "cpu"],
+                            cwd=sub, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def script_path(work: str, cpu31: subprocess.Popen) -> dict:
+    """context_genome_wg (mindthegap_tpu_torch/scripts) on the outputs of
+    the main path (t.h5, ref.fa and t.breakpoints, k = 31: K15 over the
+    pair map) and of the k = 45 path (span/s.h5 ...: K16 over the span
+    map): on the card in-process, beside the same command with `-device
+    cpu` (the host plane pass) as a subprocess: at k = 31 `cpu31`, which
+    main() started after the main path (it takes about a minute over the
+    E. coli-size reference, hidden behind the phases between), at k = 45
+    one started here. The two must write the same bytes and print the same
+    line, and each kernel must launch at least once a window of the
+    reference. Returns the launch counts of the card's runs and the
+    phase's times."""
+    from mindthegap_tpu_torch.io.bank import Bank
+    from mindthegap_tpu_torch.scripts import context_genome_wg as C
+
+    t_phase = time.perf_counter()
+    counts, times = {}, {}
+    for k, sub, prefix, kernel, window in ((31, work, "t", "scan_planes_qp", 1 << 22),
+                                           (SPAN_K, os.path.join(work, "span"), "s", "scan_planes_q_span", 1 << 21)):
+        args = _script_args(prefix)
+        t0 = time.perf_counter()
+        cpu = cpu31 if k == 31 else start_script_cpu(sub, prefix)
+        try:
+            launches = _reset_launches()
+            cwd = os.getcwd()
+            os.chdir(sub)
+            report = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(report):
+                    rc = C.main(args + ["-o", "ctx_gpu.breakpoints"])
+            finally:
+                os.chdir(cwd)
+            gpu_s = time.perf_counter() - t0
+            counts[k] = launches()
+        finally:
+            cpu_out, cpu_err = cpu.communicate()
+        cpu_s = time.perf_counter() - t0
+        if rc != 0 or cpu.returncode != 0:
+            raise RuntimeError(f"context_genome_wg exited {rc} on the card, {cpu.returncode} with -device cpu: "
+                               f"{report.getvalue()[-2000:]}{cpu_err[-2000:]}")
+        line = report.getvalue().strip()
+        if line != cpu_out.strip() or not _same(os.path.join(sub, "ctx_gpu.breakpoints"),
+                                                os.path.join(sub, "ctx_cpu.breakpoints")):
+            raise AssertionError(f"context_genome_wg at k = {k} wrote other bytes on the card than with -device cpu "
+                                 f"({line!r} against {cpu_out.strip()!r})")
+        windows = sum(-(-(len(rec.seq) - k + 1) // (window - k + 1)) for rec in Bank.open(os.path.join(sub, "ref.fa")))
+        if counts[k][kernel] < windows:
+            raise AssertionError(f"{kernel} launched {counts[k][kernel]} times over the {windows} windows at k = {k}")
+        times[k] = {"gpu_s": gpu_s, "cpu_s": cpu_s if k != 31 else None, "windows": windows,
+                    "launches": counts[k][kernel], "line": line}
+        cpu_note = ("started after the main path, waited for" if k == 31 else "a subprocess beside it") + f" {cpu_s:.1f} s"
+        print(f"context_genome_wg at k = {k} on {prefix}.h5 ({line}): on the card {gpu_s:.1f} s ({kernel} launched "
+              f"{counts[k][kernel]} times over {windows} windows), -device cpu {cpu_note}; the same bytes")
+    wall = time.perf_counter() - t_phase
+    print(f"script phase: {wall:.1f} s")
+    return {"launches": {"scan_planes_qp": counts[31]["scan_planes_qp"],
+                         "scan_planes_q_span": counts[SPAN_K]["scan_planes_q_span"]},
+            "times": times, "wall_s": wall}
 
 
 # the reference bases that `-scan-engine host` and `-automaton host` scan
@@ -1813,10 +1990,11 @@ def build_kernels():
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
 
     loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib, S._span_scan_lib, W._walk_span_lib,
-               S._planes_lib, SC._lib, SM._lib, S._sorted_lib, SI._lib)
+               S._planes_lib, SC._lib, SM._lib, S._sorted_lib, SI._lib, S._planes_span_lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
+    return len(loaders)
 
 
 def main() -> int:
@@ -1836,8 +2014,8 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build_kernels()
-    print(f"kernel build (nvcc, sm_90a, 12 sources in parallel): {time.perf_counter() - t0:.1f} s")
+    n_sources = build_kernels()
+    print(f"kernel build (nvcc, sm_90a, {n_sources} sources in parallel): {time.perf_counter() - t0:.1f} s")
 
     seed = 20261016
     k = 31
@@ -1853,6 +2031,7 @@ def main() -> int:
     work = os.path.join(REPO, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    cpu31 = None
     try:
         t0 = time.perf_counter()
         write_fasta(os.path.join(work, "ref.fa"), CHROM, ref)
@@ -1866,6 +2045,7 @@ def main() -> int:
         print(f"k = {SPAN_K} solid set from the donor's k-mers: {span_rows.shape[0]} rows "
               f"({time.perf_counter() - t0:.1f} s)")
         k6, qms = check_span_scan_kernel(ref, span_rows, SPAN_K, seed)
+        k16 = check_span_plane_kernel(ref, qms, SPAN_K, seed)
         k7 = check_span_walk_kernel(span_fwd, qms, SPAN_K, seed)
         del span_fwd, span_rows, qms
         mesh = check_mesh_kernels(ref, solid, reads, k, seed)
@@ -1874,17 +2054,23 @@ def main() -> int:
                         ("K10", planes["scan_pay_qp"]), ("K11", mesh["swizzle_keys"]),
                         ("K12", mesh["member_route"]), ("K13", mesh["member_probe"]),
                         ("K13", mesh["member_scatter"]), ("K14", mesh["scan_planes_sorted"]),
-                        ("the bucket index build", mesh["sorted_index"])):
+                        ("the bucket index build", mesh["sorted_index"]), ("K15", planes["scan_planes_qp"]),
+                        ("K16", k16)):
             if r["max_abs_err"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
         run = main_path(work, insertions, reads)
+        cpu31 = start_script_cpu(work, "t")  # the script phase's -device cpu run, behind the phases between
         run2 = device_path(work, insertions, reads)
         run4 = plane_path(work, ref, donor)
         run5 = mesh_path(work, reads)
         distributed_path(work, reads)
         trace_path(work)
         run3 = span_path(work, seed)
+        run6 = script_path(work, cpu31)
     finally:
+        if cpu31 is not None and cpu31.poll() is None:
+            cpu31.kill()
+            cpu31.wait()
         shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
@@ -1936,9 +2122,17 @@ def main() -> int:
         {"name": "sorted_index", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/sorted_index.cu",
          "replaces": None,
          "launches": run5["launches"]["sorted_index"], **mesh["sorted_index"]},
+        {"name": "scan_planes_qp", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_planes.cu",
+         "replaces": "mindthegap_tpu/find/scan_device.py:392",
+         "launches": run6["launches"]["scan_planes_qp"], **planes["scan_planes_qp"]},
+        {"name": "scan_planes_q_span", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_planes_span.cu",
+         "replaces": "mindthegap_tpu/find/scan_device.py:201",
+         "launches": run6["launches"]["scan_planes_q_span"], **k16},
     ]
     for rec in kernels:  # the records that time otherwise say how
         rec.setdefault("ms_covers", "CUDA events around the wrapper, the mean of its calls")
+        if rec["route"] not in ("cuda", "triton") or rec["launches"] <= 0:
+            raise AssertionError(f"kernel record {rec['name']}: route {rec['route']!r}, {rec['launches']} launches")
     print(f"auto gate record: {json.dumps(run4['gate'])}")
     print(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -103,6 +103,26 @@ LOOKUP_KEYS = 4
 PLANE_BYTES_PER_POSITION = 20
 
 
+def span_plane_bytes_per_position(k: int) -> int:
+    """The planes K16 writes for each position: Wk = ceil(k/32) words of
+    fwd_words, nb_in and nb_out 4 bytes each, four one-byte planes."""
+    return 8 * SD.span_width(k) + 12
+
+
+def plane_pass_bound_ms(packed: torch.Tensor, badbits: torch.Tensor, qm, k: int) -> tuple[float, int]:
+    """(least ms, random sectors) of K15's or K16's function on one window
+    (arguments as scan_planes_qp / scan_planes_q_span take them, qm the
+    QMapP or QMapSpan from .to on their device): the sectors its probes
+    need (K10's rows, scan_probe_sectors, or K6's, span_scan_sectors), the
+    window read once and the planes written once."""
+    p = packed.shape[0] * 4 - k + 1
+    if isinstance(qm, X.QMapSpan):
+        sectors, plane_bytes = span_scan_sectors(packed, badbits, qm, k), span_plane_bytes_per_position(k)
+    else:
+        sectors, plane_bytes = scan_probe_sectors(packed, badbits, qm, k), PLANE_BYTES_PER_POSITION
+    return bytes_ms(sectors * SECTOR_BYTES + packed.numel() + badbits.numel() + plane_bytes * p), sectors
+
+
 def plane_scan_sectors(packed: torch.Tensor, badbits: torch.Tensor, qm, k: int) -> int:
     """The random sectors K8's or K9's function needs on one window (packed
     and badbits as scan_planes_q / scan_planes_qb take them; qm from

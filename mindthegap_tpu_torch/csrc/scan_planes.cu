@@ -1,11 +1,14 @@
-// K8 and K9: the plane pass of one window over the fused quotient maps
-// (mindthegap_tpu_torch/find/scan_device.py _scan_planes_q_plain and
-// _scan_planes_qb_plain, which these kernels must equal bit for bit).
+// K8, K9 and K15: the plane pass of one window over the fused quotient maps
+// (mindthegap_tpu_torch/find/scan_device.py _scan_planes_q_plain,
+// _scan_planes_qb_plain and _scan_planes_qp_plain, which these kernels must
+// equal bit for bit).
 //
 // Replaces: mindthegap_tpu/find/scan_device.py scan_planes_device_q (K8,
-// over the 2-choice cuckoo QMap) and scan_planes_device_qb (K9, over the
-// 16-slot bucket QMapB), with mindthegap_tpu/ops/extmap.py lookup_q,
-// lookup_qb_chunked and planes_from_payload: XLA programs on the TPU.
+// over the 2-choice cuckoo QMap), scan_planes_device_qb (K9, over the
+// 16-slot bucket QMapB) and scan_planes_device_qp (K15, over the
+// pair-coalesced QMapP, with _pair_pay_device), with
+// mindthegap_tpu/ops/extmap.py lookup_q, lookup_qb_chunked, lookup_qp and
+// planes_from_payload: XLA programs on the TPU.
 //
 // For each position i of the window (P = w - k + 1 of them; a bad base
 // reads as A) the seven planes of find/scan.py Planes: the forward k-mer
@@ -67,16 +70,34 @@
 // 16-byte loads each before reducing any; the payload past a thread's run,
 // q_{i+R}, is its right neighbour's first, taken by a shuffle (the warp's
 // last lane probes it itself).
+// K15 is K10's probe (scan_qp.cu; pair_map.cuh) with K8's plane stores: one
+// 16-byte row a pair of positions holds both of their payloads, already
+// oriented as read, so the bound is K10's row sectors (bounds.py
+// scan_probe_sectors; one lookup per two positions, half K8's) and the 20
+// bytes of planes a position. A block claims a tile of 512 pairs from a
+// counter, a thread K10's 2 pairs: both first-choice rows in flight, the
+// second choice after a miss, then the planes of its 4 positions. The
+// payload past a thread's run is its right neighbour's first: a shuffle in
+// the warp, shared memory across warps. The tile's last position needs the
+// next tile's first payload; rather than probe that pair twice, the tile
+// publishes its own last payload and the next tile's first thread writes
+// that position once it is there (plane_store.cuh; tiles are claimed in
+// order, so the tile waited on runs or has run and never waits back).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "packed_window.cuh"
+#include "pair_map.cuh"
+#include "plane_store.cuh"
 #include "qmap.cuh"
 
 namespace {
 
 using namespace packed_window;
+using planes::orient;
+using planes::PlaneOut;
+using planes::put;
 
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xFFFFFFFFu;
@@ -92,58 +113,6 @@ constexpr int Q_TPOS = THREADS * Q_R;
 constexpr int Q_KEYS = Q_TPOS + 1;
 constexpr int Q_CHUNKS = Q_TPOS / 64 + 2;
 constexpr int Q_KEYS_A_THREAD = (Q_KEYS + THREADS - 1) / THREADS;  // queue entries a thread takes at most
-
-struct PlaneOut {
-    long long* fwd;
-    uint8_t* valid;
-    uint8_t* contains;
-    int32_t* nb_in;
-    int32_t* nb_out;
-    uint8_t* suffix_rep;
-    uint8_t* prefix_rep;
-};
-
-// a thread's R outputs of one plane from position i0 (n of them in the
-// window): one vector store where all R are and the plane is aligned
-template <int R>
-__device__ __forceinline__ void put(uint8_t* __restrict__ out, int64_t i0, const uint8_t (&v)[R], int n, bool vec) {
-    if (vec && n == R) {
-        uint32_t x = 0;
-#pragma unroll
-        for (int e = 0; e < R; e++) x |= (uint32_t)v[e] << (8 * e);
-        if constexpr (R == 4) *reinterpret_cast<uint32_t*>(out + i0) = x;
-        else *reinterpret_cast<uint16_t*>(out + i0) = (uint16_t)x;
-    } else {
-#pragma unroll
-        for (int e = 0; e < R; e++)
-            if (e < n) out[i0 + e] = v[e];
-    }
-}
-
-template <int R>
-__device__ __forceinline__ void put(int32_t* __restrict__ out, int64_t i0, const int32_t (&v)[R], int n, bool vec) {
-    if (vec && n == R) {
-        if constexpr (R == 4) *reinterpret_cast<int4*>(out + i0) = make_int4(v[0], v[1], v[2], v[3]);
-        else *reinterpret_cast<int2*>(out + i0) = make_int2(v[0], v[1]);
-    } else {
-#pragma unroll
-        for (int e = 0; e < R; e++)
-            if (e < n) out[i0 + e] = v[e];
-    }
-}
-
-template <int R>
-__device__ __forceinline__ void put(long long* __restrict__ out, int64_t i0, const u64 (&v)[R], int n, bool vec) {
-    if (vec && n == R) {
-#pragma unroll
-        for (int h = 0; h < R / 2; h++)
-            reinterpret_cast<ulonglong2*>(out + i0)[h] = make_ulonglong2(v[2 * h], v[2 * h + 1]);
-    } else {
-#pragma unroll
-        for (int e = 0; e < R; e++)
-            if (e < n) out[i0 + e] = (long long)v[e];
-    }
-}
 
 // the stash's payload of `key` (0 if absent): a lower bound over the 64
 // sorted slots then one compare, or the sum over a full scan of an
@@ -173,12 +142,6 @@ __device__ __forceinline__ bool stage_stash(const u64* __restrict__ stash_k, con
     }
     __syncthreads();
     return !__syncthreads_or(tid + 1 < n_stash && s_k[tid] >= s_k[tid + 1]);
-}
-
-// a canonical payload oriented to its strand: ext | pre << 4 | rep << 8
-__device__ __forceinline__ unsigned orient(unsigned p, bool strand) {
-    const unsigned ext_c = p & 0xF, pre_c = (p >> 4) & 0xF;
-    return (strand ? (ext_c | pre_c << 4) : (qmap::shuffle02(pre_c) | qmap::shuffle02(ext_c) << 4)) | (p & 0x100);
 }
 
 // the canonical (k-1)-mer at `rel` of a staged tile, and whether it is read on its canonical strand
@@ -419,6 +382,99 @@ __global__ void __launch_bounds__(THREADS) scan_planes_qb_kernel(
     write_planes<R>(s_code, s_bad, rel0, i0, opay, k, n_pos, o, vec);
 }
 
+// ---------------------------------------------------------------------------
+// K15
+
+constexpr int QP_P = 2;                    // pairs a thread (K10's)
+constexpr int QP_TP = THREADS * QP_P;      // pairs a tile
+constexpr int QP_R = 2 * QP_P;             // positions a thread
+constexpr int QP_CHUNKS = QP_TP / 32 + 3;  // the 2 TP bases of a tile, the 64 before them and the k - 1 past them
+constexpr int WARPS = THREADS / 32;
+
+__global__ void __launch_bounds__(THREADS) scan_planes_qp_kernel(
+    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad, int64_t w, bool aligned,
+    const ulonglong2* __restrict__ slots, int log_size,
+    const u64* __restrict__ stash_k, const u64* __restrict__ stash_l, const u64* __restrict__ stash_r,
+    int n_stash, int k, PlaneOut o, bool vec, u64* states, unsigned* tile_counter)
+{
+    using namespace pair_map;
+    __shared__ uint32_t s_code[4 * QP_CHUNKS], s_bad[2 * QP_CHUNKS];  // bases from 2 m0 - 64
+    __shared__ u64 s_k[MAX_STASH], s_l[MAX_STASH], s_r[MAX_STASH];
+    __shared__ unsigned s_head[WARPS];  // each warp's first payload
+    __shared__ int64_t s_tile;
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    if (tid == 0) s_tile = atomicAdd(tile_counter, 1u);
+    for (int s = tid; s < MAX_STASH; s += THREADS) {
+        s_k[s] = s < n_stash ? stash_k[s] : ~0ull;  // the padding sorts last and equals no key
+        s_l[s] = s < n_stash ? stash_l[s] : 0;
+        s_r[s] = s < n_stash ? stash_r[s] : 0;
+    }
+    __syncthreads();
+    const int64_t tile = s_tile, m0 = tile * QP_TP;
+    stage(packed, bad, w, 2 * m0 - 64, QP_CHUNKS, aligned, s_code, s_bad);
+    const bool sorted = !__syncthreads_or(tid + 1 < n_stash && s_k[tid] >= s_k[tid + 1]);
+
+    const int64_t n_pos = w - k + 1, n_pairs = (n_pos + 2) / 2;  // payload entries 0 .. n_pos
+    const int shift = 64 - log_size;
+    const u64 rem_mask = (1ull << shift) - 1;
+
+    // K10's probe of the thread's pairs: keys, then every first-choice row
+    // in flight, then the second choice after a miss and the stash
+    u64 key[QP_P], h1[QP_P], h2[QP_P], y[QP_P], x[QP_P];
+    bool strand[QP_P], live[QP_P];
+#pragma unroll
+    for (int e = 0; e < QP_P; e++) {
+        const int rel = 64 + 2 * (QP_P * tid + e);  // base 2m, staged
+        live[e] = m0 + QP_P * tid + e < n_pairs;
+        const u64 win = bits64(s_code, 2 * rel);    // bases 2m .. 2m+31
+        y[e] = win & 3;
+        x[e] = bits32(s_code, 2 * (rel + k - 1)) & 3;
+        u64 fwd, rc;
+        kmer_words(win >> 2, k - 2, fwd, rc);     // the (k-2)-mer at base 2m+1
+        key[e] = fwd < rc ? fwd : rc;
+        strand[e] = fwd == key[e];
+        h1[e] = mix(key[e], H1);
+        h2[e] = mix(key[e], H2);
+    }
+    ulonglong2 first[QP_P];
+#pragma unroll
+    for (int e = 0; e < QP_P; e++) first[e] = live[e] ? __ldg(&slots[h1[e] >> shift]) : make_ulonglong2(0, 0);
+    unsigned opay[QP_R + 1];  // the payloads of the thread's positions, and the one past them
+#pragma unroll
+    for (int e = 0; e < QP_P; e++) {
+        ulonglong2 row = first[e];
+        bool hit = row_hit(row, h1[e], rem_mask, 0);
+        if (!hit && live[e]) {
+            row = __ldg(&slots[h2[e] >> shift]);
+            hit = row_hit(row, h2[e], rem_mask, 1);
+        }
+        u64 l36, r36, pe = 0, po = 0;
+        row_blocks(row, hit, l36, r36);
+        stash_rows(s_k, s_l, s_r, n_stash, sorted, key[e], l36, r36);
+        if (live[e]) pair_payloads(strand[e], l36, r36, y[e], x[e], pe, po);
+        opay[2 * e] = (unsigned)pe;
+        opay[2 * e + 1] = (unsigned)po;
+    }
+
+    // the tile's last payload, for the next tile's first position
+    if (tid == THREADS - 1) planes::publish_last(&states[tile], opay[QP_R - 1]);
+    // the payload past the thread's run is its right neighbour's first: a
+    // shuffle in the warp, shared memory across warps
+    const unsigned next = __shfl_down_sync(FULL, opay[0], 1);
+    if (lane == 0) s_head[warp] = opay[0];
+    __syncthreads();
+    opay[QP_R] = lane < 31 ? next : warp + 1 < WARPS ? s_head[warp + 1] : 0u;
+    const int64_t i0 = 2 * (m0 + QP_P * tid);
+    const int64_t end = tid == THREADS - 1 && i0 + QP_R - 1 < n_pos ? i0 + QP_R - 1 : n_pos;
+    write_planes<QP_R>(s_code, s_bad, 64 + QP_R * tid, i0, opay, k, end, o, vec);
+    // the last position of the tile before, from the payload it published
+    if (tid == 0 && tile > 0) {
+        const unsigned one[2] = {planes::wait_last(&states[tile - 1]), opay[0]};
+        write_planes<1>(s_code, s_bad, 63, i0 - 1, one, k, n_pos, o, false);
+    }
+}
+
 // K8's blocks: as many as the card holds at once, at most one a tile
 int q_grid(int64_t n_tiles) {
     static int per_sm = 0;
@@ -461,5 +517,34 @@ extern "C" int scan_planes_launch(const void* packed, const void* bad, int64_t w
         scan_planes_q_kernel<<<(unsigned)q_grid(n_tiles), THREADS, 0, st>>>(
             pk, bd, w, aligned, sl, log_size, sk, sv, n_stash, k, o, vec, n_tiles);
     }
+    return (int)cudaGetLastError();
+}
+
+// K15: pairs a tile (the tile count sizes the look-back scratch)
+extern "C" int scan_planes_qp_tile_pairs() { return QP_TP; }
+
+// K15: packed and bad as above; slots: the QMapP's [2^log_size, 2] words;
+// stash: n_stash keys and (L36, R36) blocks; the seven planes: P = w - k + 1
+// entries each; states: n_tiles + 1 words of scratch (zeroed here), n_tiles
+// = ceil(ceil((P + 1) / 2) / scan_planes_qp_tile_pairs()).
+extern "C" int scan_planes_qp_launch(const void* packed, const void* bad, int64_t w, const void* slots, int log_size,
+                                     const void* stash_k, const void* stash_l, const void* stash_r, int n_stash,
+                                     int k, void* fwd, void* valid, void* contains, void* nb_in, void* nb_out,
+                                     void* suffix_rep, void* prefix_rep, void* states, void* stream)
+{
+    const PlaneOut o = {(long long*)fwd, (uint8_t*)valid, (uint8_t*)contains, (int32_t*)nb_in, (int32_t*)nb_out,
+                        (uint8_t*)suffix_rep, (uint8_t*)prefix_rep};
+    cudaStream_t st = (cudaStream_t)stream;
+    const int64_t n_pairs = (w - k + 3) / 2, n_tiles = (n_pairs + QP_TP - 1) / QP_TP;
+    const bool aligned = (uintptr_t)packed % 16 == 0 && (uintptr_t)bad % 8 == 0;
+    const bool vec = ((uintptr_t)fwd | (uintptr_t)valid | (uintptr_t)contains | (uintptr_t)nb_in | (uintptr_t)nb_out
+                      | (uintptr_t)suffix_rep | (uintptr_t)prefix_rep) % 16 == 0;
+    u64* s = (u64*)states;
+    cudaError_t err = cudaMemsetAsync(s, 0, (n_tiles + 1) * sizeof(u64), st);
+    if (err != cudaSuccess) return (int)err;
+    scan_planes_qp_kernel<<<(unsigned)n_tiles, THREADS, 0, st>>>(
+        (const uint8_t*)packed, (const uint8_t*)bad, w, aligned, (const ulonglong2*)slots, log_size,
+        (const u64*)stash_k, (const u64*)stash_l, (const u64*)stash_r, n_stash, k, o, vec, s,
+        (unsigned*)(s + n_tiles));
     return (int)cudaGetLastError();
 }

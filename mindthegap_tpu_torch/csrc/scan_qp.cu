@@ -49,53 +49,29 @@
 //     writes n_exc; the finishing kernel copies tail[0, out_len - n_exc) to
 //     exc16[n_exc, out_len).
 // Nothing but the outputs, `tail` and 8 bytes of look-back state per tile
-// goes to device memory: no per-entry payload stream.
+// goes to device memory: no per-entry payload stream. The pair map's probe
+// primitives are in pair_map.cuh, shared with K15 (scan_planes.cu).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "packed_window.cuh"
+#include "pair_map.cuh"
 
 namespace {
 
 using namespace packed_window;
+using namespace pair_map;
 
-constexpr u64 H1 = 0x9E3779B97F4A7C15ull;
-constexpr u64 H2 = 0xC2B2AE3D27D4EB4Full;
-constexpr u64 QP_REM_MASK = (1ull << 45) - 1;
-constexpr u64 QP_CHOICE = 1ull << 8;
-constexpr u64 QP_VALID = 1ull << 9;
-constexpr u64 QP_L36 = (1ull << 36) - 1;
-constexpr int MAX_STASH = 64;
 constexpr int THREADS = 256, WARPS = THREADS / 32;
 constexpr u64 STATE_AGGREGATE = 1, STATE_INCLUSIVE = 2;
 constexpr unsigned FULL = 0xFFFFFFFFu;
-
-__device__ __forceinline__ u64 mix(u64 key, u64 c) {
-    u64 h = (key ^ (key >> 33)) * c;
-    return h ^ (h >> 29);
-}
-
-__device__ __forceinline__ u64 shuffle02(u64 b) {
-    return ((b >> 2) & 1) | (((b >> 3) & 1) << 1) | ((b & 1) << 2) | (((b >> 1) & 1) << 3);
-}
-
-__device__ __forceinline__ u64 flip9(u64 p) {
-    return shuffle02((p >> 4) & 0xF) | (shuffle02(p & 0xF) << 4) | (p & 0x100);
-}
-
-__device__ __forceinline__ u64 sub9(u64 blk, u64 i4) { return (blk >> (9 * i4)) & 0x1FF; }
 
 // the class of payload `pay` whose flanking bases are b_hi and b_lo, both
 // valid when ok
 __device__ __forceinline__ int classify(u64 pay, bool ok, u64 b_hi, u64 b_lo) {
     if (ok && (pay & 0xFF) == ((1ull << b_hi) | (1ull << (b_lo + 4)))) return ((pay >> 8) & 1) ? 3 : 0;
     return pay == 0 ? 1 : 2;
-}
-
-__device__ __forceinline__ bool row_hit(ulonglong2 row, u64 h, u64 rem_mask, int choice) {
-    return (((row.x >> 10) & QP_REM_MASK) == (h & rem_mask)) && (row.x & QP_VALID)
-        && (((row.x & QP_CHOICE) != 0) == (choice == 1));
 }
 
 __device__ __forceinline__ void publish(u64* state, u64 kind, unsigned count) {
@@ -345,29 +321,6 @@ cudaError_t launch(const Args& a, cudaStream_t st)
 // the 1.125 bytes a position written. A thread takes K1's P pairs (four
 // entries): one 4-byte store of pay8, and each even thread joins its odd
 // neighbour's four repeat bits by a shuffle into one byte of rep8.
-
-// the stash's (L36, R36) of `key`, OR-ed in: a lower bound over the 64
-// sorted slots then one compare, or a full scan of an unsorted stash
-__device__ __forceinline__ void stash_rows(const u64* s_k, const u64* s_l, const u64* s_r, int n_stash, bool sorted,
-                                           u64 key, u64& l36, u64& r36) {
-    if (sorted) {
-        int i = 0;
-#pragma unroll
-        for (int step = MAX_STASH / 2; step >= 1; step >>= 1)
-            if (s_k[i + step - 1] < key) i += step;
-        if (s_k[i] == key) {
-            l36 |= s_l[i];
-            r36 |= s_r[i];
-        }
-    } else {
-        for (int s = 0; s < n_stash; s++) {
-            if (s_k[s] == key) {
-                l36 |= s_l[s];
-                r36 |= s_r[s];
-            }
-        }
-    }
-}
 
 __global__ void __launch_bounds__(THREADS) scan_pay_qp_kernel(
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad, int64_t w, bool aligned,

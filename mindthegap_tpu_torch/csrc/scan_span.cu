@@ -69,15 +69,9 @@
 
 namespace {
 
-using packed_window::bits64;
-using packed_window::rev2;
 using namespace span_map;
 
 constexpr int THREADS = 256;
-
-// a key's next load: its first slot word, that slot's satellite words, the
-// second slot word, its satellite words, or none (its payload is known)
-enum Step { SLOT0, SAT0, SLOT1, SAT1, DONE };
 
 // the unsigned type of PER bytes (one store of a thread's pay8 bytes)
 template <int PER> struct Bytes;
@@ -108,82 +102,18 @@ __global__ void __launch_bounds__(THREADS) scan_span_kernel(
     // still takes part in the shuffles below
     const int n = n_pay - j0 >= PER ? PER : n_pay > j0 ? (int)(n_pay - j0) : 0;
     const int nb = k - 1;               // bases per key
-    const int tb = nb - 32 * (WQ - 1);  // bases in word 0, 1..32
-    const u64 top = top_mask(nb, WQ);
     const int bit0 = 7 - (o & 7);       // the first key's bit in its byte of rep8 / str8
 
-    // 1. every key's canonical words and salted digest
+    // 1. every key's canonical words, strand and salted digest
     u64 cq[PER][WQ], dig[PER];
+    bool is_canon[PER];
+    staged_keys<WQ, PER>(m, s_code, o, nb, cq, is_canon, dig);
     unsigned str = 0;
-    u64 q[WQ];
-    q[0] = rev2(bits64(s_code, 2 * o)) >> (64 - 2 * tb);
 #pragma unroll
-    for (int i = 1; i < WQ; i++) q[i] = rev2(bits64(s_code, 2 * (o + tb + 32 * (i - 1))));
-#pragma unroll
-    for (int p = 0; p < PER; p++) {
-        if (p > 0) {  // shift in the key's last base
-            const int ob = o + p + nb - 1;
-            const u64 c = (s_code[ob >> 4] >> (2 * (ob & 15))) & 3;
-#pragma unroll
-            for (int i = 0; i < WQ - 1; i++) q[i] = (q[i] << 2) | (q[i + 1] >> 62);
-            q[WQ - 1] = (q[WQ - 1] << 2) | c;
-            q[0] &= top;
-        }
-        bool is_canon;
-        canonical<WQ>(q, nb, cq[p], is_canon);
-        str |= (unsigned)(is_canon && p < n) << (bit0 - p);
-        dig[p] = digest<WQ>(cq[p]) ^ m.salt;
-    }
-
-    // 2. every first slot word in flight at once
-    Slot<WQ> s[PER];
-    int next[PER];  // each key's next load: a Step
-#pragma unroll
-    for (int p = 0; p < PER; p++) {
-        next[p] = p < n ? SLOT0 : DONE;
-        if (p < n) s[p].v = load_word(m, mix(dig[p], H1));
-    }
-    // 3. the stash while they are in flight
+    for (int p = 0; p < PER; p++) str |= (unsigned)(is_canon[p] && p < n) << (bit0 - p);
+    // 2-4. their probes, all in flight together
     unsigned pay[PER];
-#pragma unroll
-    for (int p = 0; p < PER; p++) pay[p] = p < n ? stash_pay<WQ>(m, dig[p], cq[p]) : 0u;
-    // 4. round by round: test what arrived, then issue every key's next
-    // load together (satellites where a slot holds the digest, the second
-    // slot after a miss)
-    for (;;) {
-        bool pending = false;
-#pragma unroll
-        for (int p = 0; p < PER; p++) {
-            const int i = next[p] == SLOT1 || next[p] == SAT1;  // the choice
-            const u64 h = mix(dig[p], i ? H2 : H1);
-            if (next[p] == SLOT0 || next[p] == SLOT1) {
-                if (slot_here(m, s[p].v, h, i)) {
-                    if (WQ > 1) {
-                        next[p] = i ? SAT1 : SAT0;
-                    } else {
-                        pay[p] |= (unsigned)(s[p].v & PAY_MASK);
-                        next[p] = DONE;
-                    }
-                } else {
-                    next[p] = i ? DONE : SLOT1;
-                }
-            } else if (next[p] != DONE) {
-                if (sat_equal<WQ>(s[p], cq[p])) {
-                    pay[p] |= (unsigned)(s[p].v & PAY_MASK);
-                    next[p] = DONE;
-                } else {
-                    next[p] = i ? DONE : SLOT1;  // the digest's other key: the second slot
-                }
-            }
-            pending |= next[p] != DONE;
-        }
-        if (!pending) break;
-#pragma unroll
-        for (int p = 0; p < PER; p++) {
-            if (next[p] == SLOT1) s[p].v = load_word(m, mix(dig[p], H2));
-            if (next[p] == SAT0 || next[p] == SAT1) load_sat<WQ>(m, mix(dig[p], next[p] == SAT1 ? H2 : H1), s[p]);
-        }
-    }
+    probe_lazy<WQ, PER>(m, cq, dig, n, pay);
 
     typedef typename Bytes<PER>::T Word;
     Word pays = 0;

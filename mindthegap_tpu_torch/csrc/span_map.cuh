@@ -33,18 +33,22 @@
 //   - eager (Eager, issue_eager / resolve_eager): both choices with all
 //     their words at once, 2 WQ sectors and one round trip a probe. K7's
 //     walk is a chain of dependent probes, latency bound, and takes this.
-//   - lazy, with many keys in flight: a caller issues the first slot word
-//     of every key it holds at once, then round by round each key's next
-//     load (the satellites where the slot holds the digest, the second
-//     slot after a miss), so it reads only the sectors the lookup needs.
-//     K6 runs at the card's rate of random sectors and takes this; loading
-//     the first slot's satellites with it read 7-11% more sectors and was
-//     slower (scan_span.cu).
+//   - lazy, with many keys in flight (probe_lazy): a caller issues the
+//     first slot word of every key it holds at once, then round by round
+//     each key's next load (the satellites where the slot holds the digest,
+//     the second slot after a miss), so it reads only the sectors the
+//     lookup needs. K6 runs at the card's rate of random sectors and takes
+//     this, as K16 does; loading the first slot's satellites with it read
+//     7-11% more sectors and was slower (scan_span.cu).
+// staged_keys builds the keys of consecutive (k-1)-mers of a window staged
+// in shared memory (packed_window.cuh) for K6 and K16.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "packed_window.cuh"
 
 namespace span_map {
 
@@ -226,6 +230,95 @@ __device__ __forceinline__ unsigned stash_pay(const Map& m, u64 dig, const u64 (
         if (eq) pay |= (unsigned)m.stash_v[s];
     }
     return pay;
+}
+
+// the canonical words, the strand (whether each is canonical as read, ties
+// too) and the salted digest of PER consecutive (k-1)-mers of nb bases, the
+// first at base o of a staged window (packed_window.cuh): the first from
+// 64-bit reads of the staged stream, each next one by shifting in a base
+template <int WQ, int PER>
+__device__ __forceinline__ void staged_keys(const Map& m, const uint32_t* s_code, int o, int nb,
+                                            u64 (&cq)[PER][WQ], bool (&is_canon)[PER], u64 (&dig)[PER]) {
+    using packed_window::bits64;
+    using packed_window::rev2;
+    const int tb = nb - 32 * (WQ - 1);  // bases in word 0, 1..32
+    const u64 top = top_mask(nb, WQ);
+    u64 q[WQ];
+    q[0] = rev2(bits64(s_code, 2 * o)) >> (64 - 2 * tb);
+#pragma unroll
+    for (int i = 1; i < WQ; i++) q[i] = rev2(bits64(s_code, 2 * (o + tb + 32 * (i - 1))));
+#pragma unroll
+    for (int p = 0; p < PER; p++) {
+        if (p > 0) {  // shift in the key's last base
+            const int ob = o + p + nb - 1;
+            const u64 c = (s_code[ob >> 4] >> (2 * (ob & 15))) & 3;
+#pragma unroll
+            for (int i = 0; i < WQ - 1; i++) q[i] = (q[i] << 2) | (q[i + 1] >> 62);
+            q[WQ - 1] = (q[WQ - 1] << 2) | c;
+            q[0] &= top;
+        }
+        canonical<WQ>(q, nb, cq[p], is_canon[p]);
+        dig[p] = digest<WQ>(cq[p]) ^ m.salt;
+    }
+}
+
+// a key's next load in probe_lazy: its first slot word, that slot's
+// satellite words, the second slot word, its satellite words, or none (its
+// payload is known)
+enum LazyStep { SLOT0, SAT0, SLOT1, SAT1, DONE };
+
+// the 9-bit payloads of the first n of PER canonical keys (0 for the
+// others), all of their probes in flight together: every first slot word
+// at once, the stash (shared memory) while they are in flight, then round by
+// round a test of what arrived and every key's next load together (the
+// satellites where a slot holds the digest, the second slot after a miss).
+// A key in its first slot waits two round trips, in its second three.
+template <int WQ, int PER>
+__device__ __forceinline__ void probe_lazy(const Map& m, const u64 (&cq)[PER][WQ], const u64 (&dig)[PER], int n,
+                                           unsigned (&pay)[PER]) {
+    Slot<WQ> s[PER];
+    int next[PER];  // each key's next load: a LazyStep
+#pragma unroll
+    for (int p = 0; p < PER; p++) {
+        next[p] = p < n ? SLOT0 : DONE;
+        if (p < n) s[p].v = load_word(m, mix(dig[p], H1));
+    }
+#pragma unroll
+    for (int p = 0; p < PER; p++) pay[p] = p < n ? stash_pay<WQ>(m, dig[p], cq[p]) : 0u;
+    for (;;) {
+        bool pending = false;
+#pragma unroll
+        for (int p = 0; p < PER; p++) {
+            const int i = next[p] == SLOT1 || next[p] == SAT1;  // the choice
+            const u64 h = mix(dig[p], i ? H2 : H1);
+            if (next[p] == SLOT0 || next[p] == SLOT1) {
+                if (slot_here(m, s[p].v, h, i)) {
+                    if (WQ > 1) {
+                        next[p] = i ? SAT1 : SAT0;
+                    } else {
+                        pay[p] |= (unsigned)(s[p].v & PAY_MASK);
+                        next[p] = DONE;
+                    }
+                } else {
+                    next[p] = i ? DONE : SLOT1;
+                }
+            } else if (next[p] != DONE) {
+                if (sat_equal<WQ>(s[p], cq[p])) {
+                    pay[p] |= (unsigned)(s[p].v & PAY_MASK);
+                    next[p] = DONE;
+                } else {
+                    next[p] = i ? DONE : SLOT1;  // the digest's other key: the second slot
+                }
+            }
+            pending |= next[p] != DONE;
+        }
+        if (!pending) break;
+#pragma unroll
+        for (int p = 0; p < PER; p++) {
+            if (next[p] == SLOT1) s[p].v = load_word(m, mix(dig[p], H2));
+            if (next[p] == SAT0 || next[p] == SAT1) load_sat<WQ>(m, mix(dig[p], next[p] == SAT1 ? H2 : H1), s[p]);
+        }
+    }
 }
 
 // an eager probe in flight: the salted digest, both hashes, both slots

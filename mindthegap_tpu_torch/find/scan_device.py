@@ -16,6 +16,11 @@ sends it to an automaton in one of these forms:
   k <= 32, the cuckoo map QMap / the bucket map QMapB): the seven planes
   of find/scan.py Planes themselves; the hand kernels K8 and K9
   (csrc/scan_planes.cu);
+- scan_planes_qp (k <= 32, the pair map) and scan_planes_q_span (32 < k
+  <= 256, the span map): the same planes, the pass that the branching
+  filter script (scripts/context_genome_wg.py) runs over a reference; the
+  hand kernels K15 (csrc/scan_planes.cu) and K16
+  (csrc/scan_planes_span.cu);
 - scan_pay_q_span (32 < k <= 256, the span map QMapSpan): payload bytes
   with repeat and strand bits; the hand kernel K6 (csrc/scan_span.cu);
 - scan_planes_sorted (k <= 32, the solid and repeat sets as sorted words,
@@ -26,10 +31,7 @@ sends it to an automaton in one of these forms:
 
 Each dispatcher runs its kernel on a CUDA tensor and its plain version
 (`_..._plain`, plain PyTorch) on a CPU tensor. planes_from_pay and
-planes_from_pay_span turn a payload stream into Planes on the host;
-scan_planes_qp and scan_planes_q_span are plain reference plane passes
-with no kernel and no caller on a `find` path (they raise on a CUDA
-tensor).
+planes_from_pay_span turn a payload stream into Planes on the host.
 """
 
 from __future__ import annotations
@@ -394,13 +396,9 @@ def _span_scan_lib():
     return _SPAN_LIB
 
 
-def scan_pay_q_span_cuda(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
-                         salt: int, log_size: int, k: int):
-    """K6 (csrc/scan_span.cu): the same {pay8, rep8, str8} as
-    _scan_pay_q_span_plain, a thread for each 4 consecutive (k-1)-mers (2
-    past 128 bases) with all of their probes in flight, from bases staged
-    in shared memory. Counts one launch per window in
-    `scan_pay_q_span_cuda.launches`."""
+def _check_span_args(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v, log_size: int, k: int) -> int:
+    """Validate the window and span-map tensors of K6 and K16; returns the
+    window's length in bases."""
     check_kernel_tensor(packed, "packed", torch.uint8, 1)
     check_kernel_tensor(badbits, "badbits", torch.uint8, 1)
     X.check_span_tables(slots, sat, stash_k64, stash_sat, stash_v, log_size, k)
@@ -409,6 +407,17 @@ def scan_pay_q_span_cuda(packed, badbits, slots, sat, stash_k64, stash_sat, stas
         raise ValueError("badbits must hold one bit per base of packed (window % 8 == 0)")
     if w < k + 8 or w >= 1 << 31:
         raise ValueError(f"the window must hold [k + 8, 2^31) bases, got {w} at k={k}")
+    return w
+
+
+def scan_pay_q_span_cuda(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
+                         salt: int, log_size: int, k: int):
+    """K6 (csrc/scan_span.cu): the same {pay8, rep8, str8} as
+    _scan_pay_q_span_plain, a thread for each 4 consecutive (k-1)-mers (2
+    past 128 bases) with all of their probes in flight, from bases staged
+    in shared memory. Counts one launch per window in
+    `scan_pay_q_span_cuda.launches`."""
+    w = _check_span_args(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v, log_size, k)
     dev = packed.device
     n_pay = w - k + 2
     n8 = -(-n_pay // 8)
@@ -506,6 +515,15 @@ def _planes_lib():
             *[ctypes.c_void_p] * 7,
             ctypes.c_void_p,
         ]
+        lib.scan_planes_qp_tile_pairs.restype = ctypes.c_int
+        lib.scan_planes_qp_tile_pairs.argtypes = []
+        lib.scan_planes_qp_launch.restype = ctypes.c_int
+        lib.scan_planes_qp_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            *[ctypes.c_void_p] * 7,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
         _PLANES_LIB = lib
     return _PLANES_LIB
 
@@ -601,36 +619,60 @@ def scan_planes_qb(packed, badbits, slots, stash_k, stash_v, log_nb: int, k: int
     return fn(packed, badbits, slots, stash_k, stash_v, log_nb, k)
 
 
-def _no_kernel(packed, name: str):
-    if packed.is_cuda:
-        from .. import NotYetPorted
-
-        raise NotYetPorted(f"{name} on a CUDA device (it has no kernel: no find path runs it)")
-
-
-def scan_planes_qp(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int) -> dict:
-    """Planes of one window over the pair map (tables from QMapP.to): the
-    pair payloads, which come oriented as read, then the planes. A plain
-    reference pass (the JAX package's scan_planes_device_qp); CPU tensors
-    only."""
-    _no_kernel(packed, "scan_planes_qp")
+def _scan_planes_qp_plain(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int) -> dict:
+    """Plain version of K15: the pair payloads of the window (one lookup per
+    two positions, the payloads oriented as read), then the planes."""
     codes = unpack_codes(packed, badbits)
     fwd, valid = rolling_kmers(codes, k)
     p = fwd.shape[0]
     pay = _pair_pay(codes, slots2, stash_k, stash_l, stash_r, log_size, k)[: p + 1]
-    as_read = torch.ones(p + 1, dtype=torch.bool)
+    as_read = torch.ones(p + 1, dtype=torch.bool, device=codes.device)
     return {"fwd": fwd, **_planes_of_payloads(codes, p, valid, pay, as_read, k)}
 
 
-def scan_planes_q_span(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
-                       salt: int, log_size: int, k: int) -> dict:
-    """Planes of one window over the span map (32 < k <= 256; tables from
-    QMapSpan.to), with `fwd_words` ((Wk, P) int64 words of the forward
-    k-mers) in place of fwd. A plain reference pass (the JAX package's
-    scan_planes_device_q_span); CPU tensors only."""
+def scan_planes_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int) -> dict:
+    """K15 (csrc/scan_planes.cu, K10's probe with K8's plane stores): the
+    same planes as _scan_planes_qp_plain, a block a tile of 512 pairs, a
+    thread's four positions from its two pairs' payloads and the next
+    thread's first (the tile's last position written by the next tile,
+    from the payload this tile publishes). Counts one launch per window in
+    `scan_planes_qp_cuda.launches`."""
+    w = _check_qp_args(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k)
+    dev = packed.device
+    lib = _planes_lib()
+    p = w - k + 1
+    out = {key: torch.empty(p, dtype=_plane_dtype(key), device=dev) for key in PLANE_KEYS}
+    n_tiles = -(-((p + 2) // 2) // lib.scan_planes_qp_tile_pairs())
+    states = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)  # zeroed by the launch
+    launch("scan_planes_qp", lib.scan_planes_qp_launch,
+           packed.data_ptr(), badbits.data_ptr(), w, slots2.data_ptr(), log_size,
+           stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), stash_k.shape[0], k,
+           *(out[key].data_ptr() for key in PLANE_KEYS), states.data_ptr(),
+           device=dev)
+    scan_planes_qp_cuda.launches += 1
+    return out
+
+
+scan_planes_qp_cuda.launches = 0
+
+
+def scan_planes_qp(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int) -> dict:
+    """Planes of one window over the pair map (3 <= k <= 32; tables from
+    QMapP.to), from 2-bit packed codes and bad bits (pack_codes_host): the
+    seven planes of scan_planes_q, from one pair-map lookup per two
+    positions (the JAX package's scan_planes_device_qp). On a CUDA tensor
+    this runs the kernel K15; on a CPU tensor its plain version."""
+    fn = scan_planes_qp_cuda if packed.is_cuda else _scan_planes_qp_plain
+    return fn(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k)
+
+
+def _scan_planes_q_span_plain(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
+                              salt: int, log_size: int, k: int) -> dict:
+    """Plain version of K16: roll the window's (k-1)-mers and k-mers (an
+    invalid base reads as base 0), look every canonical (k-1)-mer up in the
+    span map, derive the planes with each payload turned to its strand."""
     from ..ops import span_device as SD
 
-    _no_kernel(packed, "scan_planes_q_span")
     codes = unpack_codes(packed, badbits)
     qm = X.QMapSpan(slots, sat, log_size, salt, stash_k64, stash_sat, stash_v)
     qwords, _ = SD.rolling_span(codes, k - 1)
@@ -639,6 +681,72 @@ def scan_planes_q_span(packed, badbits, slots, sat, stash_k64, stash_sat, stash_
     canon, is_canon = SD.canonical_span(qwords, k - 1)
     pay = X.lookup_q_span(qm, canon)
     return {"fwd_words": fwd_words, **_planes_of_payloads(codes, p, valid, pay, is_canon, k)}
+
+
+_PLANES_SPAN_LIB = None
+
+
+def _planes_span_lib():
+    global _PLANES_SPAN_LIB
+    if _PLANES_SPAN_LIB is None:
+        from .._build import cuda_library
+
+        lib = cuda_library("scan_planes_span.cu", "libmtg_scan_planes_span.so")
+        lib.scan_planes_span_tile_keys.restype = ctypes.c_int
+        lib.scan_planes_span_tile_keys.argtypes = [ctypes.c_int]
+        lib.scan_planes_span_launch.restype = ctypes.c_int
+        lib.scan_planes_span_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            *[ctypes.c_void_p] * 7,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        _PLANES_SPAN_LIB = lib
+    return _PLANES_SPAN_LIB
+
+
+def scan_planes_q_span_cuda(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
+                            salt: int, log_size: int, k: int) -> dict:
+    """K16 (csrc/scan_planes_span.cu, K6's probe with the plane stores):
+    the same planes as _scan_planes_q_span_plain, a thread's 4 (2 past k =
+    129) positions from its (k-1)-mers' payloads and the next thread's
+    first. Counts one launch per window in
+    `scan_planes_q_span_cuda.launches`."""
+    from ..ops.span_device import span_width
+
+    w = _check_span_args(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v, log_size, k)
+    dev = packed.device
+    lib = _planes_span_lib()
+    p = w - k + 1
+    out = {"fwd_words": torch.empty((span_width(k), p), dtype=torch.int64, device=dev)}
+    out.update({key: torch.empty(p, dtype=_plane_dtype(key), device=dev) for key in PLANE_KEYS[1:]})
+    n_tiles = -(-(p + 1) // lib.scan_planes_span_tile_keys(k))
+    states = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)  # zeroed by the launch
+    launch("scan_planes_q_span", lib.scan_planes_span_launch,
+           packed.data_ptr(), badbits.data_ptr(), w,
+           slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
+           stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
+           stash_k64.shape[0], k,
+           *(out[key].data_ptr() for key in ("fwd_words",) + PLANE_KEYS[1:]), states.data_ptr(),
+           device=dev)
+    scan_planes_q_span_cuda.launches += 1
+    return out
+
+
+scan_planes_q_span_cuda.launches = 0
+
+
+def scan_planes_q_span(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
+                       salt: int, log_size: int, k: int) -> dict:
+    """Planes of one window over the span map (32 < k <= 256; tables from
+    QMapSpan.to), from 2-bit packed codes and bad bits (pack_codes_host),
+    with `fwd_words` ((Wk, P) int64 words of the forward k-mers, word 0
+    most significant) in place of fwd (the JAX package's
+    scan_planes_device_q_span). On a CUDA tensor this runs the kernel K16;
+    on a CPU tensor its plain version."""
+    fn = scan_planes_q_span_cuda if packed.is_cuda else _scan_planes_q_span_plain
+    return fn(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v, salt, log_size, k)
 
 
 def planes_from_pay(pay8: np.ndarray, rep8: np.ndarray, codes: np.ndarray, k: int):

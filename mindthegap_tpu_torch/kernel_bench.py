@@ -10,7 +10,7 @@ yardstick; then K11 (sharded counting's key routing) and K12 (sharded
 membership's route, its launches apart); then K14 and K13 (the owner's
 probe and the scatter back).
 
-    python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE] [--only STAGES]
+    python -m mindthegap_tpu_torch.kernel_bench [--prev DIR] [--json FILE] [--only STAGES]
 
 DIR holds an earlier checkout's `mindthegap_tpu_torch/` and `native/` (for
 example `git archive <commit> mindthegap_tpu_torch native | tar -x -C DIR`
@@ -82,7 +82,12 @@ torch.searchsorted of the bucket numbers 0..B (the plain build's core)
 by launch. The planes stage also times the earlier checkout's K10 in
 turns. `--only` names the stages to run
 (comma-separated keys of the JSON record: span_scan, span_walk, nw, scan,
-keys, walk, merge, planes, mesh, sorted; default all). Prints the card,
+keys, walk, merge, planes, mesh, sorted, plane_passes; default all). The
+plane_passes stage times K15 and K16 (scan_planes_qp_cuda on the planes
+stage's window, scan_planes_q_span_cuda on K6's k = 45 window) in turns
+with their plain versions and with the two-step routes they replace on
+the card (K10 and planes_from_pay, K6 and planes_from_pay_span), and
+needs no --prev. Prints the card,
 one line per shape and, last, one JSON object of every time. Exits
 non-zero without a CUDA device.
 """
@@ -103,8 +108,9 @@ import torch
 
 from ._build import ptxas_usage
 from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, PLANE_BYTES_PER_POSITION, SECTOR_BYTES, bloom_probe_loads,
-                     bytes_ms, nw_bound_ms, plane_scan_sectors, scan_probe_sectors, scan_sorted_sectors, scatter_bytes,
-                     sorted_lookup_sectors, span_scan_sectors, walk_bound_ms, walk_span_bound_ms)
+                     bytes_ms, nw_bound_ms, plane_pass_bound_ms, plane_scan_sectors, scan_probe_sectors,
+                     scan_sorted_sectors, scatter_bytes, sorted_lookup_sectors, span_scan_sectors, walk_bound_ms,
+                     walk_span_bound_ms)
 from .device import cuda_ms, stage_ms
 from .fill import walk_device as W
 from .find import scan_device as S
@@ -545,14 +551,86 @@ def _member_shard0(genome, solid, k):
     return recv[0], sm.shard_keys[0], back[0].reshape(-1), routed[0][1], rows.shape[1]
 
 
-def _turns(fns: dict, iters: int, rounds: int = 1) -> dict:
+def _turns(fns: dict, iters, rounds: int = 1) -> dict:
     """cuda_ms of each function, in turns: every one in order, then in
-    reverse, `rounds` times. {name: [one time a turn]}."""
+    reverse, `rounds` times; `iters` calls each, or {name: calls}. {name:
+    [one time a turn]}."""
     order = list(fns)
     times = {name: [] for name in order}
     for name in (order + order[::-1]) * rounds:
-        times[name].append(cuda_ms(fns[name], iters))
+        times[name].append(cuda_ms(fns[name], iters[name] if isinstance(iters, dict) else iters))
     return times
+
+
+def planes_equal_route(got: dict, route) -> bool:
+    """Whether the planes of K15 or K16 (on the card, {PLANE_KEYS} with
+    fwd, or fwd_words of K16) equal a Planes that the two-step route made
+    on the host (planes_from_pay, planes_from_pay_span)."""
+    host = {key: v.cpu().numpy() for key, v in got.items()}
+    fwd = host["fwd_words"].T.view(np.uint64) if "fwd_words" in host else host["fwd"].view(np.uint64)
+    if not np.array_equal(fwd, route.fwd_rows if "fwd_words" in host else route.fwd):
+        return False
+    return all(host[key].dtype == getattr(route, key).dtype and np.array_equal(host[key], getattr(route, key))
+               for key in S.PLANE_KEYS[1:])
+
+
+def bench_plane_passes(genome, solid, k, seed: int) -> dict:
+    """K15 on the planes stage's 2^22-base window (plane_window) over the
+    pair map of the k = 31 set, and K16 on K6's 2^21-base window over the
+    span map of the genome's k = 45 k-mers (span_map); each equal to its
+    plain version and to the two-step route it replaces on the card (K10,
+    its payload stream to the host and planes_from_pay there; K6 and
+    planes_from_pay_span), then timed in turns, twice: the kernel, the
+    kernel with its planes copied to the host, the route, the plain
+    version; and the kernel's launches by torch.profiler."""
+    out = {}
+    packed, bad, repeat = plane_window(genome, k, seed)
+    qp = X.build_fused_pair(solid, k, repeat)
+    tp = qp.to("cuda")
+    pair = (packed, bad, tp.slots, tp.stash_keys, tp.stash_l, tp.stash_r, qp.log_size, k)
+    codes = S.unpack_codes(packed, bad).cpu().numpy()
+
+    def k10_route():
+        r = S.scan_pay_qp_cuda(*pair)
+        return S.planes_from_pay(r["pay8"].cpu().numpy(), r["rep8"].cpu().numpy(), codes, k)
+
+    rng = np.random.default_rng(seed)
+    window = 1 << 21
+    _fwd, qms = span_map(genome, 45, window)
+    ts = qms.to("cuda")
+    scodes = genome[:window].copy()
+    scodes[1000:1100] = 255
+    scodes[rng.integers(0, window, 64)] = 255
+    spacked, sbad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(scodes))
+    span = (spacked, sbad, ts.slots, ts.sat, ts.stash_key64, ts.stash_sat, ts.stash_payload, qms.salt, qms.log_size, 45)
+
+    def k6_route():
+        r = S.scan_pay_q_span_cuda(*span)
+        return S.planes_from_pay_span(*(r[key].cpu().numpy() for key in ("pay8", "rep8", "str8")), scodes, 45)
+
+    for name, kernel, plain, args, route, tables, kk, label in (
+            ("K15", S.scan_planes_qp_cuda, S._scan_planes_qp_plain, pair, k10_route, tp, k, "K10 + planes_from_pay"),
+            ("K16", S.scan_planes_q_span_cuda, S._scan_planes_q_span_plain, span, k6_route, ts, 45,
+             "K6 + planes_from_pay_span")):
+        got = kernel(*args)
+        if not (_equal(got, plain(*args)) and planes_equal_route(got, route())):
+            raise AssertionError(f"{name} differs from its plain version or from the route it replaces")
+        calls = {name: lambda: kernel(*args),
+                 f"{name} + planes to the host": lambda: {key: v.cpu() for key, v in kernel(*args).items()},
+                 label: route, "plain": lambda: plain(*args)}
+        times = _turns(calls, {name: 20, f"{name} + planes to the host": 10, label: 3, "plain": 3}, rounds=2)
+        bound, sectors = plane_pass_bound_ms(args[0], args[1], tables, kk)
+        try:
+            by_launch = stage_ms(calls[name], 10)
+        except RuntimeError as e:  # the profiler lost records in every window: the events' times stand alone
+            by_launch = {"not measured": str(e)}
+        row = {"k": kk, "window": args[0].shape[0] * 4, "ms": times, "bound_ms": bound, "sectors": sectors,
+               "by_launch": by_launch}
+        print(f"{name}, k = {kk}, {row['window']}-base window: in turns twice (CUDA events, ms) "
+              + ", ".join(f"{key} {v}" for key, v in times.items())
+              + f"; by launch (torch.profiler) {row['by_launch']}; bound {bound:.4f} ms (bytes: {sectors} sectors)")
+        out[name] = row
+    return out
 
 
 def bench_sorted(genome, solid, k, seed: int, prev_s, prev_sm):
@@ -718,7 +796,7 @@ def span_registers() -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--prev", required=True, help="directory of an earlier checkout (see above)")
+    ap.add_argument("--prev", help="directory of an earlier checkout (see above; every stage but plane_passes)")
     ap.add_argument("--json", help="also write the JSON record to this file")
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--only", help="comma-separated stages to run (default: all)")
@@ -726,14 +804,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
         return 2
-    stages = ("span_scan", "span_walk", "nw", "scan", "keys", "walk", "merge", "planes", "mesh", "sorted")
+    stages = ("span_scan", "span_walk", "nw", "scan", "keys", "walk", "merge", "planes", "mesh", "sorted",
+              "plane_passes")
     only = set(args.only.split(",")) if args.only else set(stages)
     if only - set(stages):
         ap.error(f"unknown stages {sorted(only - set(stages))} (choose from {', '.join(stages)})")
+    if only - {"plane_passes"} and not args.prev:
+        ap.error("--prev is needed by every stage but plane_passes")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    prev_w, prev_c, prev_s, prev_nd = load_checkout(args.prev)
+    prev_w, prev_c, prev_s, prev_nd = load_checkout(args.prev) if args.prev else (None,) * 4
     rng = np.random.default_rng(args.seed)
     k = 31
     genome = rng.integers(0, 4, GENOME_LEN, dtype=np.uint8)
@@ -773,6 +854,8 @@ def main(argv=None) -> int:
         record["sorted"] = bench_sorted(genome, solid, k, args.seed + 4, prev_s, prev_sm)
         record["sorted"]["index_build"] = bench_index(
             solid, importlib.import_module("prev_mindthegap_tpu_torch.ops.sorted_index"), args.seed + 5)
+    if "plane_passes" in only:
+        record["plane_passes"] = bench_plane_passes(genome, solid, k, args.seed + 2)
     line = json.dumps(record)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -288,16 +288,22 @@ def test_span_walk_kernel_edge_cases(cuda, k, lanes):
     assert int(want[1].max()) == 64 or lanes <= 8  # some lanes walk every step
 
 
-# the plane path (k <= 32): K8 (cuckoo map), K9 (bucket map), K10 (pair map)
+# the plane path (k <= 32): K8 (cuckoo map), K9 (bucket map), K10 (pair
+# map, the payload stream) and K15 (pair map, the planes)
 _PLANE_KERNELS = {"cuckoo": ("scan_planes_q_cuda", "_scan_planes_q_plain"),
                   "bucket": ("scan_planes_qb_cuda", "_scan_planes_qb_plain"),
-                  "pair": ("scan_pay_qp_cuda", "_scan_pay_qp_plain")}
+                  "pair": ("scan_pay_qp_cuda", "_scan_pay_qp_plain"),
+                  "pair-planes": ("scan_planes_qp_cuda", "_scan_planes_qp_plain")}
+
+
+def _map_layout(layout: str) -> str:
+    return "pair" if layout.startswith("pair") else layout
 
 
 def _plane_args(qm, layout: str, codes, device):
     t = qm.to(device)
     packed, bad = (torch.from_numpy(a).to(device) for a in S.pack_codes_host(codes))
-    if layout == "pair":
+    if _map_layout(layout) == "pair":
         return (packed, bad, t.slots, t.stash_keys, t.stash_l, t.stash_r, qm.log_size)
     return (packed, bad, t.slots, t.stash_keys, t.stash_payload, qm.log_nb if layout == "bucket" else qm.log_size)
 
@@ -315,31 +321,32 @@ def _check_plane_kernel(layout: str, args):
     return want
 
 
-@pytest.mark.parametrize("layout,k", [(layout, k) for layout in _PLANE_KERNELS for k in (2, 3, 31, 32)
-                                      if (layout, k) != ("pair", 2)])  # the pair map needs k >= 3
+@pytest.mark.parametrize("layout,k", [(layout, k) for layout in _PLANE_KERNELS for k in (2, 3, 21, 31, 32)
+                                      if not (_map_layout(layout) == "pair" and k == 2)  # the pair map needs k >= 3
+                                      and (k != 21 or layout == "pair-planes")])
 @pytest.mark.parametrize("name", PLANE_EDGE_NAMES)
 def test_plane_kernel_edge_cases(cuda, name, layout, k):
-    """K8, K9 and K10 against their plain versions on their edges
+    """K8, K9, K10 and K15 against their plain versions on their edges
     (tests/torch_tables.py plane_edge_windows): N runs across the blocks,
     stash hits, the window's first and last positions, a window shorter
     than 2k, both parities of P; one launch a call."""
-    qm, cases = plane_edge_windows(k, layout)
+    qm, cases = plane_edge_windows(k, _map_layout(layout))
     _check_plane_kernel(layout, _plane_args(qm, layout, cases[name], cuda) + (k,))
 
 
 @pytest.mark.parametrize("layout", list(_PLANE_KERNELS))
 @pytest.mark.parametrize("k", [21, 31, 32])
 def test_plane_kernel_matches_plain(cuda, layout, k):
-    """K8, K9 and K10 against their plain versions on a 2^16-base window of
-    a genome whose k-mers fill the map (a repeat set too), with isolated
-    Ns and an unaligned length."""
+    """K8, K9, K10 and K15 against their plain versions on a 2^16-base
+    window of a genome whose k-mers fill the map (a repeat set too), with
+    isolated Ns and an unaligned length."""
     rng = np.random.default_rng(k)
     genome = rng.integers(0, 4, 200_000, dtype=np.uint8)
     fwd, _ = K.kmers_from_codes(genome[:150_000], k)
     solid = np.unique(K.canonical_u64(fwd, k))
     rfwd, _ = K.kmers_from_codes(genome, k - 1)
     repeat = np.unique(K.canonical_u64(rfwd[::30], k - 1))
-    build = {"cuckoo": X.build_fused, "bucket": X.build_fused_bucket, "pair": X.build_fused_pair}[layout]
+    build = {"cuckoo": X.build_fused, "bucket": X.build_fused_bucket, "pair": X.build_fused_pair}[_map_layout(layout)]
     codes = genome[50_000:50_000 + 65_536 - 24].copy()
     codes[rng.integers(0, codes.size, 40)] = 255
     want = _check_plane_kernel(layout, _plane_args(build(solid, k, repeat), layout, codes, cuda) + (k,))
@@ -368,6 +375,104 @@ def test_pay_kernel_pipeline_cases(cuda, name, k):
     descending order; one launch a call."""
     qp, codes = pair_pipeline_case(k, name)
     _check_plane_kernel("pair", _plane_args(qp, "pair", codes, cuda) + (k,))
+
+
+@pytest.mark.parametrize("k", [3, 21, 31, 32])
+@pytest.mark.parametrize("name", PAIR_PIPELINE_NAMES)
+def test_qp_plane_kernel_pipeline_cases(cuda, name, k):
+    """K15 against its plain version on K10's pipeline cases
+    (tests/torch_tables.py pair_pipeline_case): over 1,024 tiles, each
+    tile's last position written by the next from the payload it
+    publishes, with a ragged last tile and both parities of the last pair;
+    a map near its highest load factor, every pair missing its first row,
+    a full stash in descending order; one launch a call."""
+    qp, codes = pair_pipeline_case(k, name)
+    _check_plane_kernel("pair-planes", _plane_args(qp, "pair", codes, cuda) + (k,))
+
+
+@pytest.mark.parametrize("k", [3, 21, 31, 32])
+@pytest.mark.parametrize("name", PLANE_EDGE_NAMES)
+def test_qp_plane_kernel_empty_repeat_set(cuda, name, k):
+    """K15 against its plain version over a pair map built with no repeat
+    set (context_genome_wg's): no repeat plane is set."""
+    qp, cases = plane_edge_windows(k, "pair", repeats=False)
+    want = _check_plane_kernel("pair-planes", _plane_args(qp, "pair", cases[name], cuda) + (k,))
+    assert not (want["suffix_rep"].any() or want["prefix_rep"].any())
+
+
+def _check_span_plane_kernel(args):
+    want = S._scan_planes_q_span_plain(*args)
+    before = S.scan_planes_q_span_cuda.launches
+    got = S.scan_planes_q_span_cuda(*args)
+    torch.cuda.synchronize()
+    assert S.scan_planes_q_span_cuda.launches == before + 1
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+    return want
+
+
+@pytest.mark.parametrize("k", [33, 45, 64, 65, 96, 128, 129, 256])
+@pytest.mark.parametrize("name", SPAN_EDGE_NAMES)
+@pytest.mark.parametrize("repeats", [True, False])
+def test_span_plane_kernel_edge_cases(cuda, name, k, repeats):
+    """K16 against its plain version on K6's edge windows
+    (tests/torch_tables.py span_edge_windows), over the span map with and
+    without a repeat set: Ns across tiles, stash hits, an unrelated window,
+    invalid bases only, the shortest window; every (Wq, Wk) pair of words
+    from 1 and 2 to 8 and 8, at both parities of P (the rows of fwd_words
+    16-byte aligned or not) and both of the kernel's keys a thread (4 to k
+    = 129, then 2); one launch a call."""
+    qms, cases = span_edge_windows(k, repeats=repeats)
+    _check_span_plane_kernel(_span_args(qms, qms.to(cuda), cases[name], cuda) + (k,))
+
+
+@pytest.mark.parametrize("k", [33, 45, 65, 128, 256])
+def test_span_plane_kernel_matches_plain(cuda, k):
+    """K16 against its plain version on a 2^16-base window (many tiles,
+    each tile's last position written by the next) of a genome whose
+    k-mers fill the map, with a repeat set and isolated Ns."""
+    from mindthegap_tpu_torch.ops.span import Span
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, 100_000, dtype=np.uint8)
+    sp, spm1 = Span(k), Span(k - 1)
+    fwd, _ = sp.from_codes(genome[:80_000])
+    solid = sp.from_keys(np.unique(sp.keys(sp.canonical(fwd))))
+    q, _ = spm1.from_codes(genome)
+    rep = spm1.from_keys(np.unique(spm1.keys(spm1.canonical(q[::30]))))
+    qms = X.build_fused_span(solid, k, rep)
+    codes = genome[10_000:10_000 + 65_536].copy()
+    codes[rng.integers(0, codes.size, 40)] = 255
+    want = _check_span_plane_kernel(_span_args(qms, qms.to(cuda), codes, cuda) + (k,))
+    assert want["contains"].float().mean() > 0.8 and want["suffix_rep"].any()
+
+
+@pytest.mark.parametrize("k", [31, 45])
+def test_context_genome_wg_on_the_card(cuda, tmp_path, k, capsys):
+    """context_genome_wg on the card (K15 at k = 31, K16 at k = 45, one
+    launch a window) writes the bytes of its `-device cpu` run, also over
+    windows far smaller than the default."""
+    from mindthegap_tpu_torch.graph.dbg import Graph
+    from mindthegap_tpu_torch.scripts import context_genome_wg as C
+    from torch_tables import script_case
+
+    case = script_case(str(tmp_path), k)
+    paths = case["paths"]
+    args = ["-g", paths["graph.h5"], "-p", paths["ref.fa"], "-b", paths["t.breakpoints"]]
+    kernel = S.scan_planes_qp_cuda if k <= 32 else S.scan_planes_q_span_cuda
+    before = kernel.launches
+    assert C.main(args + ["-o", str(tmp_path / "gpu.bkpt")]) == 0
+    assert kernel.launches == before + 2  # one window a sequence
+    assert C.main(args + ["-o", str(tmp_path / "cpu.bkpt"), "-device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == lines[1] and lines[0].startswith("kept ")
+    assert (tmp_path / "gpu.bkpt").read_bytes() == (tmp_path / "cpu.bkpt").read_bytes()
+    graph = Graph.load(paths["graph.h5"])
+    small = C.device_degree_fn(graph, cuda, window=1024)
+    host = C.device_degree_fn(graph, torch.device("cpu"), window=1024)
+    for codes in case["seqs"].values():
+        assert np.array_equal(small(codes), host(codes))
 
 
 @pytest.mark.parametrize("layout", ["cuckoo", "bucket"])

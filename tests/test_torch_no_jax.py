@@ -1,8 +1,9 @@
 """The port never imports jax: with jax blocked, every module of
 mindthegap_tpu_torch imports (the plane path's find/scan.py, automaton.py
-and observers.py among them), and a small find + fill, a find through
-the plane path into the Python automaton and finds with the mesh engines
-(`-scan-engine sharded` and `sharded-mem` on 2 logical shards) run on the
+and observers.py among them, and the analysis scripts), and a small find +
+fill, a find through the plane path into the Python automaton, finds with
+the mesh engines (`-scan-engine sharded` and `sharded-mem` on 2 logical
+shards) and the analysis scripts over the find's outputs run on the
 CPU."""
 
 import subprocess
@@ -28,6 +29,9 @@ SCRIPT = textwrap.dedent("""
     # and the run across processes and the tools
     assert {"mindthegap_tpu_torch.parallel.distributed", "mindthegap_tpu_torch.dbginfo",
             "mindthegap_tpu_torch.compat", "mindthegap_tpu_torch.compat.gatb"} <= set(names)
+    # and the analysis scripts
+    assert {"mindthegap_tpu_torch.scripts.context_genome_wg",
+            "mindthegap_tpu_torch.scripts.insert_snp_in_ref"} <= set(names)
     assert not any(n == "mindthegap_tpu" or n.startswith("mindthegap_tpu.") for n in sys.modules)
 
     from mindthegap_tpu_torch import cli
@@ -50,6 +54,20 @@ SCRIPT = textwrap.dedent("""
             assert cli.main(["find", "-graph", "t.h5", "-ref", "ref.fa", "-out", engine, "-device", "cpu",
                              "-verbose", "0", "-scan-engine", engine]) == 0
             assert open(engine + ".breakpoints").read() == open("t.breakpoints").read(), engine
+    # the analysis scripts over the find run: the host route, and the device
+    # route's plain plane passes (K15's) in small windows
+    from mindthegap_tpu_torch.graph.dbg import Graph
+    from mindthegap_tpu_torch.scripts import context_genome_wg, insert_snp_in_ref
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert context_genome_wg.main(["-g", "t.h5", "-p", "ref.fa", "-b", "t.breakpoints", "-o", "f.bkpt",
+                                       "-device", "cpu"]) == 0
+        snp = ["ref", "10", ".", "ACTGN"[min(ref[9], 4)], "A", "50"]
+        open("snp.vcf", "w").write("\\t".join(snp) + "\\n")
+        assert insert_snp_in_ref.main(["-s", "snp.vcf", "-g", "ref.fa", "-o", "alt.fa"]) == 0
+    assert open("f.bkpt").read() == open("t.breakpoints").read()
+    graph = Graph.load("t.h5")
+    degrees = context_genome_wg.device_degree_fn(graph, "cpu", window=4096)(ref)
+    assert degrees.shape == (ref.size - graph.k + 1,) and (degrees[5000:6000] == 2).all()
     filled = CS.filled_insertions("tf.insertions.fasta")
     assert CS.insertion_recall(ins, filled) == 1.0, filled
     print("imported", len(names), "modules; jax loaded:", sys.modules["jax"] is not None)

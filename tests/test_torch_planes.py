@@ -3,8 +3,8 @@ output is an integer or a bit), on the CPU: planes_from_payload (numpy and
 torch), the host oracle compute_planes and compute_planes_span, the host
 side of the payload streams (planes_from_pay, planes_from_pay_span), and
 the plain plane passes — the versions of K8 (scan_planes_q, cuckoo map), K9
-(scan_planes_qb, bucket map) and K10 (scan_pay_qp, pair map), and the
-reference passes scan_planes_qp and scan_planes_q_span — against the JAX
+(scan_planes_qb, bucket map), K10 (scan_pay_qp, pair map), K15
+(scan_planes_qp, pair map) and K16 (scan_planes_q_span, span map) — against the JAX
 package's XLA programs run on the CPU, on the kernels' edge windows
 (tests/torch_tables.py). Inputs are seeded numpy; the same host maps feed
 both packages."""
@@ -170,16 +170,20 @@ def _port_plane_pass(layout: str, qm, codes, k: int):
     return PS.scan_planes_q(packed, bad, t.slots, t.stash_keys, t.stash_payload, qm.log_size, k)
 
 
-@pytest.mark.parametrize("layout", ["cuckoo", "bucket", "pair"])
+@pytest.mark.parametrize("layout,repeats", [pytest.param("cuckoo", True, id="cuckoo"),
+                                             pytest.param("bucket", True, id="bucket"),
+                                             pytest.param("pair", True, id="pair"),
+                                             pytest.param("pair", False, id="pair-empty-repeat-set")])
 @pytest.mark.parametrize("k", [5, 21, 31, 32])
 @pytest.mark.parametrize("name", PLANE_EDGE_NAMES)
-def test_plane_pass_matches_jax(name, k, layout):
-    """The plain plane passes (K8's, K9's, and the pair map's reference)
-    equal the JAX package's scan_planes_device_q / _qb / _qp on the plane
-    kernels' edge windows: N runs across block boundaries, stash hits, the
-    window's first and last positions, a window shorter than 2k. fwd is
-    the int64 bit pattern of the JAX package's u64."""
-    qm, cases = plane_edge_windows(k, layout)
+def test_plane_pass_matches_jax(name, k, layout, repeats):
+    """The plain plane passes (K8's, K9's and K15's) equal the JAX
+    package's scan_planes_device_q / _qb / _qp on the plane kernels' edge
+    windows: N runs across block boundaries, stash hits, the window's first
+    and last positions, a window shorter than 2k; the pair map's also with
+    an empty repeat set (context_genome_wg's map: no repeat plane is set).
+    fwd is the int64 bit pattern of the JAX package's u64."""
+    qm, cases = plane_edge_windows(k, layout, repeats=repeats)
     codes = cases[name]
     got = _port_plane_pass(layout, qm, codes, k)
     want = _jax_plane_pass(layout, qm, codes, k)
@@ -190,6 +194,7 @@ def test_plane_pass_matches_jax(name, k, layout):
         np.testing.assert_array_equal(g.view(np.uint64) if key == "fwd" else g, np.asarray(want[key]), err_msg=key)
     if name == "genome-ns-stash":
         assert got["contains"].float().mean() > 0.8 and not got["valid"].all()
+        assert bool(got["suffix_rep"].any()) == repeats
 
 
 @pytest.mark.parametrize("k", [21, 31, 32])
@@ -247,12 +252,16 @@ def test_scan_pay_qp_plain_matches_jax_on_pipeline_cases(name, k):
         assert got["pay8"].bool().float().mean() > 0.5
 
 
-@pytest.mark.parametrize("k", [33, 45, 128])
+@pytest.mark.parametrize("k,repeats", [pytest.param(33, True, id="33"), pytest.param(45, True, id="45"),
+                                       pytest.param(128, True, id="128"),
+                                       pytest.param(33, False, id="33-empty-repeat-set"),
+                                       pytest.param(45, False, id="45-empty-repeat-set")])
 @pytest.mark.parametrize("name", SPAN_EDGE_NAMES)
-def test_plane_pass_span_matches_jax(name, k):
-    """The plain span plane pass equals scan_planes_device_q_span on K6's
-    edge windows, fwd_words as int64 bit patterns."""
-    qms, cases = span_edge_windows(k)
+def test_plane_pass_span_matches_jax(name, k, repeats):
+    """The plain span plane pass (K16's) equals scan_planes_device_q_span
+    on K6's edge windows, also over a map with an empty repeat set
+    (context_genome_wg's), fwd_words as int64 bit patterns."""
+    qms, cases = span_edge_windows(k, repeats=repeats)
     codes = cases[name]
     t = qms.to("cpu")
     got = PS.scan_planes_q_span(*_packed(codes), t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload,
@@ -265,6 +274,8 @@ def test_plane_pass_span_matches_jax(name, k):
         g = got[key].numpy()
         np.testing.assert_array_equal(g.view(np.uint64) if key == "fwd_words" else g, np.asarray(want[key]),
                                       err_msg=key)
+    if name == "genome-ns-stash":
+        assert bool(got["prefix_rep"].any()) == repeats
 
 
 @pytest.mark.parametrize("layout", ["cuckoo", "bucket"])

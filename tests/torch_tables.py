@@ -291,10 +291,11 @@ def _unique_rows(rows: np.ndarray, k: int) -> np.ndarray:
 SPAN_EDGE_NAMES = ("genome-ns-stash", "unrelated", "all-invalid", "shortest")
 
 
-def span_edge_windows(k: int, seed: int = 0):
+def span_edge_windows(k: int, seed: int = 0, repeats: bool = True):
     """(host span map with 30 entries moved to its stash, {name: codes u8[w]})
-    for K6 at 32 < k <= 256, over the map of a 40 kb genome's k-mers (the
-    first 30 kb) with a repeat set of every 40th (k-1)-mer: 8,256 bases of
+    for K6 and K16 at 32 < k <= 256, over the map of a 40 kb genome's k-mers
+    (the first 30 kb) with a repeat set of every 40th (k-1)-mer (none where
+    `repeats` is False, as context_genome_wg builds its map): 8,256 bases of
     the genome (four full tiles of 2,048 (k-1)-mers and a partial one) with
     N runs across the tile boundaries and isolated Ns, whose (k-1)-mers hit
     the stash; a window unrelated to the map; a window of invalid bases
@@ -309,7 +310,7 @@ def span_edge_windows(k: int, seed: int = 0):
     _fwd, canon = _span_rows(genome[:30_000], k)
     solid = _unique_rows(canon, k)
     _qf, qcanon = _span_rows(genome, k - 1)
-    repeat = _unique_rows(qcanon[::40], k - 1)
+    repeat = _unique_rows(qcanon[::40], k - 1) if repeats else np.zeros((0, qcanon.shape[1]), np.uint64)
     host = X.build_fused_span(solid, k, repeat)
     _sf, scanon = _span_rows(genome[12_000:12_300], k - 1)
     stash = _unique_rows(scanon, k - 1)[:30]
@@ -381,10 +382,11 @@ def edge_walk_span_case(k: int, lanes: int, device):
 PLANE_EDGE_NAMES = ("genome-ns-stash", "unrelated", "short")
 
 
-def plane_edge_windows(k: int, layout: str, seed: int = 0):
+def plane_edge_windows(k: int, layout: str, seed: int = 0, repeats: bool = True):
     """(host map of `layout` — "cuckoo" (QMap), "bucket" (QMapB) or "pair"
     (QMapP) — over the k-mers of a 40 kb genome's first 30 kb with a repeat
-    set of every 40th (k-1)-mer, 30 of its keys moved to the stash; {name:
+    set of every 40th (k-1)-mer (none where `repeats` is False, as
+    context_genome_wg builds its map), 30 of its keys moved to the stash; {name:
     codes u8[w]}) for K8, K9 and K10: 8,200 bases of the genome with N runs
     across the kernels' block boundaries (positions 512, 1,024, 2,048 and
     4,096) and isolated Ns, whose (k-1)-mers hit the stash, its first and
@@ -399,7 +401,7 @@ def plane_edge_windows(k: int, layout: str, seed: int = 0):
     fwd, _ = K.kmers_from_codes(genome[:30_000], k)
     solid = np.unique(K.canonical_u64(fwd, k))
     rfwd, _ = K.kmers_from_codes(genome, k - 1)
-    repeat = np.unique(K.canonical_u64(rfwd[::40], k - 1))
+    repeat = np.unique(K.canonical_u64(rfwd[::40], k - 1)) if repeats else np.zeros(0, np.uint64)
     if layout == "pair":
         r, _ = K.kmers_from_codes(genome[12_000:12_200], k - 2)
         qm = move_to_stash(X.build_fused_pair(solid, k, repeat), np.unique(K.canonical_u64(r, k - 2))[:30])
@@ -829,3 +831,63 @@ def index_edge_sets(seed: int = 0):
     }
     assert tuple(cases) == INDEX_EDGE_NAMES
     return cases
+
+
+# ---------------------------------------------------------------------------
+# the analysis scripts' case (mindthegap_tpu_torch/scripts/context_genome_wg.py)
+
+SCRIPT_CHROMS = (("ref", 12_000), ("chr2", 6_000))
+
+
+def script_case(root: str, k: int, seed: int = 0) -> dict:
+    """Files of context_genome_wg's case at k (k <= 32 or the span
+    layout), written under `root`: "ref.fa" (two sequences, the second
+    with an N run), "graph.h5" (the solid set: every k-mer of the
+    sequences, and the k-mers of one-SNP copies of the 50 bases upstream of
+    every other breakpoint, 2, 4, ..., 12 SNP sites for the 1st, 2nd, ...,
+    6th of them, each site making two reference positions branch, so that a
+    degree of 3 or 4 covers 4% to ~30% of the window the script reads) and
+    "t.breakpoints" (find's records: 10 on
+    "ref", one of them 20 bases from its start; 2 on "chr2", one just after
+    the N run; one on a sequence the reference does not hold). Returns the
+    paths, the planted positions and the sequences' codes."""
+    import os
+
+    from mindthegap_tpu_torch.graph import dbg as D
+    from mindthegap_tpu_torch.ops import kmers as K
+    from mindthegap_tpu_torch.ops.span import Span
+
+    rng = np.random.default_rng(seed + k)
+    seqs = {name: rng.integers(0, 4, n, dtype=np.uint8) for name, n in SCRIPT_CHROMS}
+    seqs["chr2"][3000:3040] = 255
+    bkpts = [("ref", p) for p in (20, *range(700, 12_000, 1250))] + [("chr2", 1500), ("chr2", 3100), ("chrX", 400)]
+    planted = [(c, p) for i, (c, p) in enumerate(bkpts) if c != "chrX" and i % 2 == 1]
+    pieces = [codes for codes in seqs.values()]
+    for j, (chrom, p) in enumerate(planted):
+        codes = seqs[chrom]
+        for s in range(p - 48, p - 48 + 8 * (j + 1), 4):  # a SNP at base s in a copy of the k - 1 bases on each side
+            copy = codes[s - k + 1 : s + k].copy()
+            copy[k - 1] = (copy[k - 1] + 1) % 4
+            pieces.append(copy)
+    if k <= 32:
+        keys = [K.canonical_u64(fwd[valid], k) for fwd, valid in (K.kmers_from_codes(c, k) for c in pieces)]
+    else:
+        sp = Span(k)
+        keys = [sp.keys(sp.canonical(rows[valid])) for rows, valid in (sp.from_codes(c) for c in pieces)]
+    graph = D.Graph(D.SolidSet(np.unique(np.concatenate(keys)), k))
+    paths = {name: os.path.join(root, name) for name in ("ref.fa", "graph.h5", "t.breakpoints")}
+    graph.save(paths["graph.h5"])
+    letters = np.frombuffer(b"ACTG", np.uint8)
+    with open(paths["ref.fa"], "w") as f:
+        for name, codes in seqs.items():
+            f.write(f">{name} a test sequence\n")
+            f.write(np.where(codes == 255, ord("N"), letters[np.minimum(codes, 3)]).astype(np.uint8).tobytes().decode())
+            f.write("\n")
+    with open(paths["t.breakpoints"], "w") as f:
+        for i, (chrom, p) in enumerate(bkpts):
+            left, right = rng.integers(0, 4, k), rng.integers(0, 4, k)
+            for side, kmer in (("left", left), ("right", right)):
+                f.write(f">bkpt{i + 1}_{chrom}_pos_{p}_fuzzy_0_HOM  {side}_kmer\n")
+                f.write(letters[kmer].tobytes().decode() + "\n")
+    return {"paths": paths, "planted": planted, "seqs": seqs}
+
