@@ -27,7 +27,9 @@ Phases, each of which must pass (any failure exits non-zero):
      1,024 tiles, a half-full map, every key absent, a full unsorted
      stash), K10 and K15 on K10's pipeline cases at k 3, 21, 31 and 32 (a
      window of over 1,024 tiles, a map near its highest load factor, every
-     pair absent, a full stash in descending order);
+     pair absent, a full stash in descending order), and K15 on its tile
+     edges (windows ending at and around a tile's end, each tile's halo
+     pair in its second row, in the stash or absent);
      K2 on 256 seeded pairs of 50 to 10,000 bp
      (also against the native nw.cpp); K3 (+ the sort) on one default
      counting batch of 2^23 bases of the reads, and on its edge batches
@@ -40,8 +42,9 @@ Phases, each of which must pass (any failure exits non-zero):
      of the donor's k-mers (made from the donor directly, without
      counting), and on its edge windows at k 33 to 256; K16 (the span
      map's planes) on that window, also held to K6 + planes_from_pay_span
-     (the route it replaces), and on K6's edge windows at k 33 to 256 with
-     and without a repeat set; K7 on donor k-mers at k = 45 with a budget of
+     (the route it replaces), on K6's edge windows at k 33 to 256 with
+     and without a repeat set and on its tile edges at k 45, 128, 129 and
+     130; K7 on donor k-mers at k = 45 with a budget of
      10,000 and 2,048 steps at 4,096, 128 and 1 lanes (each at the
      look-ahead depth its rule picks), and on its edge cases at k 33 to 256
      at every depth; K11 on one 2^23-base flush of the reads, whole and
@@ -69,7 +72,7 @@ Phases, each of which must pass (any failure exits non-zero):
      edge_walk_span_case, plane_edge_windows, plane_pipeline_case,
      swizzle_edge_chunks, member_edge_cases, route_edge_cases,
      scatter_edge_cases, sorted_edge_windows, pair_pipeline_case,
-     index_edge_sets), the generators the CUDA tests use, so the smoke and
+     index_edge_sets, pair_tile_case, span_tile_case), the generators the CUDA tests use, so the smoke and
      tests/test_torch_cuda.py check the same inputs; the script needs the
      checkout's tests/ directory for them.
      Each kernel's bound is the
@@ -384,8 +387,9 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
     donor's solid set with K1's repeat set, K15 also against the route it
     replaces (K10, then planes_from_pay on the host); then on their edge
     windows (tests/torch_tables.py plane_edge_windows) at k 2, 3, 31 and
-    32 (K10 and K15 from 3; K15 also over maps with no repeat set), and K10
-    and K15 on K10's pipeline cases. Returns {name: kernel record}."""
+    32 (K10 and K15 from 3; K15 also over maps with no repeat set), K10
+    and K15 on K10's pipeline cases, and K15 on its tile edges
+    (pair_tile_case). Returns {name: kernel record}."""
     import torch
 
     from mindthegap_tpu_torch.bounds import (PLANE_BYTES_PER_POSITION, SECTOR_BYTES, plane_scan_sectors,
@@ -394,8 +398,8 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
     from mindthegap_tpu_torch.kernel_bench import planes_equal_route
     from mindthegap_tpu_torch.ops import extmap as X
     from mindthegap_tpu_torch.ops import kmers as K
-    from torch_tables import (PAIR_PIPELINE_NAMES, PLANE_PIPELINE_NAMES, pair_pipeline_case, plane_edge_windows,
-                              plane_pipeline_case)
+    from torch_tables import (HALO_STATES, PAIR_PIPELINE_NAMES, PLANE_PIPELINE_NAMES, pair_pipeline_case,
+                              pair_tile_case, plane_edge_windows, plane_pipeline_case)
 
     window = 1 << 22
     rfwd, _ = K.kmers_from_codes(ref, k - 1)
@@ -492,6 +496,18 @@ def check_plane_kernels(ref: np.ndarray, solid: np.ndarray, qp, k: int, seed: in
             torch.cuda.synchronize()
             errs += kerrs
             print(f"{label} pipeline cases (k 3, 21, 31, 32: {', '.join(PAIR_PIPELINE_NAMES)}): max_abs_err {max(kerrs)}")
+        if label == "K15":  # its tile edges: P at, one before and one after a tile's end, every halo in each state
+            kerrs = []
+            for kk in (24, 25, 28, 31):
+                for state in HALO_STATES:
+                    eq, codes = pair_tile_case(kk, state)
+                    _, etables, elog = _plane_tables(eq, layout)
+                    ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+                    g, w = kernel(ep, eb, *etables, elog, kk), plain(ep, eb, *etables, elog, kk)
+                    kerrs.append(_max_abs_err((g[key], w[key]) for key in w))
+            torch.cuda.synchronize()
+            errs += kerrs
+            print(f"{label} tile edges (k 24, 25, 28, 31: {', '.join(HALO_STATES)}): max_abs_err {max(kerrs)}")
         out[name] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, **bound, "sectors": sectors,
                      "map_build_s": build_s, **route,
                      "plane_bytes": n_pos * PLANE_BYTES_PER_POSITION if name != "scan_pay_qp" else None}
@@ -781,13 +797,14 @@ def check_span_plane_kernel(ref: np.ndarray, qms, k: int, seed: int) -> dict:
     """K16 (scan_planes_q_span) against its plain version and against the
     route it replaces on the card (K6, then planes_from_pay_span on the
     host) on K6's 2^21-base window over K6's span map; then on K6's edge
-    windows at k 33 to 256, over maps with and without a repeat set."""
+    windows at k 33 to 256, over maps with and without a repeat set, and
+    on its tile edges (tests/torch_tables.py span_tile_case)."""
     import torch
 
     from mindthegap_tpu_torch.bounds import plane_pass_bound_ms
     from mindthegap_tpu_torch.find import scan_device as S
     from mindthegap_tpu_torch.kernel_bench import planes_equal_route
-    from torch_tables import span_edge_windows
+    from torch_tables import HALO_STATES, SPAN_TILE_CASES, span_edge_windows, span_tile_case
 
     window = 1 << 21
     codes = _span_window(ref, window, seed)
@@ -829,6 +846,18 @@ def check_span_plane_kernel(ref: np.ndarray, qms, k: int, seed: int) -> dict:
         torch.cuda.synchronize()
         errs += kerrs
         print(f"K16 edge cases (k {kk}: {', '.join(cases)}, with and without a repeat set): max_abs_err {max(kerrs)}")
+    kerrs = []
+    for kk, side in SPAN_TILE_CASES:  # its tile edges: P at and around a tile's end, every halo in each state
+        for state in HALO_STATES:
+            eq, ecodes = span_tile_case(kk, side, state)
+            te = eq.to("cuda")
+            ep, eb = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(ecodes))
+            eargs = (ep, eb, te.slots, te.sat, te.stash_key64, te.stash_sat, te.stash_payload, eq.salt, eq.log_size, kk)
+            g, w = S.scan_planes_q_span_cuda(*eargs), S._scan_planes_q_span_plain(*eargs)
+            kerrs.append(_max_abs_err((g[key], w[key]) for key in w))
+    torch.cuda.synchronize()
+    errs += kerrs
+    print(f"K16 tile edges (k, side: {SPAN_TILE_CASES}; {', '.join(HALO_STATES)}): max_abs_err {max(kerrs)}")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None, "sectors": sectors, "replaced_route": "K6 + planes_from_pay_span",
             "replaced_route_ms": route_ms, "ms_with_copy": copy_ms}

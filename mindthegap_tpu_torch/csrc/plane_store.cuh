@@ -1,7 +1,8 @@
 // The seven planes of find/scan.py Planes as the plane kernels write them
 // (K8, K9 and K15 in scan_planes.cu, K16 in scan_planes_span.cu): the
-// output pointers, a thread's vector stores of R consecutive positions, and
-// a canonical payload turned to the strand it is read on.
+// output pointers, a thread's vector stores of R consecutive positions, a
+// canonical payload turned to the strand it is read on, and the grid of
+// persistent blocks.
 
 #pragma once
 
@@ -25,16 +26,17 @@ struct PlaneOut {
 };
 
 // a thread's R outputs of one plane from position i0 (n of them in the
-// window): one vector store where all R are, R is 2 or 4 and the plane is
+// window): vector stores where all R are, R is 2, 4 or 8 and the plane is
 // aligned
 template <int R>
 __device__ __forceinline__ void put(uint8_t* __restrict__ out, int64_t i0, const uint8_t (&v)[R], int n, bool vec) {
-    if constexpr (R == 2 || R == 4) {
+    if constexpr (R == 2 || R == 4 || R == 8) {
         if (vec && n == R) {
-            uint32_t x = 0;
+            u64 x = 0;
 #pragma unroll
-            for (int e = 0; e < R; e++) x |= (uint32_t)v[e] << (8 * e);
-            if constexpr (R == 4) *reinterpret_cast<uint32_t*>(out + i0) = x;
+            for (int e = 0; e < R; e++) x |= (u64)v[e] << (8 * e);
+            if constexpr (R == 8) *reinterpret_cast<u64*>(out + i0) = x;
+            else if constexpr (R == 4) *reinterpret_cast<uint32_t*>(out + i0) = (uint32_t)x;
             else *reinterpret_cast<uint16_t*>(out + i0) = (uint16_t)x;
             return;
         }
@@ -46,10 +48,16 @@ __device__ __forceinline__ void put(uint8_t* __restrict__ out, int64_t i0, const
 
 template <int R>
 __device__ __forceinline__ void put(int32_t* __restrict__ out, int64_t i0, const int32_t (&v)[R], int n, bool vec) {
-    if constexpr (R == 2 || R == 4) {
+    if constexpr (R == 2 || R == 4 || R == 8) {
         if (vec && n == R) {
-            if constexpr (R == 4) *reinterpret_cast<int4*>(out + i0) = make_int4(v[0], v[1], v[2], v[3]);
-            else *reinterpret_cast<int2*>(out + i0) = make_int2(v[0], v[1]);
+            if constexpr (R == 2) {
+                *reinterpret_cast<int2*>(out + i0) = make_int2(v[0], v[1]);
+            } else {
+#pragma unroll
+                for (int h = 0; h < R / 4; h++)
+                    reinterpret_cast<int4*>(out + i0)[h] =
+                        make_int4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+            }
             return;
         }
     }
@@ -60,7 +68,7 @@ __device__ __forceinline__ void put(int32_t* __restrict__ out, int64_t i0, const
 
 template <int R>
 __device__ __forceinline__ void put(long long* __restrict__ out, int64_t i0, const u64 (&v)[R], int n, bool vec) {
-    if constexpr (R == 2 || R == 4) {
+    if constexpr (R == 2 || R == 4 || R == 8) {
         if (vec && n == R) {
 #pragma unroll
             for (int h = 0; h < R / 2; h++)
@@ -82,21 +90,19 @@ __device__ __forceinline__ unsigned orient(unsigned p, bool strand) {
     return (strand ? (ext_c | pre_c << 4) : (ext_r | pre_r << 4)) | (p & 0x100);
 }
 
-// the flag of a tile's published payload (the look-forward of K15 and K16:
-// a tile's last position needs the next tile's first payload, so the next
-// tile writes it, from the payload this tile publishes)
-constexpr u64 PUBLISHED = 1ull << 32;
-
-__device__ __forceinline__ void publish_last(u64* state, unsigned opay) { atomicExch(state, PUBLISHED | opay); }
-
-// the payload tile t - 1 published, once it has (tiles are claimed in order
-// from a counter, so tile t - 1 runs or has run and never waits on t)
-__device__ __forceinline__ unsigned wait_last(const u64* state) {
-    u64 st;
-    do {
-        st = *(const volatile u64*)state;
-    } while (!(st & PUBLISHED));
-    return (unsigned)st & 0x1FF;
+// blocks of KERNEL (static shared memory only, `threads` a block) that the
+// card holds at once, at most one a tile: the grid of a kernel whose blocks
+// each take every gridDim.x-th tile (K8, K15, K16)
+template <auto KERNEL>
+int resident_grid(int64_t n_tiles, int threads) {
+    static int per_sm = 0;
+    if (!per_sm && cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, KERNEL, threads, 0) != cudaSuccess)
+        per_sm = 1;
+    int dev = 0, sms = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int64_t most = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+    return (int)(n_tiles < most ? n_tiles : most);
 }
 
 }  // namespace planes

@@ -74,15 +74,31 @@
 // 16-byte row a pair of positions holds both of their payloads, already
 // oriented as read, so the bound is K10's row sectors (bounds.py
 // scan_probe_sectors; one lookup per two positions, half K8's) and the 20
-// bytes of planes a position. A block claims a tile of 512 pairs from a
-// counter, a thread K10's 2 pairs: both first-choice rows in flight, the
-// second choice after a miss, then the planes of its 4 positions. The
-// payload past a thread's run is its right neighbour's first: a shuffle in
-// the warp, shared memory across warps. The tile's last position needs the
-// next tile's first payload; rather than probe that pair twice, the tile
-// publishes its own last payload and the next tile's first thread writes
-// that position once it is there (plane_store.cuh; tiles are claimed in
-// order, so the tile waited on runs or has run and never waits back).
+// bytes of planes a position. One launch of persistent blocks, each taking
+// every G-th tile of 512 pairs (G blocks, as many as the card holds at
+// once); a thread takes K10's 2 pairs, their first-choice rows in flight
+// together, the second choice after a miss, then the planes of its 4
+// positions. The payload past a thread's run is its right neighbour's
+// first: a shuffle in the warp, shared memory across warps; past the tile,
+// the halo, the pair past the tile's end, which the tile's last thread
+// probes as a third pair (one more row per 512 pairs, +0.2% of the
+// sectors), so a tile writes all of its positions and tiles run in any
+// order. An iteration issues the next tile's first-choice rows, then
+// writes the planes of the tile it resolved before while they are in
+// flight (the keys are formed again from the staged bases rather than kept
+// in registers over the stores); the bases of three tiles are staged in a
+// ring.
+//   Measured on an H100 80GB HBM3 at 700 W (kernel_bench.py --only
+//   plane_passes, the 2^22 window): 0.1155-0.1189 ms in turns against
+//   0.1209-0.1216 for the design before it (a block a tile, each tile's
+//   last position written by the next tile from the payload it published,
+//   a scratch zeroed by a memset), by launch 0.1107-0.1110 against
+//   0.1131-0.1132 and a 0.0011 memset. A grid of one block a tile ties
+//   this one; the stores issued before the next tile's rows lose 2-3%, 4
+//   pairs a thread 14% (plane_trials.py). Without its stores K15 takes
+//   0.085 ms, K10's time: the stores add about their byte time (0.025 ms),
+//   since the probes hold the card's rate of random sectors, a rate of the
+//   memory and not of latency, which the stores draw on too.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -388,104 +404,131 @@ __global__ void __launch_bounds__(THREADS) scan_planes_qb_kernel(
 constexpr int QP_P = 2;                    // pairs a thread (K10's)
 constexpr int QP_TP = THREADS * QP_P;      // pairs a tile
 constexpr int QP_R = 2 * QP_P;             // positions a thread
-constexpr int QP_CHUNKS = QP_TP / 32 + 3;  // the 2 TP bases of a tile, the 64 before them and the k - 1 past them
+constexpr int QP_CHUNKS = QP_TP / 32 + 2;  // the 2 TP bases of a tile, and the k - 1 past them and the halo's
 constexpr int WARPS = THREADS / 32;
 
+// pair e of the thread's pairs of the tile of pairs from m0 (bases staged
+// from 2 m0; e = QP_P is the halo, the pair past the tile, the last
+// thread's only): whether it is in the window and the thread's, its key
+// (the canonical (k-2)-mer at base 2m + 1), its strand, its flanking bases
+// y (base 2m) and x (base 2m + k - 1)
+struct PairKey {
+    bool live, strand;
+    u64 key, y, x;
+};
+
+__device__ __forceinline__ PairKey pair_key(const uint32_t* s_code, int64_t m0, int64_t n_pairs, int k, int e) {
+    PairKey p;
+    const int rel = 2 * (QP_P * threadIdx.x + e);  // base 2m, staged
+    p.live = m0 + QP_P * threadIdx.x + e < n_pairs && (e < QP_P || threadIdx.x == THREADS - 1);
+    const u64 win = bits64(s_code, 2 * rel);  // bases 2m .. 2m+31
+    p.y = win & 3;
+    p.x = bits32(s_code, 2 * (rel + k - 1)) & 3;
+    u64 fwd, rc;
+    kmer_words(win >> 2, k - 2, fwd, rc);
+    p.key = fwd < rc ? fwd : rc;
+    p.strand = fwd == p.key;
+    return p;
+}
+
+// the first-choice rows of the thread's pairs (and the halo), issued
+__device__ __forceinline__ void qp_issue(const uint32_t* s_code, int64_t m0, int64_t n_pairs, int k, int shift,
+                                         const ulonglong2* __restrict__ slots, ulonglong2 (&first)[QP_P + 1]) {
+    using namespace pair_map;
+#pragma unroll
+    for (int e = 0; e <= QP_P; e++) {
+        const PairKey p = pair_key(s_code, m0, n_pairs, k, e);
+        first[e] = p.live ? __ldg(&slots[mix(p.key, H1) >> shift]) : make_ulonglong2(0, 0);
+    }
+}
+
+// the payloads of the thread's positions from its rows in flight (the keys
+// formed again from the staged bases; the second choices after a miss, all
+// issued before the first compare, then the stash); opay[QP_R], the payload
+// past them, is the halo's in the last thread and left to the caller in the
+// others
+__device__ __forceinline__ void qp_resolve(const uint32_t* s_code, int64_t m0, int64_t n_pairs, int k, int shift,
+                                           const ulonglong2* __restrict__ slots, const ulonglong2 (&first)[QP_P + 1],
+                                           const u64* s_k, const u64* s_l, const u64* s_r, int n_stash, bool sorted,
+                                           unsigned (&opay)[QP_R + 1]) {
+    using namespace pair_map;
+    const u64 rem_mask = (1ull << shift) - 1;
+    PairKey p[QP_P + 1];
+    ulonglong2 row[QP_P + 1];
+    bool hit[QP_P + 1];
+#pragma unroll
+    for (int e = 0; e <= QP_P; e++) {
+        p[e] = pair_key(s_code, m0, n_pairs, k, e);
+        row[e] = first[e];
+        hit[e] = row_hit(row[e], mix(p[e].key, H1), rem_mask, 0);
+        if (!hit[e] && p[e].live) row[e] = __ldg(&slots[mix(p[e].key, H2) >> shift]);
+    }
+#pragma unroll
+    for (int e = 0; e <= QP_P; e++) {
+        if (!hit[e] && p[e].live) hit[e] = row_hit(row[e], mix(p[e].key, H2), rem_mask, 1);
+        u64 l36, r36, pe = 0, po = 0;
+        row_blocks(row[e], hit[e], l36, r36);
+        stash_rows(s_k, s_l, s_r, n_stash, sorted, p[e].key, l36, r36);
+        if (p[e].live) pair_payloads(p[e].strand, l36, r36, p[e].y, p[e].x, pe, po);
+        if (e < QP_P) {
+            opay[2 * e] = (unsigned)pe;
+            opay[2 * e + 1] = (unsigned)po;
+        } else if (threadIdx.x == THREADS - 1) {
+            opay[QP_R] = (unsigned)pe;
+        }
+    }
+}
+
+// persistent blocks, each taking every G-th tile of QP_TP pairs; an
+// iteration waits on the barrier, issues the next tile's first-choice rows,
+// writes the planes of the tile probed before while they are in flight,
+// then resolves them
 __global__ void __launch_bounds__(THREADS) scan_planes_qp_kernel(
     const uint8_t* __restrict__ packed, const uint8_t* __restrict__ bad, int64_t w, bool aligned,
     const ulonglong2* __restrict__ slots, int log_size,
     const u64* __restrict__ stash_k, const u64* __restrict__ stash_l, const u64* __restrict__ stash_r,
-    int n_stash, int k, PlaneOut o, bool vec, u64* states, unsigned* tile_counter)
+    int n_stash, int k, PlaneOut o, bool vec, int64_t n_tiles)
 {
     using namespace pair_map;
-    __shared__ uint32_t s_code[4 * QP_CHUNKS], s_bad[2 * QP_CHUNKS];  // bases from 2 m0 - 64
+    __shared__ uint32_t s_code[3][4 * QP_CHUNKS], s_bad[3][2 * QP_CHUNKS];  // a ring of three tiles' bases
     __shared__ u64 s_k[MAX_STASH], s_l[MAX_STASH], s_r[MAX_STASH];
-    __shared__ unsigned s_head[WARPS];  // each warp's first payload
-    __shared__ int64_t s_tile;
+    __shared__ unsigned s_head[2][WARPS];  // each warp's first payload, of two tiles
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    if (tid == 0) s_tile = atomicAdd(tile_counter, 1u);
+    const int64_t n_pos = w - k + 1, n_pairs = (n_pos + 2) / 2;  // payload entries 0 .. n_pos
+    const int shift = 64 - log_size;
+    const int64_t g = gridDim.x;
     for (int s = tid; s < MAX_STASH; s += THREADS) {
         s_k[s] = s < n_stash ? stash_k[s] : ~0ull;  // the padding sorts last and equals no key
         s_l[s] = s < n_stash ? stash_l[s] : 0;
         s_r[s] = s < n_stash ? stash_r[s] : 0;
     }
+    int64_t tp = blockIdx.x, tw = -1;  // the tile to probe, the tile to write
+    stage(packed, bad, w, 2 * tp * QP_TP, QP_CHUNKS, aligned, s_code[0], s_bad[0]);
     __syncthreads();
-    const int64_t tile = s_tile, m0 = tile * QP_TP;
-    stage(packed, bad, w, 2 * m0 - 64, QP_CHUNKS, aligned, s_code, s_bad);
     const bool sorted = !__syncthreads_or(tid + 1 < n_stash && s_k[tid] >= s_k[tid + 1]);
 
-    const int64_t n_pos = w - k + 1, n_pairs = (n_pos + 2) / 2;  // payload entries 0 .. n_pos
-    const int shift = 64 - log_size;
-    const u64 rem_mask = (1ull << shift) - 1;
-
-    // K10's probe of the thread's pairs: keys, then every first-choice row
-    // in flight, then the second choice after a miss and the stash
-    u64 key[QP_P], h1[QP_P], h2[QP_P], y[QP_P], x[QP_P];
-    bool strand[QP_P], live[QP_P];
-#pragma unroll
-    for (int e = 0; e < QP_P; e++) {
-        const int rel = 64 + 2 * (QP_P * tid + e);  // base 2m, staged
-        live[e] = m0 + QP_P * tid + e < n_pairs;
-        const u64 win = bits64(s_code, 2 * rel);    // bases 2m .. 2m+31
-        y[e] = win & 3;
-        x[e] = bits32(s_code, 2 * (rel + k - 1)) & 3;
-        u64 fwd, rc;
-        kmer_words(win >> 2, k - 2, fwd, rc);     // the (k-2)-mer at base 2m+1
-        key[e] = fwd < rc ? fwd : rc;
-        strand[e] = fwd == key[e];
-        h1[e] = mix(key[e], H1);
-        h2[e] = mix(key[e], H2);
+    ulonglong2 first[QP_P + 1];  // the rows of tile tp in flight
+    unsigned opay[QP_R + 1], next = 0;
+    for (int it = 0;; it++) {
+        __syncthreads();  // tile tp staged; tile tw's heads written
+        // the payload past the thread's run: its right neighbour's first (a
+        // shuffle in the warp, shared memory across warps), the halo's in the last thread
+        if (tw >= 0) opay[QP_R] = lane < 31 ? next : warp + 1 < WARPS ? s_head[(it + 1) & 1][warp + 1] : opay[QP_R];
+        if (tp < n_tiles) qp_issue(s_code[it % 3], tp * QP_TP, n_pairs, k, shift, slots, first);
+        if (tw >= 0)
+            write_planes<QP_R>(s_code[(it + 2) % 3], s_bad[(it + 2) % 3], QP_R * tid, 2 * (tw * QP_TP + QP_P * tid),
+                               opay, k, n_pos, o, vec);
+        if (tp >= n_tiles) break;
+        const int64_t tn = tp + g;
+        if (tn < n_tiles)
+            stage(packed, bad, w, 2 * tn * QP_TP, QP_CHUNKS, aligned, s_code[(it + 1) % 3], s_bad[(it + 1) % 3]);
+        qp_resolve(s_code[it % 3], tp * QP_TP, n_pairs, k, shift, slots, first, s_k, s_l, s_r, n_stash, sorted, opay);
+        next = __shfl_down_sync(FULL, opay[0], 1);
+        if (lane == 0) s_head[it & 1][warp] = opay[0];
+        tw = tp;
+        tp = tn;
     }
-    ulonglong2 first[QP_P];
-#pragma unroll
-    for (int e = 0; e < QP_P; e++) first[e] = live[e] ? __ldg(&slots[h1[e] >> shift]) : make_ulonglong2(0, 0);
-    unsigned opay[QP_R + 1];  // the payloads of the thread's positions, and the one past them
-#pragma unroll
-    for (int e = 0; e < QP_P; e++) {
-        ulonglong2 row = first[e];
-        bool hit = row_hit(row, h1[e], rem_mask, 0);
-        if (!hit && live[e]) {
-            row = __ldg(&slots[h2[e] >> shift]);
-            hit = row_hit(row, h2[e], rem_mask, 1);
-        }
-        u64 l36, r36, pe = 0, po = 0;
-        row_blocks(row, hit, l36, r36);
-        stash_rows(s_k, s_l, s_r, n_stash, sorted, key[e], l36, r36);
-        if (live[e]) pair_payloads(strand[e], l36, r36, y[e], x[e], pe, po);
-        opay[2 * e] = (unsigned)pe;
-        opay[2 * e + 1] = (unsigned)po;
-    }
-
-    // the tile's last payload, for the next tile's first position
-    if (tid == THREADS - 1) planes::publish_last(&states[tile], opay[QP_R - 1]);
-    // the payload past the thread's run is its right neighbour's first: a
-    // shuffle in the warp, shared memory across warps
-    const unsigned next = __shfl_down_sync(FULL, opay[0], 1);
-    if (lane == 0) s_head[warp] = opay[0];
-    __syncthreads();
-    opay[QP_R] = lane < 31 ? next : warp + 1 < WARPS ? s_head[warp + 1] : 0u;
-    const int64_t i0 = 2 * (m0 + QP_P * tid);
-    const int64_t end = tid == THREADS - 1 && i0 + QP_R - 1 < n_pos ? i0 + QP_R - 1 : n_pos;
-    write_planes<QP_R>(s_code, s_bad, 64 + QP_R * tid, i0, opay, k, end, o, vec);
-    // the last position of the tile before, from the payload it published
-    if (tid == 0 && tile > 0) {
-        const unsigned one[2] = {planes::wait_last(&states[tile - 1]), opay[0]};
-        write_planes<1>(s_code, s_bad, 63, i0 - 1, one, k, n_pos, o, false);
-    }
-}
-
-// K8's blocks: as many as the card holds at once, at most one a tile
-int q_grid(int64_t n_tiles) {
-    static int per_sm = 0;
-    if (!per_sm && cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_planes_q_kernel, THREADS, 0)
-                       != cudaSuccess)
-        per_sm = 1;
-    int dev = 0, sms = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int64_t most = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
-    return (int)(n_tiles < most ? n_tiles : most);
 }
 
 }  // namespace
@@ -514,37 +557,30 @@ extern "C" int scan_planes_launch(const void* packed, const void* bad, int64_t w
             pk, bd, w, aligned, sl, log_size, sk, sv, n_stash, k, o, vec);
     } else {
         const int64_t n_tiles = (n_pos + Q_TPOS - 1) / Q_TPOS;
-        scan_planes_q_kernel<<<(unsigned)q_grid(n_tiles), THREADS, 0, st>>>(
+        const int grid = planes::resident_grid<scan_planes_q_kernel>(n_tiles, THREADS);
+        scan_planes_q_kernel<<<(unsigned)grid, THREADS, 0, st>>>(
             pk, bd, w, aligned, sl, log_size, sk, sv, n_stash, k, o, vec, n_tiles);
     }
     return (int)cudaGetLastError();
 }
 
-// K15: pairs a tile (the tile count sizes the look-back scratch)
-extern "C" int scan_planes_qp_tile_pairs() { return QP_TP; }
-
 // K15: packed and bad as above; slots: the QMapP's [2^log_size, 2] words;
 // stash: n_stash keys and (L36, R36) blocks; the seven planes: P = w - k + 1
-// entries each; states: n_tiles + 1 words of scratch (zeroed here), n_tiles
-// = ceil(ceil((P + 1) / 2) / scan_planes_qp_tile_pairs()).
+// entries each.
 extern "C" int scan_planes_qp_launch(const void* packed, const void* bad, int64_t w, const void* slots, int log_size,
                                      const void* stash_k, const void* stash_l, const void* stash_r, int n_stash,
                                      int k, void* fwd, void* valid, void* contains, void* nb_in, void* nb_out,
-                                     void* suffix_rep, void* prefix_rep, void* states, void* stream)
+                                     void* suffix_rep, void* prefix_rep, void* stream)
 {
     const PlaneOut o = {(long long*)fwd, (uint8_t*)valid, (uint8_t*)contains, (int32_t*)nb_in, (int32_t*)nb_out,
                         (uint8_t*)suffix_rep, (uint8_t*)prefix_rep};
-    cudaStream_t st = (cudaStream_t)stream;
     const int64_t n_pairs = (w - k + 3) / 2, n_tiles = (n_pairs + QP_TP - 1) / QP_TP;
     const bool aligned = (uintptr_t)packed % 16 == 0 && (uintptr_t)bad % 8 == 0;
     const bool vec = ((uintptr_t)fwd | (uintptr_t)valid | (uintptr_t)contains | (uintptr_t)nb_in | (uintptr_t)nb_out
                       | (uintptr_t)suffix_rep | (uintptr_t)prefix_rep) % 16 == 0;
-    u64* s = (u64*)states;
-    cudaError_t err = cudaMemsetAsync(s, 0, (n_tiles + 1) * sizeof(u64), st);
-    if (err != cudaSuccess) return (int)err;
-    scan_planes_qp_kernel<<<(unsigned)n_tiles, THREADS, 0, st>>>(
+    const int grid = planes::resident_grid<scan_planes_qp_kernel>(n_tiles, THREADS);
+    scan_planes_qp_kernel<<<(unsigned)grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)packed, (const uint8_t*)bad, w, aligned, (const ulonglong2*)slots, log_size,
-        (const u64*)stash_k, (const u64*)stash_l, (const u64*)stash_r, n_stash, k, o, vec, s,
-        (unsigned*)(s + n_tiles));
+        (const u64*)stash_k, (const u64*)stash_l, (const u64*)stash_r, n_stash, k, o, vec, n_tiles);
     return (int)cudaGetLastError();
 }

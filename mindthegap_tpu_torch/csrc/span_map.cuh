@@ -34,12 +34,13 @@
 //     their words at once, 2 WQ sectors and one round trip a probe. K7's
 //     walk is a chain of dependent probes, latency bound, and takes this.
 //   - lazy, with many keys in flight (probe_lazy): a caller issues the
-//     first slot word of every key it holds at once, then round by round
-//     each key's next load (the satellites where the slot holds the digest,
-//     the second slot after a miss), so it reads only the sectors the
-//     lookup needs. K6 runs at the card's rate of random sectors and takes
-//     this, as K16 does; loading the first slot's satellites with it read
-//     7-11% more sectors and was slower (scan_span.cu).
+//     first slot word of every key it holds at once (issue_lazy), then
+//     round by round each key's next load (resolve_lazy: the satellites
+//     where the slot holds the digest, the second slot after a miss), so it
+//     reads only the sectors the lookup needs. K6 runs at the card's rate
+//     of random sectors and takes this; loading the first slot's satellites
+//     with it read 7-11% more sectors and was slower (scan_span.cu). K16
+//     calls the two halves apart, to write a tile's planes between them.
 // staged_keys builds the keys of consecutive (k-1)-mers of a window staged
 // in shared memory (packed_window.cuh) for K6 and K16.
 
@@ -267,22 +268,35 @@ __device__ __forceinline__ void staged_keys(const Map& m, const uint32_t* s_code
 // payload is known)
 enum LazyStep { SLOT0, SAT0, SLOT1, SAT1, DONE };
 
-// the 9-bit payloads of the first n of PER canonical keys (0 for the
-// others), all of their probes in flight together: every first slot word
-// at once, the stash (shared memory) while they are in flight, then round by
-// round a test of what arrived and every key's next load together (the
-// satellites where a slot holds the digest, the second slot after a miss).
-// A key in its first slot waits two round trips, in its second three.
+// a thread's keys in probe_lazy: each one's loads and its next load (a LazyStep)
 template <int WQ, int PER>
-__device__ __forceinline__ void probe_lazy(const Map& m, const u64 (&cq)[PER][WQ], const u64 (&dig)[PER], int n,
-                                           unsigned (&pay)[PER]) {
+struct Lazy {
     Slot<WQ> s[PER];
-    int next[PER];  // each key's next load: a LazyStep
+    int next[PER];
+};
+
+// issue: the first slot word of each of the first n of PER keys of salted
+// digests dig, all at once
+template <int WQ, int PER>
+__device__ __forceinline__ void issue_lazy(const Map& m, const u64 (&dig)[PER], int n, Lazy<WQ, PER>& z) {
 #pragma unroll
     for (int p = 0; p < PER; p++) {
-        next[p] = p < n ? SLOT0 : DONE;
-        if (p < n) s[p].v = load_word(m, mix(dig[p], H1));
+        z.next[p] = p < n ? SLOT0 : DONE;
+        if (p < n) z.s[p].v = load_word(m, mix(dig[p], H1));
     }
+}
+
+// resolve: the 9-bit payloads of the first n of PER canonical keys (0 for
+// the others) whose first slot words issue_lazy issued: the stash (shared
+// memory) first, then round by round a test of what arrived and every
+// key's next load together (the satellites where a slot holds the digest,
+// the second slot after a miss). A key in its first slot waits two round
+// trips, in its second three.
+template <int WQ, int PER>
+__device__ __forceinline__ void resolve_lazy(const Map& m, const u64 (&cq)[PER][WQ], const u64 (&dig)[PER], int n,
+                                             Lazy<WQ, PER>& z, unsigned (&pay)[PER]) {
+    Slot<WQ>(&s)[PER] = z.s;
+    int(&next)[PER] = z.next;
 #pragma unroll
     for (int p = 0; p < PER; p++) pay[p] = p < n ? stash_pay<WQ>(m, dig[p], cq[p]) : 0u;
     for (;;) {
@@ -319,6 +333,17 @@ __device__ __forceinline__ void probe_lazy(const Map& m, const u64 (&cq)[PER][WQ
             if (next[p] == SAT0 || next[p] == SAT1) load_sat<WQ>(m, mix(dig[p], next[p] == SAT1 ? H2 : H1), s[p]);
         }
     }
+}
+
+// the 9-bit payloads of the first n of PER canonical keys (0 for the
+// others), all of their probes in flight together: issue_lazy, then
+// resolve_lazy
+template <int WQ, int PER>
+__device__ __forceinline__ void probe_lazy(const Map& m, const u64 (&cq)[PER][WQ], const u64 (&dig)[PER], int n,
+                                           unsigned (&pay)[PER]) {
+    Lazy<WQ, PER> z;
+    issue_lazy<WQ, PER>(m, dig, n, z);
+    resolve_lazy<WQ, PER>(m, cq, dig, n, z, pay);
 }
 
 // an eager probe in flight: the salted digest, both hashes, both slots

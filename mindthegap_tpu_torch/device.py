@@ -64,6 +64,17 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _short_name(key: str) -> str:
+    """A profiler event's kernel name cut to the function's own (no
+    namespace, template or arguments)."""
+    head = key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split("::")[-1].split()
+    return head[-1] if head else key
+
+
+def _device_us(evt) -> float:
+    return getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+
+
 def stage_ms(fn, iters: int, warmup: int = 2, tries: int = 5) -> dict[str, float]:
     """Device ms per call of each kernel and memset that fn launches, by
     torch.profiler over `iters` calls after `warmup`: {short name: ms}, the
@@ -93,10 +104,9 @@ def stage_ms(fn, iters: int, warmup: int = 2, tries: int = 5) -> dict[str, float
         out: dict[str, float] = {}
         seen: dict[str, int] = {}
         for evt in prof.key_averages():
-            us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+            us = _device_us(evt)
             if us and not evt.key.startswith("ProfilerStep"):  # the step's span holds its kernels' time too
-                head = evt.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split("::")[-1].split()
-                name = head[-1] if head else evt.key
+                name = _short_name(evt.key)
                 out[name] = out.get(name, 0.0) + us / 1e3 / iters
                 seen[name] = seen.get(name, 0) + evt.count
         names |= set(seen)
@@ -104,3 +114,19 @@ def stage_ms(fn, iters: int, warmup: int = 2, tries: int = 5) -> dict[str, float
             return out
     raise RuntimeError(f"torch.profiler lost records in {tries} windows of {iters} calls: the last counted {seen}, "
                        f"kernels seen {sorted(names)}")
+
+
+def launch_means(fn, iters: int) -> dict[str, dict]:
+    """Device ms of each kernel's launches that torch.profiler recorded over
+    `iters` calls of fn (after one call outside the window): {short name:
+    {"ms": the mean over its recorded launches, "launches": how many}}. It
+    times a kernel whose windows stage_ms refuses because a record went
+    missing, from the launches that were recorded."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {_short_name(evt.key): {"ms": _device_us(evt) / 1e3 / evt.count, "launches": evt.count}
+            for evt in prof.key_averages() if evt.count and _device_us(evt)}

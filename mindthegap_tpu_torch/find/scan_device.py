@@ -515,14 +515,12 @@ def _planes_lib():
             *[ctypes.c_void_p] * 7,
             ctypes.c_void_p,
         ]
-        lib.scan_planes_qp_tile_pairs.restype = ctypes.c_int
-        lib.scan_planes_qp_tile_pairs.argtypes = []
         lib.scan_planes_qp_launch.restype = ctypes.c_int
         lib.scan_planes_qp_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             *[ctypes.c_void_p] * 7,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         _PLANES_LIB = lib
     return _PLANES_LIB
@@ -632,22 +630,20 @@ def _scan_planes_qp_plain(packed, badbits, slots2, stash_k, stash_l, stash_r, lo
 
 def scan_planes_qp_cuda(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size: int, k: int) -> dict:
     """K15 (csrc/scan_planes.cu, K10's probe with K8's plane stores): the
-    same planes as _scan_planes_qp_plain, a block a tile of 512 pairs, a
-    thread's four positions from its two pairs' payloads and the next
-    thread's first (the tile's last position written by the next tile,
-    from the payload this tile publishes). Counts one launch per window in
-    `scan_planes_qp_cuda.launches`."""
+    same planes as _scan_planes_qp_plain, in one launch of persistent
+    blocks over tiles of 512 pairs: a thread's four positions from its two
+    pairs' payloads and the next thread's first, the tile's last from the
+    pair past the tile, which its last thread probes too; a tile's planes
+    written while the next tile's rows are in flight. Counts one launch per
+    window in `scan_planes_qp_cuda.launches`."""
     w = _check_qp_args(packed, badbits, slots2, stash_k, stash_l, stash_r, log_size, k)
     dev = packed.device
-    lib = _planes_lib()
     p = w - k + 1
     out = {key: torch.empty(p, dtype=_plane_dtype(key), device=dev) for key in PLANE_KEYS}
-    n_tiles = -(-((p + 2) // 2) // lib.scan_planes_qp_tile_pairs())
-    states = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)  # zeroed by the launch
-    launch("scan_planes_qp", lib.scan_planes_qp_launch,
+    launch("scan_planes_qp", _planes_lib().scan_planes_qp_launch,
            packed.data_ptr(), badbits.data_ptr(), w, slots2.data_ptr(), log_size,
            stash_k.data_ptr(), stash_l.data_ptr(), stash_r.data_ptr(), stash_k.shape[0], k,
-           *(out[key].data_ptr() for key in PLANE_KEYS), states.data_ptr(),
+           *(out[key].data_ptr() for key in PLANE_KEYS),
            device=dev)
     scan_planes_qp_cuda.launches += 1
     return out
@@ -692,15 +688,13 @@ def _planes_span_lib():
         from .._build import cuda_library
 
         lib = cuda_library("scan_planes_span.cu", "libmtg_scan_planes_span.so")
-        lib.scan_planes_span_tile_keys.restype = ctypes.c_int
-        lib.scan_planes_span_tile_keys.argtypes = [ctypes.c_int]
         lib.scan_planes_span_launch.restype = ctypes.c_int
         lib.scan_planes_span_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             *[ctypes.c_void_p] * 7,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         _PLANES_SPAN_LIB = lib
     return _PLANES_SPAN_LIB
@@ -709,26 +703,26 @@ def _planes_span_lib():
 def scan_planes_q_span_cuda(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v,
                             salt: int, log_size: int, k: int) -> dict:
     """K16 (csrc/scan_planes_span.cu, K6's probe with the plane stores):
-    the same planes as _scan_planes_q_span_plain, a thread's 4 (2 past k =
-    129) positions from its (k-1)-mers' payloads and the next thread's
-    first. Counts one launch per window in
+    the same planes as _scan_planes_q_span_plain, in one launch of
+    persistent blocks over tiles of 1,024 positions (512 past k = 129): a
+    thread's 4 (2) positions from its (k-1)-mers' payloads and the next
+    thread's first, the tile's last from the (k-1)-mer past the tile, which
+    its last thread probes too; a tile's planes written while the next
+    tile's first slot words are in flight. Counts one launch per window in
     `scan_planes_q_span_cuda.launches`."""
     from ..ops.span_device import span_width
 
     w = _check_span_args(packed, badbits, slots, sat, stash_k64, stash_sat, stash_v, log_size, k)
     dev = packed.device
-    lib = _planes_span_lib()
     p = w - k + 1
     out = {"fwd_words": torch.empty((span_width(k), p), dtype=torch.int64, device=dev)}
     out.update({key: torch.empty(p, dtype=_plane_dtype(key), device=dev) for key in PLANE_KEYS[1:]})
-    n_tiles = -(-(p + 1) // lib.scan_planes_span_tile_keys(k))
-    states = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)  # zeroed by the launch
-    launch("scan_planes_q_span", lib.scan_planes_span_launch,
+    launch("scan_planes_q_span", _planes_span_lib().scan_planes_span_launch,
            packed.data_ptr(), badbits.data_ptr(), w,
            slots.data_ptr(), sat.data_ptr() if sat.numel() else None, log_size, K.i64(salt),
            stash_k64.data_ptr(), stash_sat.data_ptr() if stash_sat.numel() else None, stash_v.data_ptr(),
            stash_k64.shape[0], k,
-           *(out[key].data_ptr() for key in ("fwd_words",) + PLANE_KEYS[1:]), states.data_ptr(),
+           *(out[key].data_ptr() for key in ("fwd_words",) + PLANE_KEYS[1:]),
            device=dev)
     scan_planes_q_span_cuda.launches += 1
     return out

@@ -10,7 +10,7 @@ yardstick; then K11 (sharded counting's key routing) and K12 (sharded
 membership's route, its launches apart); then K14 and K13 (the owner's
 probe and the scatter back).
 
-    python -m mindthegap_tpu_torch.kernel_bench [--prev DIR] [--json FILE] [--only STAGES]
+    python -m mindthegap_tpu_torch.kernel_bench --prev DIR [--json FILE] [--only STAGES]
 
 DIR holds an earlier checkout's `mindthegap_tpu_torch/` and `native/` (for
 example `git archive <commit> mindthegap_tpu_torch native | tar -x -C DIR`
@@ -85,9 +85,10 @@ turns. `--only` names the stages to run
 keys, walk, merge, planes, mesh, sorted, plane_passes; default all). The
 plane_passes stage times K15 and K16 (scan_planes_qp_cuda on the planes
 stage's window, scan_planes_q_span_cuda on K6's k = 45 window) in turns
-with their plain versions and with the two-step routes they replace on
-the card (K10 and planes_from_pay, K6 and planes_from_pay_span), and
-needs no --prev. Prints the card,
+with the earlier checkout's, with their plain versions and with the
+two-step routes they replace on the card (K10 and planes_from_pay, K6
+and planes_from_pay_span), and both versions' launches by torch.profiler
+in turns. Prints the card,
 one line per shape and, last, one JSON object of every time. Exits
 non-zero without a CUDA device.
 """
@@ -111,7 +112,7 @@ from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, PLANE_BYTES_PER_POSITI
                      bytes_ms, nw_bound_ms, plane_pass_bound_ms, plane_scan_sectors, scan_probe_sectors,
                      scan_sorted_sectors, scatter_bytes, sorted_lookup_sectors, span_scan_sectors, walk_bound_ms,
                      walk_span_bound_ms)
-from .device import cuda_ms, stage_ms
+from .device import cuda_ms, launch_means, stage_ms
 from .fill import walk_device as W
 from .find import scan_device as S
 from .ops import counting_device as C
@@ -574,15 +575,41 @@ def planes_equal_route(got: dict, route) -> bool:
                for key in S.PLANE_KEYS[1:])
 
 
-def bench_plane_passes(genome, solid, k, seed: int) -> dict:
+def span_plane_window(genome, seed: int, k: int = 45, window: int = 1 << 21):
+    """K16's window: the genome's first `window` bases with an N run and 64
+    isolated Ns drawn from `seed`, over the span map of the genome's k-mers
+    (span_map): (scan_planes_q_span's arguments on the card, the codes, the
+    map on the card). The span map takes ~1 min of numpy to build."""
+    rng = np.random.default_rng(seed)
+    _fwd, qms = span_map(genome, k, window)
+    t = qms.to("cuda")
+    codes = genome[:window].copy()
+    codes[1000:1100] = 255
+    codes[rng.integers(0, window, 64)] = 255
+    packed, bad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(codes))
+    return (packed, bad, t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size, k), \
+        codes, t
+
+
+def by_launch(fn, iters: int = 10) -> dict:
+    """stage_ms of fn, or where the profiler lost a record in every window,
+    launch_means (marked "recorded launches only")."""
+    try:
+        return stage_ms(fn, iters)
+    except RuntimeError as e:
+        return {"recorded launches only": launch_means(fn, iters), "stage_ms": str(e)}
+
+
+def bench_plane_passes(genome, solid, k, seed: int, prev_s) -> dict:
     """K15 on the planes stage's 2^22-base window (plane_window) over the
     pair map of the k = 31 set, and K16 on K6's 2^21-base window over the
-    span map of the genome's k = 45 k-mers (span_map); each equal to its
-    plain version and to the two-step route it replaces on the card (K10,
-    its payload stream to the host and planes_from_pay there; K6 and
-    planes_from_pay_span), then timed in turns, twice: the kernel, the
-    kernel with its planes copied to the host, the route, the plain
-    version; and the kernel's launches by torch.profiler."""
+    span map of the genome's k = 45 k-mers (span_plane_window); each equal
+    to its plain version, to the earlier checkout's kernel and to the
+    two-step route it replaces on the card (K10, its payload stream to the
+    host and planes_from_pay there; K6 and planes_from_pay_span), then
+    timed in turns, twice: the kernel, the earlier checkout's, the kernel
+    with its planes copied to the host, the route, the plain version; and
+    the launches of both kernels by torch.profiler, in turns twice."""
     out = {}
     packed, bad, repeat = plane_window(genome, k, seed)
     qp = X.build_fused_pair(solid, k, repeat)
@@ -594,41 +621,34 @@ def bench_plane_passes(genome, solid, k, seed: int) -> dict:
         r = S.scan_pay_qp_cuda(*pair)
         return S.planes_from_pay(r["pay8"].cpu().numpy(), r["rep8"].cpu().numpy(), codes, k)
 
-    rng = np.random.default_rng(seed)
-    window = 1 << 21
-    _fwd, qms = span_map(genome, 45, window)
-    ts = qms.to("cuda")
-    scodes = genome[:window].copy()
-    scodes[1000:1100] = 255
-    scodes[rng.integers(0, window, 64)] = 255
-    spacked, sbad = (torch.from_numpy(a).cuda() for a in S.pack_codes_host(scodes))
-    span = (spacked, sbad, ts.slots, ts.sat, ts.stash_key64, ts.stash_sat, ts.stash_payload, qms.salt, qms.log_size, 45)
+    span, scodes, ts = span_plane_window(genome, seed)
 
     def k6_route():
         r = S.scan_pay_q_span_cuda(*span)
         return S.planes_from_pay_span(*(r[key].cpu().numpy() for key in ("pay8", "rep8", "str8")), scodes, 45)
 
-    for name, kernel, plain, args, route, tables, kk, label in (
-            ("K15", S.scan_planes_qp_cuda, S._scan_planes_qp_plain, pair, k10_route, tp, k, "K10 + planes_from_pay"),
-            ("K16", S.scan_planes_q_span_cuda, S._scan_planes_q_span_plain, span, k6_route, ts, 45,
-             "K6 + planes_from_pay_span")):
+    for name, kernel, earlier, plain, args, route, tables, kk, label in (
+            ("K15", S.scan_planes_qp_cuda, prev_s.scan_planes_qp_cuda, S._scan_planes_qp_plain, pair, k10_route,
+             tp, k, "K10 + planes_from_pay"),
+            ("K16", S.scan_planes_q_span_cuda, prev_s.scan_planes_q_span_cuda, S._scan_planes_q_span_plain, span,
+             k6_route, ts, 45, "K6 + planes_from_pay_span")):
         got = kernel(*args)
-        if not (_equal(got, plain(*args)) and planes_equal_route(got, route())):
-            raise AssertionError(f"{name} differs from its plain version or from the route it replaces")
-        calls = {name: lambda: kernel(*args),
+        if not (_equal(got, plain(*args)) and _equal(got, earlier(*args)) and planes_equal_route(got, route())):
+            raise AssertionError(f"{name} differs from its plain version, the earlier kernel or the route it replaces")
+        calls = {name: lambda: kernel(*args), f"earlier {name}": lambda: earlier(*args),
                  f"{name} + planes to the host": lambda: {key: v.cpu() for key, v in kernel(*args).items()},
                  label: route, "plain": lambda: plain(*args)}
-        times = _turns(calls, {name: 20, f"{name} + planes to the host": 10, label: 3, "plain": 3}, rounds=2)
+        times = _turns(calls, {name: 20, f"earlier {name}": 20, f"{name} + planes to the host": 10, label: 3,
+                               "plain": 3}, rounds=2)
         bound, sectors = plane_pass_bound_ms(args[0], args[1], tables, kk)
-        try:
-            by_launch = stage_ms(calls[name], 10)
-        except RuntimeError as e:  # the profiler lost records in every window: the events' times stand alone
-            by_launch = {"not measured": str(e)}
+        launches = {}
+        for turn in (name, f"earlier {name}", f"earlier {name}", name):
+            launches.setdefault(turn, []).append(by_launch(calls[turn]))
         row = {"k": kk, "window": args[0].shape[0] * 4, "ms": times, "bound_ms": bound, "sectors": sectors,
-               "by_launch": by_launch}
+               "by_launch": launches}
         print(f"{name}, k = {kk}, {row['window']}-base window: in turns twice (CUDA events, ms) "
               + ", ".join(f"{key} {v}" for key, v in times.items())
-              + f"; by launch (torch.profiler) {row['by_launch']}; bound {bound:.4f} ms (bytes: {sectors} sectors)")
+              + f"; by launch (torch.profiler), in turns {launches}; bound {bound:.4f} ms (bytes: {sectors} sectors)")
         out[name] = row
     return out
 
@@ -796,7 +816,7 @@ def span_registers() -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--prev", help="directory of an earlier checkout (see above; every stage but plane_passes)")
+    ap.add_argument("--prev", required=True, help="directory of an earlier checkout (see above)")
     ap.add_argument("--json", help="also write the JSON record to this file")
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--only", help="comma-separated stages to run (default: all)")
@@ -809,12 +829,10 @@ def main(argv=None) -> int:
     only = set(args.only.split(",")) if args.only else set(stages)
     if only - set(stages):
         ap.error(f"unknown stages {sorted(only - set(stages))} (choose from {', '.join(stages)})")
-    if only - {"plane_passes"} and not args.prev:
-        ap.error("--prev is needed by every stage but plane_passes")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    prev_w, prev_c, prev_s, prev_nd = load_checkout(args.prev) if args.prev else (None,) * 4
+    prev_w, prev_c, prev_s, prev_nd = load_checkout(args.prev)
     rng = np.random.default_rng(args.seed)
     k = 31
     genome = rng.integers(0, 4, GENOME_LEN, dtype=np.uint8)
@@ -855,7 +873,7 @@ def main(argv=None) -> int:
         record["sorted"]["index_build"] = bench_index(
             solid, importlib.import_module("prev_mindthegap_tpu_torch.ops.sorted_index"), args.seed + 5)
     if "plane_passes" in only:
-        record["plane_passes"] = bench_plane_passes(genome, solid, k, args.seed + 2)
+        record["plane_passes"] = bench_plane_passes(genome, solid, k, args.seed + 2, prev_s)
     line = json.dumps(record)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

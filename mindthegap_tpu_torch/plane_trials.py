@@ -1,5 +1,5 @@
-"""Design trials of K8 and K10 on one GPU, and the card's random-sector
-rate.
+"""Design trials of K8, K10, K15 and K16 on one GPU, and the card's
+random-sector rate.
 
     python -m mindthegap_tpu_torch.plane_trials --prev DIR [--json FILE] [--only PARTS]
 
@@ -9,7 +9,8 @@ once), built with nvcc -Xptxas -v into `_build/trials/`, all at once, and
 timed in turns with the committed kernel and DIR's (an earlier checkout,
 as for kernel_bench's --prev), each called through its C launcher into
 preallocated outputs. Any source that does not build stops the run.
-`--only` takes k8, k10 and yardstick (comma-separated; default all).
+`--only` takes k8, k10, k15, k16 and yardstick (comma-separated; default
+all).
 
 K8, on kernel_bench's plane window (2^22 bases of a seeded genome of E.
 coli's length over the cuckoo map of its k = 31 set), copies of the
@@ -31,6 +32,21 @@ only): copies of the committed K10 that each drop one part: "no probes"
 (the row loads replaced by words made from the key's hashes, so no row is
 read), "no second round" (a key not in its first row reads as absent) and
 "no stores" (pay8 and rep8 folded into one store that is never taken).
+
+K15 on the same window over the pair map, and K16 on kernel_bench's K16
+window (k = 45, span_plane_window): the committed kernel and DIR's, and
+the copies K15_VARIANTS and K16_VARIANTS make of each where a variant's
+texts occur there. The split, timed only: "no probes" (each row or slot
+word made from the key's hashes, so nothing is read), "no stores" (the
+planes folded into one store that is never taken), "no wait" (the
+chained design's wait on the tile before, DIR's at 4de5d8a), "no halo"
+(the key past the tile not probed) and "stores alone" (no probes and no
+wait, the chained design's; in the one-launch design "no probes" is the
+stores alone). The design variants, each equal to the plain version: "a
+block a tile" (a grid of one block a tile), "stores before probes" (a
+tile's planes written before the next tile's loads are issued), "4 pairs
+a thread" (K15) and "N blocks an SM" (__launch_bounds__'s minimum). All
+in turns twice, the committed kernel and DIR's also by launch in turns.
 
 Then the random-sector yardstick: torch.index_select and a hand gather
 with 1, 2, 4 and 8 loads in flight a thread, of 2^22, K8's and 2^24
@@ -56,10 +72,10 @@ import numpy as np
 import torch
 
 from ._build import BUILD_DIR, CSRC_DIR, CUDA_ARCH_FLAGS, BuildError, nvcc_path, parse_ptxas
-from .bounds import PLANE_BYTES_PER_POSITION, bytes_ms, plane_scan_sectors, scan_probe_sectors
+from .bounds import PLANE_BYTES_PER_POSITION, bytes_ms, plane_pass_bound_ms, plane_scan_sectors, scan_probe_sectors
 from .device import cuda_ms, stage_ms
 from .find import scan_device as S
-from .kernel_bench import GENOME_LEN, _turns, plane_window
+from .kernel_bench import GENOME_LEN, _turns, by_launch, plane_window, span_plane_window
 from .ops import extmap as X
 from .ops import kmers as K
 
@@ -277,6 +293,84 @@ K10_SPLIT = {
 """)],
 }
 
+# K15's and K16's trials. A variant is a tuple of alternatives, each a list
+# of (old, new) pairs; a copy is made of a source with the first
+# alternative whose texts all occur there once, and of no source where none
+# does: the split's parts differ between the chained design (a tile's last
+# position written by the next tile, once it published its last payload)
+# and the one-launch design (each tile probes the key past its end). The
+# split (SPLIT_PARTS) is timed only; the other copies must equal the plain
+# version.
+_K15_PROBES_CHAINED = [
+    ("live[e] ? __ldg(&slots[h1[e] >> shift]) : make_ulonglong2(0, 0)", "make_ulonglong2(h1[e] ^ h2[e], h2[e])"),
+    ("row = __ldg(&slots[h2[e] >> shift]);", "row = make_ulonglong2(h2[e], h1[e]);")]
+_K15_PROBES = [
+    ("p.live ? __ldg(&slots[mix(p.key, H1) >> shift]) : make_ulonglong2(0, 0)",
+     "make_ulonglong2(p.key ^ mix(p.key, H2), mix(p.key, H1))"),
+    ("__ldg(&slots[mix(p[e].key, H2) >> shift])", "make_ulonglong2(mix(p[e].key, H2), p[e].key)")]
+_WAIT = [("planes::wait_last(&states[tile - 1])", "0u")]
+_K16_PROBES_CHAINED = [("probe_lazy<WQ, PER>(m, cq, dig, n, pay);", """#pragma unroll
+    for (int p = 0; p < PER; p++) pay[p] = (unsigned)(dig[p] ^ (dig[p] >> 23)) & 0x1FF;""")]
+_K16_PROBES = [("issue_lazy<WQ, PER>(m, dig, n, lazy);", ""), ("issue_lazy<WQ, 1>(m, hdig, nh, halo);", ""),
+               ("resolve_lazy<WQ, PER>(m, cq, dig, n, lazy, pay);", """#pragma unroll
+        for (int p = 0; p < PER; p++) pay[p] = (unsigned)(dig[p] ^ (dig[p] >> 23)) & 0x1FF;"""),
+               ("resolve_lazy<WQ, 1>(m, hq, hdig, nh, halo, hpay);",
+                "hpay[0] = (unsigned)(hdig[0] ^ (hdig[0] >> 23)) & 0x1FF;")]
+_SPAN_STORES = [("""        put<R>(o.fwd + i * n_pos, i0, v, n, vec_words);
+    }
+    put<R>(o.valid, i0, valid, n, vec);
+    put<R>(o.contains, i0, contains, n, vec);
+    put<R>(o.nb_in, i0, nbi, n, vec);
+    put<R>(o.nb_out, i0, nbo, n, vec);
+    put<R>(o.suffix_rep, i0, srep, n, vec);
+    put<R>(o.prefix_rep, i0, prep, n, vec);
+""", """#pragma unroll
+        for (int e = 0; e < R; e++) x ^= v[e];
+    }
+#pragma unroll
+    for (int e = 0; e < R; e++)
+        x ^= ((u64)valid[e] << 1) ^ ((u64)contains[e] << 2) ^ ((u64)srep[e] << 3) ^ ((u64)prep[e] << 4)
+           ^ ((u64)(unsigned)nbi[e] << 8) ^ ((u64)(unsigned)nbo[e] << 16);
+    if (x == 0x5A5A5A5A5A5A5A5Aull) o.fwd[i0] = (long long)n;
+"""), ("""    const int tb = k - 32 * (WK - 1);  // bases in word 0, 1..32
+#pragma unroll
+    for (int i = 0; i < WK; i++) {""", """    const int tb = k - 32 * (WK - 1);  // bases in word 0, 1..32
+    u64 x = 0;
+#pragma unroll
+    for (int i = 0; i < WK; i++) {""")]
+_K15_WRITE = """        if (tw >= 0)
+            write_planes<QP_R>(s_code[(it + 2) % 3], s_bad[(it + 2) % 3], QP_R * tid, 2 * (tw * QP_TP + QP_P * tid),
+                               opay, k, n_pos, o, vec);
+"""
+_K15_ISSUE = """        if (tp < n_tiles) qp_issue(s_code[it % 3], tp * QP_TP, n_pairs, k, shift, slots, first);
+"""
+_K16_WRITE = """        if (tw >= 0)
+            span_planes<WK, PER>(s_code[(it + 2) % 3], s_bad[(it + 2) % 3], o0, tw * TILE + o0, opay, k, n_pos,
+                                 n_pos, o, vec, vec_words);
+"""
+_K16_ISSUE_AT = """        if (tp < n_tiles) {
+            u64 cq[PER][WQ], dig[PER], hq[1][WQ], hdig[1];"""
+SPLIT_PARTS = ("no probes", "no stores", "no wait", "no halo", "stores alone")
+K15_VARIANTS = {
+    "no probes": (_K15_PROBES_CHAINED, _K15_PROBES), "no stores": (NO_STORES,), "no wait": (_WAIT,),
+    "no halo": ([("(e < QP_P || threadIdx.x == THREADS - 1)", "e < QP_P")],),
+    "stores alone": (_K15_PROBES_CHAINED + _WAIT,),
+    "a block a tile": ([("planes::resident_grid<scan_planes_qp_kernel>(n_tiles, THREADS)", "n_tiles")],),
+    "stores before probes": ([(_K15_ISSUE + _K15_WRITE, _K15_WRITE + _K15_ISSUE)],),
+    "4 pairs a thread": ([("constexpr int QP_P = 2; ", "constexpr int QP_P = 4; "),
+                          ("QP_CHUNKS = QP_TP / 32 + 2;", "QP_CHUNKS = QP_TP / 32 + 2;")],),
+    "5 blocks an SM": ([("__launch_bounds__(THREADS) scan_planes_qp_kernel(",
+                         "__launch_bounds__(THREADS, 5) scan_planes_qp_kernel(")],)}
+K16_VARIANTS = {
+    "no probes": (_K16_PROBES_CHAINED, _K16_PROBES), "no stores": (_SPAN_STORES,), "no wait": (_WAIT,),
+    "no halo": ([("const int nh = tid == THREADS - 1 && j0 + PER < n_pay;", "const int nh = 0;")],),
+    "stores alone": (_K16_PROBES_CHAINED + _WAIT,),
+    "a block a tile": ([("planes::resident_grid<scan_planes_span_kernel<WQ, WK, PER>>(n_tiles, THREADS)",
+                         "n_tiles")],),
+    "stores before probes": ([(_K16_WRITE, ""), (_K16_ISSUE_AT, _K16_WRITE + _K16_ISSUE_AT)],),
+    **{f"{n} blocks an SM": ([("__launch_bounds__(THREADS) scan_planes_span_kernel(",
+                               f"__launch_bounds__(THREADS, {n}) scan_planes_span_kernel(")],) for n in (3, 4)}}
+
 # a gather of n random rows, L loads in flight a thread, one word out a thread
 GATHER = r"""
 #include <cstdint>
@@ -323,6 +417,19 @@ def substituted(src: str, pairs) -> str:
     return src
 
 
+def applies(src: str, pairs) -> bool:
+    """Whether every text that `pairs` replaces occurs once in src."""
+    return all(src.count(old) == 1 for old, _ in pairs)
+
+
+def split_copy(src: str, alternatives):
+    """src with the first of `alternatives` that applies to it, or None."""
+    for pairs in alternatives:
+        if applies(src, pairs):
+            return substituted(src, pairs)
+    return None
+
+
 def trial_sources(prev_csrc: str, parts) -> dict:
     """{name: (source text, include directory)} of every copy `parts` needs:
     K8, the earlier one (prev_csrc/scan_planes.cu) and VARIANTS' copies;
@@ -341,6 +448,17 @@ def trial_sources(prev_csrc: str, parts) -> dict:
         src, prev = read(CSRC_DIR, "scan_qp.cu"), read(prev_csrc, "scan_qp.cu")
         texts.update({"K10": (src, CSRC_DIR), "earlier K10": (prev, prev_csrc),
                       **{f"K10 {name}": (substituted(src, pairs), CSRC_DIR) for name, pairs in K10_SPLIT.items()}})
+    for part, name, source, variants in (("k15", "K15", "scan_planes.cu", K15_VARIANTS),
+                                         ("k16", "K16", "scan_planes_span.cu", K16_VARIANTS)):
+        if part not in parts:
+            continue
+        for who, folder in (("", CSRC_DIR), ("earlier ", prev_csrc)):
+            src = read(folder, source)
+            texts[f"{who}{name}"] = (src, folder)
+            for variant, alternatives in variants.items():
+                copy = split_copy(src, alternatives)
+                if copy is not None:
+                    texts[f"{who}{name} {variant}"] = (copy, folder)
     if "yardstick" in parts:
         texts["gather"] = (GATHER, CSRC_DIR)
     return texts
@@ -406,7 +524,7 @@ def random_sector_rates(gather_lib, row_counts, seed: int, table_mb: int = 128) 
     return out
 
 
-PARTS = ("k8", "k10", "yardstick")
+PARTS = ("k8", "k10", "k15", "k16", "yardstick")
 
 
 def _pay_launcher(lib):
@@ -494,6 +612,111 @@ def time_k10(built: dict, packed, bad, solid, repeat, k: int) -> dict:
     return out
 
 
+def _time_variants(name: str, built: dict, run_of, want: dict, outs: dict) -> dict:
+    """The copies of K15 or K16 (`name`) in `built`: each equal to `want`
+    (their planes `outs`) but the split's (SPLIT_PARTS), which are timed
+    only; all in turns twice, and the committed and the earlier kernel by
+    launch in turns."""
+    runs = {key: run_of(lib) for key, (lib, _) in built.items() if key == name or key.startswith(f"{name} ")
+            or key == f"earlier {name}" or key.startswith(f"earlier {name} ")}
+    for key, run in runs.items():
+        if key.split(f"{name} ", 1)[-1] in SPLIT_PARTS:
+            continue
+        for v in outs.values():
+            v.zero_()
+        run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(outs[p], want[p]) for p in want):
+            raise AssertionError(f"{key} differs from the plain version")
+    launches = {}
+    for key in (name, f"earlier {name}", f"earlier {name}", name):
+        launches.setdefault(key, []).append(by_launch(runs[key]))
+    return {"ms": _turns(runs, 20, rounds=2), "stages_ms": launches}
+
+
+def _qp_runner(packed, bad, tp, log_size: int, k: int, planes: dict):
+    """A function of a built K15 copy that returns its launch into
+    `planes`: the chained design's launcher takes a scratch of a word a
+    tile (scan_planes_qp_tile_pairs sizes it), the one-launch design's none."""
+    window = packed.numel() * 4
+    stream = torch.cuda.current_stream().cuda_stream
+    head = [packed.data_ptr(), bad.data_ptr(), window, tp.slots.data_ptr(), log_size, tp.stash_keys.data_ptr(),
+            tp.stash_l.data_ptr(), tp.stash_r.data_ptr(), tp.stash_keys.numel(), k,
+            *(planes[key].data_ptr() for key in S.PLANE_KEYS)]
+
+    def runner(lib):
+        fn = lib.scan_planes_qp_launch
+        fn.restype = ctypes.c_int
+        chained = hasattr(lib, "scan_planes_qp_tile_pairs")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                       *[ctypes.c_void_p] * 3, ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 7,
+                       *[ctypes.c_void_p] * (2 if chained else 1)]
+        scratch = []
+        if chained:
+            n_tiles = -(-((window - k + 3) // 2) // lib.scan_planes_qp_tile_pairs())
+            scratch = [torch.empty(n_tiles + 1, dtype=torch.int64, device="cuda")]
+
+        def run():
+            if fn(*head, *(t.data_ptr() for t in scratch), stream):
+                raise RuntimeError("a K15 copy did not launch")
+        return run
+    return runner
+
+
+def time_k15(built: dict, packed, bad, solid, repeat, k: int) -> dict:
+    """K15's copies over the pair map of kernel_bench's plane window, into
+    preallocated planes (K15_VARIANTS)."""
+    qp = X.build_fused_pair(solid, k, repeat)
+    tp = qp.to("cuda")
+    want = S._scan_planes_qp_plain(packed, bad, tp.slots, tp.stash_keys, tp.stash_l, tp.stash_r, qp.log_size, k)
+    planes = {key: torch.empty_like(v) for key, v in want.items()}
+    out = _time_variants("K15", built, _qp_runner(packed, bad, tp, qp.log_size, k, planes), want, planes)
+    out["bound_ms"], out["sectors"] = plane_pass_bound_ms(packed, bad, tp, k)
+    print(f"K15 copies on kernel_bench's {packed.numel() * 4}-base window ({out['sectors']} row sectors), into "
+          f"preallocated planes, in turns twice (ms): {out['ms']}; by launch (torch.profiler) {out['stages_ms']}; "
+          f"bound {out['bound_ms']:.4f} ms")
+    return out
+
+
+def time_k16(built: dict, genome, seed: int) -> dict:
+    """K16's copies on kernel_bench's K16 window (span_plane_window, k =
+    45), into preallocated planes (K16_VARIANTS)."""
+    args, _codes, ts = span_plane_window(genome, seed)
+    packed, bad, k = args[0], args[1], args[-1]
+    want = S._scan_planes_q_span_plain(*args)
+    planes = {key: torch.empty_like(v) for key, v in want.items()}
+    window = packed.numel() * 4
+    stream = torch.cuda.current_stream().cuda_stream
+    head = [packed.data_ptr(), bad.data_ptr(), window, ts.slots.data_ptr(), ts.sat.data_ptr(), args[8],
+            K.i64(args[7]), ts.stash_key64.data_ptr(), ts.stash_sat.data_ptr(), ts.stash_payload.data_ptr(),
+            ts.stash_key64.shape[0], k, *(planes[key].data_ptr() for key in ("fwd_words",) + S.PLANE_KEYS[1:])]
+
+    def runner(lib):
+        fn = lib.scan_planes_span_launch
+        fn.restype = ctypes.c_int
+        chained = hasattr(lib, "scan_planes_span_tile_keys")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int64, *[ctypes.c_void_p] * 3, ctypes.c_int, ctypes.c_int,
+                       *[ctypes.c_void_p] * 7, *[ctypes.c_void_p] * (2 if chained else 1)]
+        scratch = []
+        if chained:
+            lib.scan_planes_span_tile_keys.argtypes = [ctypes.c_int]
+            n_tiles = -(-(window - k + 2) // lib.scan_planes_span_tile_keys(k))
+            scratch = [torch.empty(n_tiles + 1, dtype=torch.int64, device="cuda")]
+
+        def run():
+            if fn(*head, *(t.data_ptr() for t in scratch), stream):
+                raise RuntimeError("a K16 copy did not launch")
+        return run
+
+    out = _time_variants("K16", built, runner, want, planes)
+    out["bound_ms"], out["sectors"] = plane_pass_bound_ms(packed, bad, ts, k)
+    print(f"K16 copies on kernel_bench's {window}-base window at k = {k} ({out['sectors']} sectors), into "
+          f"preallocated planes, in turns twice (ms): {out['ms']}; by launch (torch.profiler) {out['stages_ms']}; "
+          f"bound {out['bound_ms']:.4f} ms")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prev", required=True, help="directory of an earlier checkout (as kernel_bench's --prev)")
@@ -529,6 +752,10 @@ def main(argv=None) -> int:
         record["k8"] = time_k8(built, packed, bad, solid, repeat, k)
     if "k10" in parts:
         record["k10"] = time_k10(built, packed, bad, solid, repeat, k)
+    if "k15" in parts:
+        record["k15"] = time_k15(built, packed, bad, solid, repeat, k)
+    if "k16" in parts:
+        record["k16"] = time_k16(built, genome, args.seed + 2)
     if "yardstick" in parts:
         rows = (1 << 22, *((record["k8"]["sectors"],) if "k8" in record else ()), 1 << 24)
         yard = random_sector_rates(built["gather"][0], rows, args.seed)

@@ -16,12 +16,13 @@ from mindthegap_tpu_torch.ops import nw_device as ND
 from mindthegap_tpu_torch.ops import sorted_index as SI
 from mindthegap_tpu_torch.parallel import sharded_count as PSC
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
-from torch_tables import (INDEX_EDGE_NAMES, MEMBER_EDGE_NAMES, PAIR_PIPELINE_NAMES, PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES,
-                          ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES, SCATTER_EDGE_NAMES, SORTED_EDGE_NAMES, SPAN_EDGE_NAMES,
-                          SWIZZLE_EDGE_NAMES, edge_walk_case, edge_walk_span_case, index_edge_sets, key_edge_batches,
-                          member_edge_cases, merge_edge_cases, move_to_stash, pair_pipeline_case, plane_edge_windows,
-                          plane_pipeline_case, route_edge_cases, scan_edge_windows, scatter_edge_cases,
-                          sorted_edge_windows, span_edge_windows, swizzle_edge_chunks)
+from torch_tables import (HALO_STATES, INDEX_EDGE_NAMES, MEMBER_EDGE_NAMES, PAIR_PIPELINE_NAMES, PAIR_TILE_KS,
+                          PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES, SCATTER_EDGE_NAMES,
+                          SORTED_EDGE_NAMES, SPAN_EDGE_NAMES, SPAN_TILE_CASES, SWIZZLE_EDGE_NAMES, edge_walk_case,
+                          edge_walk_span_case, index_edge_sets, key_edge_batches, member_edge_cases, merge_edge_cases,
+                          move_to_stash, pair_pipeline_case, pair_tile_case, plane_edge_windows, plane_pipeline_case,
+                          route_edge_cases, scan_edge_windows, scatter_edge_cases, sorted_edge_windows,
+                          span_edge_windows, span_tile_case, swizzle_edge_chunks)
 
 pytestmark = pytest.mark.cuda
 
@@ -381,11 +382,11 @@ def test_pay_kernel_pipeline_cases(cuda, name, k):
 @pytest.mark.parametrize("name", PAIR_PIPELINE_NAMES)
 def test_qp_plane_kernel_pipeline_cases(cuda, name, k):
     """K15 against its plain version on K10's pipeline cases
-    (tests/torch_tables.py pair_pipeline_case): over 1,024 tiles, each
-    tile's last position written by the next from the payload it
-    publishes, with a ragged last tile and both parities of the last pair;
-    a map near its highest load factor, every pair missing its first row,
-    a full stash in descending order; one launch a call."""
+    (tests/torch_tables.py pair_pipeline_case): over 1,024 tiles (more
+    than the card holds blocks at once, so each block takes several), with
+    a ragged last tile and both parities of the last pair; a map near its
+    highest load factor, every pair missing its first row, a full stash in
+    descending order; one launch a call."""
     qp, codes = pair_pipeline_case(k, name)
     _check_plane_kernel("pair-planes", _plane_args(qp, "pair", codes, cuda) + (k,))
 
@@ -398,6 +399,17 @@ def test_qp_plane_kernel_empty_repeat_set(cuda, name, k):
     qp, cases = plane_edge_windows(k, "pair", repeats=False)
     want = _check_plane_kernel("pair-planes", _plane_args(qp, "pair", cases[name], cuda) + (k,))
     assert not (want["suffix_rep"].any() or want["prefix_rep"].any())
+
+
+@pytest.mark.parametrize("state", HALO_STATES)
+@pytest.mark.parametrize("k", PAIR_TILE_KS)
+def test_qp_plane_kernel_tile_edges(cuda, k, state):
+    """K15 against its plain version on its tile edges
+    (tests/torch_tables.py pair_tile_case): positions and pairs ending at,
+    one before and one after a tile's end, each tile's halo pair in its
+    second row, in the stash or absent; one launch a call."""
+    qp, codes = pair_tile_case(k, state)
+    _check_plane_kernel("pair-planes", _plane_args(qp, "pair", codes, cuda) + (k,))
 
 
 def _check_span_plane_kernel(args):
@@ -446,6 +458,37 @@ def test_span_plane_kernel_matches_plain(cuda, k):
     codes[rng.integers(0, codes.size, 40)] = 255
     want = _check_span_plane_kernel(_span_args(qms, qms.to(cuda), codes, cuda) + (k,))
     assert want["contains"].float().mean() > 0.8 and want["suffix_rep"].any()
+
+
+@pytest.mark.parametrize("state", HALO_STATES)
+@pytest.mark.parametrize("k,side", SPAN_TILE_CASES)
+def test_span_plane_kernel_tile_edges(cuda, k, side, state):
+    """K16 against its plain version on its tile edges
+    (tests/torch_tables.py span_tile_case): windows ending at, just below
+    and just above a tile's end at k = 45, 128, 129 and 130 (4 keys a
+    thread, then 2), each tile's halo key in its second slot, in the stash
+    or absent; one launch a call."""
+    qms, codes = span_tile_case(k, side, state)
+    _check_span_plane_kernel(_span_args(qms, qms.to(cuda), codes, cuda) + (k,))
+
+
+@pytest.mark.parametrize("k", [45, 130])
+def test_span_plane_kernel_many_tiles(cuda, k):
+    """K16 against its plain version on a window of 2^20 + 296 bases, over
+    1,000 tiles: more than the card holds blocks at once, so each block
+    takes several, the last one ragged; N runs across tiles."""
+    from mindthegap_tpu_torch.ops.span import Span
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, (1 << 20) + 4096, dtype=np.uint8)
+    sp = Span(k)
+    fwd, _ = sp.from_codes(genome[: 200_000])
+    qms = X.build_fused_span(sp.from_keys(np.unique(sp.keys(sp.canonical(fwd)))), k,
+                             np.zeros((0, Span(k - 1).W), np.uint64))
+    codes = genome[1000 : 1000 + (1 << 20) + 296].copy()
+    for lo in range(1000, codes.size, 100_003):
+        codes[lo : lo + 40] = 255
+    _check_span_plane_kernel(_span_args(qms, qms.to(cuda), codes, cuda) + (k,))
 
 
 @pytest.mark.parametrize("k", [31, 45])

@@ -23,8 +23,9 @@ from mindthegap_tpu_torch.find import scan_device as PS
 from mindthegap_tpu_torch.ops import extmap as PX
 from mindthegap_tpu_torch.ops import kmers as PK
 from mindthegap_tpu_torch.ops.span import Span
-from torch_tables import (PAIR_PIPELINE_NAMES, PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, SPAN_EDGE_NAMES,
-                          pair_pipeline_case, plane_edge_windows, plane_pipeline_case, span_edge_windows)
+from torch_tables import (HALO_STATES, PAIR_PIPELINE_NAMES, PAIR_TILE_KS, PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES,
+                          SPAN_EDGE_NAMES, SPAN_TILE_CASES, pair_pipeline_case, pair_tile_case, plane_edge_windows,
+                          plane_pipeline_case, span_edge_windows, span_tile_case)
 
 PLANE_FIELDS = ("valid", "fwd", "contains", "nb_in", "nb_out", "suffix_rep", "prefix_rep", "fwd_rows")
 
@@ -278,6 +279,47 @@ def test_plane_pass_span_matches_jax(name, k, repeats):
         assert bool(got["prefix_rep"].any()) == repeats
 
 
+@pytest.mark.parametrize("state", HALO_STATES)
+@pytest.mark.parametrize("k", PAIR_TILE_KS)
+def test_plane_pass_pair_tile_edges_match_jax(k, state):
+    """The plain version of K15 equals scan_planes_device_qp on K15's tile
+    edges (tests/torch_tables.py pair_tile_case): windows whose positions
+    and pairs end at, one before and one after a tile's end, each tile's
+    halo pair in its second row, in the stash or absent."""
+    qp, codes = pair_tile_case(k, state)
+    got = _port_plane_pass("pair", qp, codes, k)
+    want = _jax_plane_pass("pair", qp, codes, k)
+    for key in PS.PLANE_KEYS:
+        g = got[key].numpy()
+        np.testing.assert_array_equal(g.view(np.uint64) if key == "fwd" else g, np.asarray(want[key]), err_msg=key)
+    share = float(got["contains"].float().mean())  # a changed base takes the k-mers over it out
+    assert 0.5 < share < 1 if state == "halo-absent" else share > 0.99
+
+
+@pytest.mark.parametrize("state", HALO_STATES)
+@pytest.mark.parametrize("k,side", SPAN_TILE_CASES)
+def test_plane_pass_span_tile_edges_match_jax(k, side, state):
+    """The plain version of K16 equals scan_planes_device_q_span on K16's
+    tile edges (tests/torch_tables.py span_tile_case): windows ending at,
+    just below and just above a tile's end at k = 45 and where the keys a
+    thread takes change (k = 128, 129, 130), each tile's halo key in its
+    second slot, in the stash or absent."""
+    qms, codes = span_tile_case(k, side, state)
+    t = qms.to("cpu")
+    got = PS.scan_planes_q_span(*_packed(codes), t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload,
+                                qms.salt, qms.log_size, k)
+    want = JS.scan_planes_device_q_span(jnp.asarray(codes), jnp.asarray(qms.slots), jnp.asarray(qms.sat),
+                                        jnp.asarray(qms.stash_key64), jnp.asarray(qms.stash_sat),
+                                        jnp.asarray(qms.stash_payload), qms.salt, qms.log_size, k)
+    assert set(got) == set(want)
+    for key in want:
+        g = got[key].numpy()
+        np.testing.assert_array_equal(g.view(np.uint64) if key == "fwd_words" else g, np.asarray(want[key]),
+                                      err_msg=key)
+    share = float(got["contains"].float().mean())  # a changed base takes the k-mers over it out
+    assert 0.5 < share < 1 if state == "halo-absent" else share > 0.99
+
+
 @pytest.mark.parametrize("layout", ["cuckoo", "bucket"])
 def test_plane_scan_sectors(layout):
     """bounds.plane_scan_sectors: one sector a probe and one more for each
@@ -301,21 +343,37 @@ def test_plane_scan_sectors(layout):
         assert sectors == keys.shape[0] + int((~first).sum())
 
 
+_K15_K16_TRIALS = ["no probes", "no stores", "no wait", "no halo", "stores alone", "a block a tile",
+                   "stores before probes", "4 pairs a thread"]
+
+
 @pytest.mark.parametrize("name", ["cp.async staging", "no stores", "bulk stores", "smem stores",
-                                  "K10 no probes", "K10 no second round", "K10 no stores"])
+                                  "K10 no probes", "K10 no second round", "K10 no stores"]
+                         + [f"K15 {v}" for v in _K15_K16_TRIALS] + [f"K16 {v}" for v in _K15_K16_TRIALS[:-1]])
 def test_plane_trials_apply_to_the_kernel_source(name):
     """Each of plane_trials' K8 copies applies to csrc/scan_planes.cu and
     each copy of K10's split to csrc/scan_qp.cu: every text it replaces
     occurs there once (the copies are built on the card only), and a text
-    that does not occur is refused."""
+    that does not occur is refused. Each of K15's and K16's variants
+    applies to scan_planes.cu and scan_planes_span.cu, but those of the
+    chained design only (the wait on the tile before, and the stores alone,
+    which drop it): the committed sources hold none of the wait's texts, so
+    plane_trials makes them of an earlier checkout's source alone."""
     from mindthegap_tpu_torch import plane_trials as T
     from mindthegap_tpu_torch._build import CSRC_DIR
 
-    split = name.startswith("K10 ")
-    source, kernel = ("scan_qp.cu", "scan_pay_qp_kernel") if split else ("scan_planes.cu", "scan_planes_q_kernel")
+    kernel, variant = name.split(" ", 1) if name[:3] in ("K10", "K15", "K16") else ("K8", name)
+    source, kernel_name, pairs = {
+        "K8": ("scan_planes.cu", "scan_planes_q_kernel", lambda: (T.VARIANTS[variant],)),
+        "K10": ("scan_qp.cu", "scan_pay_qp_kernel", lambda: (T.K10_SPLIT[variant],)),
+        "K15": ("scan_planes.cu", "scan_planes_qp_kernel", lambda: T.K15_VARIANTS[variant]),
+        "K16": ("scan_planes_span.cu", "scan_planes_span_kernel", lambda: T.K16_VARIANTS[variant])}[kernel]
     with open(f"{CSRC_DIR}/{source}") as f:
         src = f.read()
-    copy = T.substituted(src, T.K10_SPLIT[name[4:]] if split else T.VARIANTS[name])
-    assert copy != src and kernel in copy
+    copy = T.split_copy(src, pairs())
+    if variant in ("no wait", "stores alone") and kernel in ("K15", "K16"):
+        assert copy is None and "wait_last" not in src
+        return
+    assert copy is not None and copy != src and kernel_name in copy
     with pytest.raises(ValueError, match="once"):
         T.substituted(src, [("no such text in the kernel", "")])

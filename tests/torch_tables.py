@@ -529,6 +529,158 @@ def pair_pipeline_case(k: int, name: str, seed: int = 0, cut: int | None = None)
     raise KeyError(name)
 
 
+# ---------------------------------------------------------------------------
+# the tiles of K15 and K16: each tile of 512 pairs (K15) or of 1,024
+# positions (K16; 512 above k = 129) writes all of its positions, so it
+# probes the key past its end, its halo, itself
+
+HALO_STATES = ("halo-second", "halo-stash", "halo-absent")
+PAIR_TILE_KS = (24, 25, 26, 27, 28, 31, 32)
+SPAN_TILE_CASES = tuple((k, side) for k in (45, 128, 129, 130) for side in ("below", "above"))
+
+
+def move_to_second_row(qp: X.QMapP, keys) -> X.QMapP:
+    """Copy of host map `qp` with each of `keys` (canonical (k-2)-mers in
+    the table) in its second row: moved there from its first, where the
+    second row is free."""
+    slots = qp.slots.copy()
+    shift = 64 - qp.log_size
+    rem_mask = (1 << shift) - 1
+    for key in (int(x) for x in keys):
+        h1, h2 = _mix(key, int(X._H1)), _mix(key, int(X._H2))
+        r1, r2 = h1 >> shift, h2 >> shift
+        lane0 = int(slots[r2, 0])
+        if (lane0 >> 9) & 1 and (lane0 >> 8) & 1 and (lane0 >> 10) & ((1 << 45) - 1) == h2 & rem_mask:
+            continue  # there already
+        lane0 = int(slots[r1, 0])
+        if not ((lane0 >> 9) & 1 and not (lane0 >> 8) & 1 and (lane0 >> 10) & ((1 << 45) - 1) == h1 & rem_mask):
+            raise KeyError(f"{key} is not in the table")
+        if slots[r2].any():
+            raise ValueError(f"the second row of {key} is taken")
+        slots[r2] = np.array([(h2 & rem_mask) << 10 | 1 << 9 | 1 << 8 | lane0 & 0xFF, int(slots[r1, 1])], np.uint64)
+        slots[r1] = 0
+    return X.QMapP(slots, qp.log_size, qp.k, qp.stash_keys, qp.stash_l, qp.stash_r)
+
+
+def move_to_second_slot_span(qms: X.QMapSpan, rows) -> X.QMapSpan:
+    """Copy of host span map `qms` with each of `rows` (canonical (k-1)-mer
+    rows [n, Wq] in the table) in its second slot: moved there from its
+    first, where the second slot is free."""
+    from mindthegap_tpu_torch.ops.span_device import digest64
+
+    slots, sat = qms.slots.copy(), qms.sat.copy()
+    shift = 64 - qms.log_size
+    rem_mask = (1 << shift) - 1
+    wq = sat.shape[0] + 1
+    rows = np.asarray(rows, np.uint64).reshape(-1, wq)
+    for row, dig in zip(rows, digest64(rows.T)):
+        dig = int(dig) ^ qms.salt
+        (h1, s1), (h2, s2) = ((h, h >> shift) for h in (_mix(dig, int(X._H1)), _mix(dig, int(X._H2))))
+        here = [(int(slots[s]) >> 10) & 1 and (int(slots[s]) >> 9) & 1 == i and int(slots[s]) >> 11 == h & rem_mask
+                and tuple(int(x) for x in sat[:, s]) == tuple(int(x) for x in row[1:])
+                for i, (h, s) in enumerate(((h1, s1), (h2, s2)))]
+        if here[1]:
+            continue
+        if not here[0]:
+            raise KeyError(f"{row} is not in the table")
+        if (int(slots[s2]) >> 10) & 1:
+            raise ValueError(f"the second slot of {row} is taken")
+        slots[s2] = np.uint64((h2 & rem_mask) << 11 | 1 << 10 | 1 << 9 | int(slots[s1]) & 0x1FF)
+        sat[:, s2] = sat[:, s1]
+        slots[s1] = 0
+        sat[:, s1] = 0
+    return X.QMapSpan(slots, sat, qms.log_size, qms.salt, qms.stash_key64, qms.stash_sat, qms.stash_payload)
+
+
+def pair_tile_case(k: int, state: str, seed: int = 0):
+    """(host pair map, codes u8[4,120]) of K15's tile edges at k (24 to
+    32): a window of a genome whose k-mers make the map (every 40th
+    (k-1)-mer the repeat set), P = 4,121 - k positions: at k = 25 P =
+    4,096, four whole tiles, the last tile's halo (pair 2,048) holding
+    entry P; at k = 26 and 27 the 2,048 pairs end at the fourth tile's
+    end, at k = 28 one pair before it, at k = 24 one past it (a fifth
+    tile of one pair); at k = 31 and 32 P = 4,090 and 4,089. The key of
+    every tile's halo that the window holds (pairs 512, 1,024, 1,536,
+    2,048) is in its second row ("halo-second"), in the stash
+    ("halo-stash"), or nowhere: a base of it changed in the window
+    ("halo-absent"). The genome is the first of seed + k, seed + k + 100,
+    ... whose halo keys' second rows are free."""
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    for attempt in range(20):
+        rng = np.random.default_rng(seed + k + 100 * attempt)
+        genome = rng.integers(0, 4, 40_000, dtype=np.uint8)
+        fwd, _ = K.kmers_from_codes(genome[:30_000], k)
+        rfwd, _ = K.kmers_from_codes(genome[:30_000], k - 1)
+        qp = X.build_fused_pair(np.unique(K.canonical_u64(fwd, k)), k, np.unique(K.canonical_u64(rfwd[::40], k - 1)))
+        codes = genome[10_000 : 10_000 + 4120].copy()
+        halos = [m for m in (512, 1024, 1536, 2048) if 2 * m + k - 2 < codes.size]  # the key: bases 2m+1 .. 2m+k-2
+        r, _ = K.kmers_from_codes(codes, k - 2)
+        keys = np.unique(K.canonical_u64(r[[2 * m + 1 for m in halos]], k - 2))
+        if state != "halo-second":
+            break
+        try:
+            qp = move_to_second_row(qp, keys)
+            break
+        except ValueError:  # a second row taken: the next genome
+            continue
+    if state == "halo-second":
+        pass
+    elif state == "halo-stash":
+        qp = move_to_stash(qp, keys)
+    elif state == "halo-absent":
+        for m in halos:
+            codes[2 * m + k // 2] ^= 1
+    else:
+        raise KeyError(state)
+    return qp, codes
+
+
+def span_tile_case(k: int, side: str, state: str, seed: int = 0):
+    """(host span map, codes u8[w]) of K16's tile edges at k (33 to 256;
+    tiles of 1,024 positions to k = 129, then 512): a window of a genome
+    whose k-mers make the map (every 40th (k-1)-mer the repeat set) whose P
+    = w - k + 1 positions end at the fourth tile's end or just below it
+    ("below": w the largest multiple of 8 with P <= 4 tiles) or just above
+    it ("above": the smallest with P >= 4 tiles); at k = 129 both end at
+    it, at k = 128 one past it, at k = 130 one before it. The halo key of
+    every tile that the window holds ((k-1)-mers 1, 2, 3 and 4 tiles in)
+    is in its second slot ("halo-second"), in the stash ("halo-stash"), or
+    nowhere: a base of it changed in the window ("halo-absent"). The genome
+    is the first of seed + k, seed + k + 100, ... whose halo keys' second
+    slots are free."""
+    tile = 1024 if k <= 129 else 512
+    end = 4 * tile + k - 1  # the w at which P is four tiles
+    w = end // 8 * 8 if side == "below" else -(-end // 8) * 8
+    halos = [j * tile for j in range(1, 5) if j * tile + k - 1 <= w]  # the (k-1)-mer from base j * tile
+    for attempt in range(20):
+        rng = np.random.default_rng(seed + k + 100 * attempt)
+        genome = rng.integers(0, 4, 40_000, dtype=np.uint8)
+        _fwd, canon = _span_rows(genome[:30_000], k)
+        _qf, qcanon = _span_rows(genome[:30_000], k - 1)
+        qms = X.build_fused_span(_unique_rows(canon, k), k, _unique_rows(qcanon[::40], k - 1))
+        codes = genome[10_000 : 10_000 + w].copy()
+        _q, qc = _span_rows(codes, k - 1)
+        rows = _unique_rows(qc[halos], k - 1)
+        if state != "halo-second":
+            break
+        try:
+            qms = move_to_second_slot_span(qms, rows)
+            break
+        except ValueError:  # a second slot taken: the next genome
+            continue
+    if state == "halo-second":
+        pass
+    elif state == "halo-stash":
+        qms = move_to_stash_span(qms, rows)
+    elif state == "halo-absent":
+        for j in halos:
+            codes[j + k // 2] ^= 1
+    else:
+        raise KeyError(state)
+    return qms, codes
+
+
 SCATTER_EDGE_NAMES = ("ragged", "padding-anywhere", "all-padding", "all-real", "one-lane", "owner-segments")
 
 
