@@ -145,7 +145,7 @@ class Filler:
             opts["out"] = "MindTheGap_Expe-" + time.strftime("%Y-%m-%d.%I:%M")
         prefix = opts["out"]
 
-        from ..utils.phases import PhaseTimer, maybe_trace
+        from ..utils.phases import PhaseTimer
 
         self.phases = PhaseTimer()
         self.fill_engine = str(opts.get("fill-engine", "auto"))
@@ -155,97 +155,94 @@ class Filler:
         self.device = None
         if self.fill_engine in _DEVICE_ENGINES or (has_in and count_engine == "device"):
             self.device = resolve_device(opts.get("device"))
-        trace_ctx = maybe_trace(opts.get("profile-trace"), self.device)
-        trace_ctx.__enter__()
-
-        t0 = time.time()
-        if has_in:
-          with self.phases.phase("graph build"):
-            self.graph = dbg.build_graph(
-                opts["in"],
-                int(opts.get("kmer-size", 31)),
-                opts.get("abundance-min", "auto"),
-                int(opts.get("abundance-max", 2147483647)),
-                count_engine=count_engine,
-                max_memory_mb=int(opts.get("max-memory", 2000)),
-                max_disk_mb=int(opts.get("max-disk", 0)),
-                tmp_prefix=str(opts.get("out-tmp", ".")) or None,
-                device=self.device,
-            )
-        else:
-          with self.phases.phase("graph load"):
-            sys.stderr.write("Loading the graph...")
-            self.graph = dbg.Graph.load(opts["graph"])
-            sys.stderr.write("done\n")
-        self.k = self.graph.k
-        with self.phases.phase("graph view (quotient map) build"):
-            layout = "bucket" if self.fill_engine == "device-qb" else "cuckoo"
-            self.view = GraphView(self.graph, layout=layout)
-        if self.fill_engine in ("auto", "native"):
-            # C++ per-job engine (native/traversal.cpp): whole
-            # construct_linear_seqs jobs run native, everything else
-            # (anchor matching, contig graph, dedup, writers) unchanged
-            if not self.view.enable_native(self.policy) and self.fill_engine == "native":
-                sys.stderr.write(
-                    "Warning: -fill-engine native unavailable (needs g++ and kmer-size <= 32); using host\n"
+        with self.phases.active(opts.get("profile-trace"), self.device):
+            t0 = time.time()
+            if has_in:
+              with self.phases.phase("graph build"):
+                self.graph = dbg.build_graph(
+                    opts["in"],
+                    int(opts.get("kmer-size", 31)),
+                    opts.get("abundance-min", "auto"),
+                    int(opts.get("abundance-max", 2147483647)),
+                    count_engine=count_engine,
+                    max_memory_mb=int(opts.get("max-memory", 2000)),
+                    max_disk_mb=int(opts.get("max-disk", 0)),
+                    tmp_prefix=str(opts.get("out-tmp", ".")) or None,
+                    device=self.device,
                 )
-
-        self.breakpoint_mode = has_bkpt
-        self.verbose = int(opts.get("verbose", 1))
-        self.nb_cores = int(opts.get("nb-cores", 0))
-        self.max_depth = int(opts.get("max-length", 10000))
-        self.max_nodes = int(opts.get("max-nodes", 100))
-        self.contig_trim_size = int(opts.get("overlap", 0))
-        if self.contig_trim_size == 0:
-            self.contig_trim_size = self.k
-        if self.contig_trim_size < self.k:
-            self.contig_trim_size = self.k
-            sys.stderr.write(
-                "Warning :  the contig overlap parameter should be greater or equal to kmer size, "
-                f"setting it to {self.k}\n"
-            )
-        self.filter = bool(opts.get("filter"))
-        self.fwd_only = bool(opts.get("fwd-only"))
-        self.extend = bool(opts.get("extend"))
-
-        self.insert_file_name = prefix + ".insertions.fasta"
-        self.insert_file = open(self.insert_file_name, "w")
-        self.insert_info_file_name = prefix + ".info.txt"
-        self.insert_info_file = open(self.insert_info_file_name, "w")
-        self.vcf_file = None
-        self.gfa_file = None
-        self.extension_file = None
-        if self.breakpoint_mode:
-            self.vcf_file_name = prefix + ".insertions.vcf"
-            self.vcf_file = open(self.vcf_file_name, "w")
-            self._write_vcf_header()
-        else:
-            self.gfa_file_name = prefix + ".gfa"
-            self.gfa_file = open(self.gfa_file_name, "w")
-        if self.extend:
-            self.extension_file_name = prefix + ".extensions.fasta"
-            self.extension_file = open(self.extension_file_name, "w")
-
-        bank_uri = opts["bkpt"] if self.breakpoint_mode else opts["contig"]
-        self.breakpoint_bank = Bank.open(bank_uri)
-
-        with self.phases.phase("fill jobs"):
-            if self.breakpoint_mode:
-                self._fill_breakpoints()
             else:
-                self._fill_contigs()
+              with self.phases.phase("graph load"):
+                sys.stderr.write("Loading the graph...")
+                self.graph = dbg.Graph.load(opts["graph"])
+                sys.stderr.write("done\n")
+            self.k = self.graph.k
+            with self.phases.phase("graph view (quotient map) build"):
+                layout = "bucket" if self.fill_engine == "device-qb" else "cuckoo"
+                self.view = GraphView(self.graph, layout=layout)
+            if self.fill_engine in ("auto", "native"):
+                # C++ per-job engine (native/traversal.cpp): whole
+                # construct_linear_seqs jobs run native, everything else
+                # (anchor matching, contig graph, dedup, writers) unchanged
+                if not self.view.enable_native(self.policy) and self.fill_engine == "native":
+                    sys.stderr.write(
+                        "Warning: -fill-engine native unavailable (needs g++ and kmer-size <= 32); using host\n"
+                    )
 
-        self.insert_file.close()
-        self.insert_info_file.close()
-        if self.vcf_file:
-            self.vcf_file.close()
-        if self.gfa_file:
-            self.gfa_file.close()
-        if self.extension_file:
-            self.extension_file.close()
+            self.breakpoint_mode = has_bkpt
+            self.verbose = int(opts.get("verbose", 1))
+            self.nb_cores = int(opts.get("nb-cores", 0))
+            self.max_depth = int(opts.get("max-length", 10000))
+            self.max_nodes = int(opts.get("max-nodes", 100))
+            self.contig_trim_size = int(opts.get("overlap", 0))
+            if self.contig_trim_size == 0:
+                self.contig_trim_size = self.k
+            if self.contig_trim_size < self.k:
+                self.contig_trim_size = self.k
+                sys.stderr.write(
+                    "Warning :  the contig overlap parameter should be greater or equal to kmer size, "
+                    f"setting it to {self.k}\n"
+                )
+            self.filter = bool(opts.get("filter"))
+            self.fwd_only = bool(opts.get("fwd-only"))
+            self.extend = bool(opts.get("extend"))
 
-        seconds = time.time() - t0
-        trace_ctx.__exit__(None, None, None)
+            self.insert_file_name = prefix + ".insertions.fasta"
+            self.insert_file = open(self.insert_file_name, "w")
+            self.insert_info_file_name = prefix + ".info.txt"
+            self.insert_info_file = open(self.insert_info_file_name, "w")
+            self.vcf_file = None
+            self.gfa_file = None
+            self.extension_file = None
+            if self.breakpoint_mode:
+                self.vcf_file_name = prefix + ".insertions.vcf"
+                self.vcf_file = open(self.vcf_file_name, "w")
+                self._write_vcf_header()
+            else:
+                self.gfa_file_name = prefix + ".gfa"
+                self.gfa_file = open(self.gfa_file_name, "w")
+            if self.extend:
+                self.extension_file_name = prefix + ".extensions.fasta"
+                self.extension_file = open(self.extension_file_name, "w")
+
+            bank_uri = opts["bkpt"] if self.breakpoint_mode else opts["contig"]
+            self.breakpoint_bank = Bank.open(bank_uri)
+
+            with self.phases.phase("fill jobs"):
+                if self.breakpoint_mode:
+                    self._fill_breakpoints()
+                else:
+                    self._fill_contigs()
+
+            self.insert_file.close()
+            self.insert_info_file.close()
+            if self.vcf_file:
+                self.vcf_file.close()
+            if self.gfa_file:
+                self.gfa_file.close()
+            if self.extension_file:
+                self.extension_file.close()
+
+            seconds = time.time() - t0
         info = self._resume(seconds)
         self.out.write(info.dump())
         return info
@@ -810,8 +807,7 @@ class Filler:
         info.add(3, "as_multiple_sequence", "%i", self.nb_multiple_fill)
         info.add(1, "Time", "%.1f s", seconds)
         if self.opts.get("profile"):
-            info.add(1, "Per-phase timings")
-            self.phases.add_to_info(info, 2)
+            self.phases.add_to_info(info, 1)
         info.add(1, "Output files")
         info.add(2, "assembled sequence file", self.insert_file_name)
         if self.breakpoint_mode:

@@ -25,6 +25,7 @@ Two routes from the scan to the automaton, chosen as in the JAX package:
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -35,6 +36,7 @@ from ..device import resolve_device
 from ..graph import dbg
 from ..io.bank import Bank
 from ..utils import dna
+from ..utils.phases import PhaseTimer, count, span
 from ..utils.progress import Progress
 from ..utils.properties import Properties
 from . import observers as O
@@ -183,6 +185,7 @@ def _window_feed(k: int, window: int, dispatch, emit):
         if npos <= 0:
             return
         nwin = -(-npos // step)
+        count("windows", nwin)
         pending = None
         for w in range(nwin):
             res = dispatch(codes[w * step : w * step + window])
@@ -199,10 +202,20 @@ def _pair_tables(graph, repeat_set, k: int, device: torch.device):
     stash_r), log_size); only the device copy lives on."""
     from ..ops import extmap as X
 
-    qp = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers)
+    with span("map build"):
+        qp = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers)
     _check_table_fits(qp.nbytes, [device])
-    t = qp.to(device)
+    t = _upload_map(qp, device)
     return (t.slots, t.stash_keys, t.stash_l, t.stash_r), qp.log_size
+
+
+def _upload_map(qm, device: torch.device):
+    """`qm.to(device)` (a QMap, QMapB, QMapP or QMapSpan) under the span
+    "upload", counting the bytes of the device tables."""
+    with span("upload"):
+        t = qm.to(device)
+        count("bytes uploaded", sum(v.nbytes for v in vars(t).values() if isinstance(v, torch.Tensor)))
+    return t
 
 
 def _build_span_map(graph, repeat_set, k: int):
@@ -210,14 +223,15 @@ def _build_span_map(graph, repeat_set, k: int):
     from ..ops import extmap as X
     from ..ops.span import Span
 
-    sp = Span(k)
-    spm1 = Span(k - 1)
-    solid_rows = sp.from_keys(graph.solid.keys)
-    if repeat_set.span is None:  # k = 33: the (k-1)-mer set is plain u64
-        rep_rows = np.asarray(repeat_set.keys, np.uint64).reshape(-1, 1)
-    else:
-        rep_rows = spm1.from_keys(repeat_set.keys)
-    return X.build_fused_span(solid_rows, k, rep_rows)
+    with span("map build"):
+        sp = Span(k)
+        spm1 = Span(k - 1)
+        solid_rows = sp.from_keys(graph.solid.keys)
+        if repeat_set.span is None:  # k = 33: the (k-1)-mer set is plain u64
+            rep_rows = np.asarray(repeat_set.keys, np.uint64).reshape(-1, 1)
+        else:
+            rep_rows = spm1.from_keys(repeat_set.keys)
+        return X.build_fused_span(solid_rows, k, rep_rows)
 
 
 def _span_tables(graph, repeat_set, k: int, device: torch.device):
@@ -226,7 +240,7 @@ def _span_tables(graph, repeat_set, k: int, device: torch.device):
     log_size)."""
     qms = _build_span_map(graph, repeat_set, k)
     _check_table_fits(qms.nbytes, [device])
-    t = qms.to(device)
+    t = _upload_map(qms, device)
     return (t.slots, t.sat, t.stash_key64, t.stash_sat, t.stash_payload, qms.salt, qms.log_size)
 
 
@@ -268,6 +282,7 @@ def _make_pay_feed_fn(graph, repeat_set, k: int, device: torch.device,
         n_exc = int(host["n_exc"])
         if n_exc > cap:
             # exception-heavy window: re-dispatch dense
+            count("dense re-dispatches", 1)
             r = scan_pay_qp(packed, bad, *targs, log_size, k)
             yield ("pay", r["pay8"].cpu().numpy()[:n_feed], r["rep8"].cpu().numpy(), None, n_feed)
         else:
@@ -344,7 +359,8 @@ def _sharded_dispatch(graph, repeat_set, k: int, mesh):
     from ..parallel import mesh as M
 
     if k <= 32:
-        qm, window = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers), 1 << 22
+        with span("map build"):
+            qm, window = X.build_fused_pair(graph.solid.kmers, k, repeat_set.kmers), 1 << 22
         make = M.make_sharded_scan_group_qp
     else:
         qm, window = _build_span_map(graph, repeat_set, k), 1 << 21
@@ -510,14 +526,15 @@ def _make_plane_fn(engine: str, graph, repeat_set, k: int, device: torch.device,
     from ..ops import extmap as X
     from .scan_device import scan_planes_q, scan_planes_qb
 
-    if engine == "device-qb":
-        qm = X.build_fused_bucket(graph.solid.kmers, k, repeat_set.kmers)
-        log, scan_fn = qm.log_nb, scan_planes_qb
-    else:
-        qm = X.build_fused(graph.solid.kmers, k, repeat_set.kmers)
-        log, scan_fn = qm.log_size, scan_planes_q
+    with span("map build"):
+        if engine == "device-qb":
+            qm = X.build_fused_bucket(graph.solid.kmers, k, repeat_set.kmers)
+            log, scan_fn = qm.log_nb, scan_planes_qb
+        else:
+            qm = X.build_fused(graph.solid.kmers, k, repeat_set.kmers)
+            log, scan_fn = qm.log_size, scan_planes_q
     _check_table_fits(qm.nbytes, [device])
-    t = qm.to(device)
+    t = _upload_map(qm, device)
     targs = (t.slots, t.stash_keys, t.stash_payload)
     del qm, t  # only the device copy is used from here
 
@@ -560,171 +577,168 @@ def run_find(opts: dict, out=None) -> Properties:
     scan_engine = opts.get("scan-engine", "auto")
     _validate_scan_engine(scan_engine)
 
-    from ..utils.phases import PhaseTimer, maybe_trace
-
     phases = PhaseTimer()
-    trace_ctx = maybe_trace(opts.get("profile-trace"), device)
-    trace_ctx.__enter__()
-
-    t0 = time.time()
-    if has_in:
-        with phases.phase("graph build"):
-            graph = dbg.build_graph(
-                opts["in"],
-                int(opts.get("kmer-size", 31)),
-                opts.get("abundance-min", "auto"),
-                int(opts.get("abundance-max", 2147483647)),
-                count_engine=str(opts.get("count-engine", "auto")),
-                max_memory_mb=int(opts.get("max-memory", 2000)),
-                max_disk_mb=int(opts.get("max-disk", 0)),
-                tmp_prefix=str(opts.get("out-tmp", ".")) or None,
-                device=device,
-            )
-            k = int(opts.get("kmer-size", 31))
-            graph.save(prefix + ".h5")
-    else:
-        with phases.phase("graph load"):
-            graph = dbg.Graph.load(opts["graph"])
-            k = graph.k
-
-    bed_file = opts.get("bed", "")
-
-    # mode flags (src/Finder.cpp:320-398)
-    homo_only = False
-    homo_insert = True
-    hete_insert = True
-    snp = True
-    backup = False
-    deletion = True
-    small_homo = True
-
-    if opts.get("homo-only"):
-        homo_only, homo_insert, hete_insert, snp, backup, deletion = True, True, False, True, False, True
-    if opts.get("insert-only"):
-        homo_only, homo_insert, hete_insert, snp, backup, deletion = False, True, True, False, False, False
-    if opts.get("snp-only"):
-        homo_only, homo_insert, hete_insert, snp, backup, deletion = True, False, False, True, False, False
-    if opts.get("deletion-only"):
-        homo_only, homo_insert, hete_insert, snp, backup, deletion = True, False, False, False, False, True
-    if opts.get("hete-only"):
-        homo_only, homo_insert, hete_insert, snp, backup, deletion = False, False, True, False, False, False
-    if opts.get("backup"):
-        backup = True
-    if opts.get("no-snp"):
-        snp = False
-    if opts.get("no-insert"):
-        homo_insert = False
-    if opts.get("no-deletion"):
-        deletion = False
-    if opts.get("no-hetero"):
-        hete_insert = False
-
-    max_repeat = int(opts.get("max-rep", 5))
-    het_max_occ = max(1, int(opts.get("het-max-occ", 1)))
-    snp_min_val = int(opts.get("snp-min-val", 5))
-    branching_threshold = int(opts.get("branching-filter", 15))
-
-    breakpoint_name = prefix + ".breakpoints"
-    vcf_name = prefix + ".othervariants.vcf"
-
-    ref_uri = opts["ref"]
-    with phases.phase("reference repeat set"):
-        repeat_set = dbg.build_repeat_set(ref_uri, k - 1, het_max_occ + 1)
-
-    from . import native_scan
-
-    # the native automaton unless -automaton host (any other value, as in
-    # the JAX package, takes the Python one too) or k > 256
-    use_native = opts.get("automaton", "auto") in ("auto", "native") and k <= 256
-
-    with open(breakpoint_name, "w") as bkpt_f, open(vcf_name, "w") as vcf_f:
-        _write_vcf_header(vcf_f, opts)
-
-        flags = dict(
-            max_repeat=max_repeat, snp_min_val=snp_min_val,
-            branching_threshold=branching_threshold, homo_only=homo_only,
-        )
-        if use_native:
-            ctx = native_scan.NativeScanner(
-                graph, repeat_set, k, **flags,
-                snp=snp, deletion=deletion, small_homo=small_homo,
-                homo_insert=homo_insert, backup=backup, hete_insert=hete_insert,
-            )
+    with phases.active(opts.get("profile-trace"), device):
+        t0 = time.time()
+        if has_in:
+            with phases.phase("graph build"):
+                graph = dbg.build_graph(
+                    opts["in"],
+                    int(opts.get("kmer-size", 31)),
+                    opts.get("abundance-min", "auto"),
+                    int(opts.get("abundance-max", 2147483647)),
+                    count_engine=str(opts.get("count-engine", "auto")),
+                    max_memory_mb=int(opts.get("max-memory", 2000)),
+                    max_disk_mb=int(opts.get("max-disk", 0)),
+                    tmp_prefix=str(opts.get("out-tmp", ".")) or None,
+                    device=device,
+                )
+                k = int(opts.get("kmer-size", 31))
+                with span("save"):
+                    graph.save(prefix + ".h5")
+                    count("bytes written", os.path.getsize(prefix + ".h5"))
         else:
-            ctx = ScanContext(graph, repeat_set, k, bkpt_f, vcf_f, **flags)
-            # registration order = priority (src/Finder.cpp:548-582)
-            if snp:
-                ctx.add_gap_observer(O.FindSoloSNP(ctx))
-                ctx.add_gap_observer(O.FindMultiSNP(ctx))
-                ctx.add_gap_observer(O.FindMultiSNPrev(ctx))
-            if deletion:
-                ctx.add_gap_observer(O.FindDeletion(ctx))
-            if small_homo:
-                ctx.add_gap_observer(O.FindSmallCleanInsertion(ctx))
-                ctx.add_gap_observer(O.FindSmallFuzzyInsertion(ctx))
-            if homo_insert:
-                ctx.add_gap_observer(O.FindCleanInsertion(ctx))
-                ctx.add_gap_observer(O.FindFuzzyInsertion(ctx))
-            if backup:
-                ctx.add_gap_observer(O.FindBackup(ctx))
-            if hete_insert:
-                ctx.add_kmer_observer(O.FindHeteroInsertion(ctx))
+            with phases.phase("graph load"):
+                graph = dbg.Graph.load(opts["graph"])
+                k = graph.k
 
-        refbank = Bank.open(ref_uri)
-        verbose = int(opts.get("verbose", 1))
-        progress = Progress(
-            refbank.estimate_sequences_size(), "Finding breakpoints", enabled=verbose > 0
-        )
-        with phases.phase("scan engine setup"):
-            # native automaton + a payload engine: the payload stream feeds
-            # the C scanner directly (no host plane expansion; replay
-            # overlaps device compute); every other combination takes the
-            # plane path. A replicated k <= 32 map over the budget on a
-            # mesh of more than one device reroutes `auto` and `sharded` to
-            # sharded-mem.
-            from ..parallel import distributed as D
-            from ..parallel import mesh as M
+        bed_file = opts.get("bed", "")
 
-            # in a run across processes the rank's devices, placed in the
-            # global mesh (a collective: every rank reaches it)
-            mesh = D.global_mesh(M.make_mesh(device))
-            engine = scan_engine
-            if k <= 32 and engine in ("auto", "sharded") and _over_budget_mesh(
-                    graph, int(opts.get("scan-memory", 0)), mesh):
-                engine = "sharded-mem"
-            pay_feed = plane_fn = None
-            if use_native and _feeds_payloads(engine, k):
-                if engine == "sharded":
-                    pay_feed = _make_sharded_pay_feed_fn(graph, repeat_set, k, mesh)
+        # mode flags (src/Finder.cpp:320-398)
+        homo_only = False
+        homo_insert = True
+        hete_insert = True
+        snp = True
+        backup = False
+        deletion = True
+        small_homo = True
+
+        if opts.get("homo-only"):
+            homo_only, homo_insert, hete_insert, snp, backup, deletion = True, True, False, True, False, True
+        if opts.get("insert-only"):
+            homo_only, homo_insert, hete_insert, snp, backup, deletion = False, True, True, False, False, False
+        if opts.get("snp-only"):
+            homo_only, homo_insert, hete_insert, snp, backup, deletion = True, False, False, True, False, False
+        if opts.get("deletion-only"):
+            homo_only, homo_insert, hete_insert, snp, backup, deletion = True, False, False, False, False, True
+        if opts.get("hete-only"):
+            homo_only, homo_insert, hete_insert, snp, backup, deletion = False, False, True, False, False, False
+        if opts.get("backup"):
+            backup = True
+        if opts.get("no-snp"):
+            snp = False
+        if opts.get("no-insert"):
+            homo_insert = False
+        if opts.get("no-deletion"):
+            deletion = False
+        if opts.get("no-hetero"):
+            hete_insert = False
+
+        max_repeat = int(opts.get("max-rep", 5))
+        het_max_occ = max(1, int(opts.get("het-max-occ", 1)))
+        snp_min_val = int(opts.get("snp-min-val", 5))
+        branching_threshold = int(opts.get("branching-filter", 15))
+
+        breakpoint_name = prefix + ".breakpoints"
+        vcf_name = prefix + ".othervariants.vcf"
+
+        ref_uri = opts["ref"]
+        with phases.phase("reference repeat set"):
+            repeat_set = dbg.build_repeat_set(ref_uri, k - 1, het_max_occ + 1)
+
+        from . import native_scan
+
+        # the native automaton unless -automaton host (any other value, as in
+        # the JAX package, takes the Python one too) or k > 256
+        use_native = opts.get("automaton", "auto") in ("auto", "native") and k <= 256
+
+        with open(breakpoint_name, "w") as bkpt_f, open(vcf_name, "w") as vcf_f:
+            _write_vcf_header(vcf_f, opts)
+
+            flags = dict(
+                max_repeat=max_repeat, snp_min_val=snp_min_val,
+                branching_threshold=branching_threshold, homo_only=homo_only,
+            )
+            if use_native:
+                ctx = native_scan.NativeScanner(
+                    graph, repeat_set, k, **flags,
+                    snp=snp, deletion=deletion, small_homo=small_homo,
+                    homo_insert=homo_insert, backup=backup, hete_insert=hete_insert,
+                )
+            else:
+                ctx = ScanContext(graph, repeat_set, k, bkpt_f, vcf_f, **flags)
+                # registration order = priority (src/Finder.cpp:548-582)
+                if snp:
+                    ctx.add_gap_observer(O.FindSoloSNP(ctx))
+                    ctx.add_gap_observer(O.FindMultiSNP(ctx))
+                    ctx.add_gap_observer(O.FindMultiSNPrev(ctx))
+                if deletion:
+                    ctx.add_gap_observer(O.FindDeletion(ctx))
+                if small_homo:
+                    ctx.add_gap_observer(O.FindSmallCleanInsertion(ctx))
+                    ctx.add_gap_observer(O.FindSmallFuzzyInsertion(ctx))
+                if homo_insert:
+                    ctx.add_gap_observer(O.FindCleanInsertion(ctx))
+                    ctx.add_gap_observer(O.FindFuzzyInsertion(ctx))
+                if backup:
+                    ctx.add_gap_observer(O.FindBackup(ctx))
+                if hete_insert:
+                    ctx.add_kmer_observer(O.FindHeteroInsertion(ctx))
+
+            refbank = Bank.open(ref_uri)
+            verbose = int(opts.get("verbose", 1))
+            progress = Progress(
+                refbank.estimate_sequences_size(), "Finding breakpoints", enabled=verbose > 0
+            )
+            with phases.phase("scan engine setup"):
+                # native automaton + a payload engine: the payload stream feeds
+                # the C scanner directly (no host plane expansion; replay
+                # overlaps device compute); every other combination takes the
+                # plane path. A replicated k <= 32 map over the budget on a
+                # mesh of more than one device reroutes `auto` and `sharded` to
+                # sharded-mem.
+                from ..parallel import distributed as D
+                from ..parallel import mesh as M
+
+                # in a run across processes the rank's devices, placed in the
+                # global mesh (a collective: every rank reaches it)
+                mesh = D.global_mesh(M.make_mesh(device))
+                engine = scan_engine
+                if k <= 32 and engine in ("auto", "sharded") and _over_budget_mesh(
+                        graph, int(opts.get("scan-memory", 0)), mesh):
+                    engine = "sharded-mem"
+                pay_feed = plane_fn = None
+                if use_native and _feeds_payloads(engine, k):
+                    if engine == "sharded":
+                        pay_feed = _make_sharded_pay_feed_fn(graph, repeat_set, k, mesh)
+                    else:
+                        pay_feed = _make_pay_feed_fn(graph, repeat_set, k, device)
                 else:
-                    pay_feed = _make_pay_feed_fn(graph, repeat_set, k, device)
-            else:
-                plane_fn = _make_plane_fn(engine, graph, repeat_set, k, device, mesh)
-        for rec in refbank:
-            codes = dna.seq_to_codes(rec.seq)
-            bed_intervals = None
-            if bed_file:
-                bed_intervals = parse_bed_for_chrom(bed_file, rec.comment_short, k)
-            if pay_feed is not None:
-                with phases.phase("scan+replay (fused)"):
-                    ctx.scan_sequence_pay(rec.comment_short, rec.seq, pay_feed(codes), bed_intervals)
-            else:
-                with phases.phase("scan planes"):
-                    planes = plane_fn(codes)
-                with phases.phase("automaton replay"):
-                    ctx.scan_sequence(rec.comment_short, rec.seq, planes, bed_intervals)
-            progress.inc(len(rec.seq))
-        progress.finish()
+                    plane_fn = _make_plane_fn(engine, graph, repeat_set, k, device, mesh)
+            for rec in refbank:
+                codes = dna.seq_to_codes(rec.seq)
+                bed_intervals = None
+                if bed_file:
+                    bed_intervals = parse_bed_for_chrom(bed_file, rec.comment_short, k)
+                if pay_feed is not None:
+                    with phases.phase("scan+replay (fused)"):
+                        ctx.scan_sequence_pay(rec.comment_short, rec.seq, pay_feed(codes), bed_intervals)
+                else:
+                    with phases.phase("scan planes"):
+                        planes = plane_fn(codes)
+                    with phases.phase("automaton replay"):
+                        ctx.scan_sequence(rec.comment_short, rec.seq, planes, bed_intervals)
+                progress.inc(len(rec.seq))
+            progress.finish()
 
-        if use_native:
-            bkpt_text, vcf_text, native_stats = ctx.results()
-            bkpt_f.write(bkpt_text)
-            vcf_f.write(vcf_text)
-            ctx.close()
-            ctx = _StatsHolder(FindStats(**native_stats))
+            if use_native:
+                bkpt_text, vcf_text, native_stats = ctx.results()
+                bkpt_f.write(bkpt_text)
+                vcf_f.write(vcf_text)
+                ctx.close()
+                ctx = _StatsHolder(FindStats(**native_stats))
 
-    seconds = time.time() - t0
-    trace_ctx.__exit__(None, None, None)
+        seconds = time.time() - t0
     info = _resume(opts, graph, ctx, k, device, seconds, breakpoint_name, vcf_name,
                    max_repeat, het_max_occ, branching_threshold,
                    homo_insert, hete_insert, snp, deletion, bed_file,
@@ -803,8 +817,7 @@ def _resume(opts, graph, ctx, k, device, seconds, bkpt_name, vcf_name,
     info.add(2, "SNPs", "%i", s.solo_snp + s.multi_snp)
     info.add(1, "Time", "%.1f s", seconds)
     if phases is not None:
-        info.add(1, "Per-phase timings")
-        phases.add_to_info(info, 2)
+        phases.add_to_info(info, 1)
     info.add(1, "Output files")
     if opts.get("in"):
         info.add(2, "graph_file", "%s.h5", opts["out"])

@@ -22,6 +22,7 @@ import numpy as np
 
 from ..ops import counting, kmers as K
 from ..ops.span import Span, canonical_int, revcomp_int
+from ..utils.phases import count, span
 
 
 class SolidSet:
@@ -349,10 +350,12 @@ def build_graph(
         n_solid = int(keys.size)
     else:
         res = counter.result()
-        cutoff = counting.auto_cutoff(res.histogram) if auto else int(abundance_min)
-        keep = (res.counts >= cutoff) & (res.counts <= abundance_max)
-        solid = SolidSet(res.kmers[keep], k, res.counts[keep])
-        n_solid = int(keep.sum())
+        with span("solid filter"):
+            cutoff = counting.auto_cutoff(res.histogram) if auto else int(abundance_min)
+            keep = (res.counts >= cutoff) & (res.counts <= abundance_max)
+            solid = SolidSet(res.kmers[keep], k, res.counts[keep])
+            n_solid = int(keep.sum())
+            count("solid k-mers", n_solid)
 
     info = {
         "kmers_nb_solid": n_solid,
@@ -363,7 +366,8 @@ def build_graph(
     if auto:
         info["cutoffs_auto.values"] = f"{cutoff} "
     g = Graph(solid, info)
-    g.info["nb_branching"] = g.nb_branching()
+    with span("branching"):
+        g.info["nb_branching"] = g.nb_branching()
     return g
 
 

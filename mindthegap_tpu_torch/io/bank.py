@@ -87,10 +87,16 @@ def iter_codes(uri: str):
     parser when available (mindthegap_tpu/io/cbank.py), else the python
     reader. This is the graph-build ingestion path."""
     from ..utils import dna
+    from ..utils.phases import count, span
     from . import cbank
 
     for path in _expand_uri(uri):
-        parsed = cbank.parse_codes(path) if cbank.available() else None
+        parsed = None
+        if cbank.available():
+            with span("parse"):
+                parsed = cbank.parse_codes(path)
+                if parsed is not None:
+                    count("bases", parsed[1].size)
         if parsed is not None:
             headers, codes, offsets = parsed
             for i, h in enumerate(headers):

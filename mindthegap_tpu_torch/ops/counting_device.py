@@ -33,6 +33,7 @@ import torch
 
 from ..device import check_kernel_tensor, launch
 from ..find.scan_device import pack_codes_host, rolling_kmers, unpack_codes
+from ..utils.phases import count, span
 from . import kmers as K
 
 SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -122,35 +123,40 @@ class DeviceStreamingCounter:
         blen = self._batch
         if self._fill < self._batch:
             blen = min(max(1 << 17, 1 << (self._fill - 1).bit_length()), self._batch)
-        packed, bad = pack_codes_host(buf[:blen])
-        b = sort_batch(torch.from_numpy(packed).to(self.device),
-                       torch.from_numpy(bad).to(self.device), self.k)
-        # sync the PREVIOUS flush while the device starts on this batch
-        prev, self._pending = self._pending, None
-        if prev is not None:
-            self._sync(prev)
-        if self._acc is None:
-            self._acc = (
-                torch.full((self._cap,), BIASED_SENTINEL, dtype=torch.int64, device=self.device),
-                torch.zeros(self._cap, dtype=torch.int64, device=self.device),
-            )
-        # merge only the occupied prefix of the accumulator, at a
-        # power-of-two length (floor 2^17)
-        alen = int(self._acc[0].shape[0])
-        m_pad = min(1 << max(0, (max(self._acc_n, 1) - 1).bit_length(), 17), alen)
-        m = merge_sorted(self._acc[0][:m_pad], self._acc[1][:m_pad], b, self._cap)
-        self._pending = (self._acc, b, m, self._cap)
-        self._acc = (m[0], m[1])
-        self._cur ^= 1
-        self._fill = 0
-        self._bufs[self._cur][:] = SEP
+        with span("flush"):
+            packed, bad = pack_codes_host(buf[:blen])
+            b = sort_batch(torch.from_numpy(packed).to(self.device),
+                           torch.from_numpy(bad).to(self.device), self.k)
+            count("flushes", 1)
+            count("bytes uploaded", packed.nbytes + bad.nbytes)
+            # sync the PREVIOUS flush while the device starts on this batch
+            prev, self._pending = self._pending, None
+            if prev is not None:
+                self._sync(prev)
+            if self._acc is None:
+                self._acc = (
+                    torch.full((self._cap,), BIASED_SENTINEL, dtype=torch.int64, device=self.device),
+                    torch.zeros(self._cap, dtype=torch.int64, device=self.device),
+                )
+            # merge only the occupied prefix of the accumulator, at a
+            # power-of-two length (floor 2^17)
+            alen = int(self._acc[0].shape[0])
+            m_pad = min(1 << max(0, (max(self._acc_n, 1) - 1).bit_length(), 17), alen)
+            m = merge_sorted(self._acc[0][:m_pad], self._acc[1][:m_pad], b, self._cap)
+            self._pending = (self._acc, b, m, self._cap)
+            self._acc = (m[0], m[1])
+            self._cur ^= 1
+            self._fill = 0
+            self._bufs[self._cur][:] = SEP
 
     def _sync(self, prev):
         acc_prev, b, m, cap = prev
-        nd = int(m[2])
+        with span("wait"):
+            nd = int(m[2])
         if nd > cap:
             # capacity overflow: the truncated merge is wrong; grow and redo
             # from the kept inputs (both still alive on the device)
+            count("merge regrowths", 1)
             while nd > self._cap:
                 self._cap *= 2
             m = merge_sorted(acc_prev[0], acc_prev[1], b, self._cap)
@@ -162,31 +168,38 @@ class DeviceStreamingCounter:
         from .counting import HISTOGRAM_MAX, CountResult
 
         self._flush()
-        if self._pending is not None:
-            self._sync(self._pending)
-            self._pending = None
-        if self._acc is None:
-            return CountResult(
-                np.zeros(0, np.uint64), np.zeros(0, np.int64),
-                np.zeros(HISTOGRAM_MAX + 1, np.int64), self.k,
-            )
-        n = self._acc_n
-        # read back a 2^17-granular prefix
-        gran = 1 << 17
-        n_pad = min(-(-max(n, 1) // gran) * gran, int(self._acc[0].shape[0]))
-        # counts come back as clamped u8 + a compacted exception list
-        # (count > 255): 1 B per distinct k-mer instead of 8
-        c8, eidx, evals, n_exc_d = pack_counts(self._acc[1][:n_pad], _EXC_CAP)
-        keys = _unbias(self._acc[0][:n_pad])[:n]
-        n_exc = int(n_exc_d)
-        if n_exc <= _EXC_CAP:
-            counts = c8.cpu().numpy()[:n].astype(np.int64)
-            if n_exc:
-                m = min(1 << (n_exc - 1).bit_length(), _EXC_CAP)  # pow2 slice
-                ei = eidx[:m].cpu().numpy()[:n_exc]
-                counts[ei] = evals[:m].cpu().numpy()[:n_exc]
-        else:  # more exceptions than the fixed cap: full-width readback
-            counts = self._acc[1][:n_pad].cpu().numpy()[:n].astype(np.int64)
+        with span("readback"):
+            if self._pending is not None:
+                self._sync(self._pending)
+                self._pending = None
+            if self._acc is None:
+                return CountResult(
+                    np.zeros(0, np.uint64), np.zeros(0, np.int64),
+                    np.zeros(HISTOGRAM_MAX + 1, np.int64), self.k,
+                )
+            n = self._acc_n
+            # read back a 2^17-granular prefix
+            gran = 1 << 17
+            n_pad = min(-(-max(n, 1) // gran) * gran, int(self._acc[0].shape[0]))
+            # counts come back as clamped u8 + a compacted exception list
+            # (count > 255): 1 B per distinct k-mer instead of 8
+            c8, eidx, evals, n_exc_d = pack_counts(self._acc[1][:n_pad], _EXC_CAP)
+            keys = _unbias(self._acc[0][:n_pad])[:n]
+            n_exc = int(n_exc_d)
+            back = 8 * n_pad + n_exc_d.element_size()
+            if n_exc <= _EXC_CAP:
+                counts = c8.cpu().numpy()[:n].astype(np.int64)
+                back += n_pad
+                if n_exc:
+                    m = min(1 << (n_exc - 1).bit_length(), _EXC_CAP)  # pow2 slice
+                    ei = eidx[:m].cpu().numpy()[:n_exc]
+                    counts[ei] = evals[:m].cpu().numpy()[:n_exc]
+                    back += m * (eidx.element_size() + evals.element_size())
+            else:  # more exceptions than the fixed cap: full-width readback
+                counts = self._acc[1][:n_pad].cpu().numpy()[:n].astype(np.int64)
+                back += 8 * n_pad
+            count("distinct k-mers", n)
+            count("bytes read back", back)
         hist = np.zeros(HISTOGRAM_MAX + 1, np.int64)
         np.add.at(hist, np.minimum(counts, HISTOGRAM_MAX), 1)
         return CountResult(keys, counts, hist, self.k)

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import check_kernel_tensor
+from ..utils.phases import count, span
 from . import kmers as K
 
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -398,29 +399,33 @@ def build_fused_pair(solid_canonical: np.ndarray, k: int, repeat_canonical: np.n
     n_est = max(int(solid.size) + int(repeat.size), 4)
     log1 = max(12, int(np.ceil(np.log2(n_est / load_factor))))
     log2s = max(19, int(np.ceil(np.log2(n_est / load_factor))))
-    for _ in range(5):
-        t1_keys = np.full(1 << log1, EMPTY, np.uint64)
-        t1_vals = np.zeros(1 << log1, np.uint16)
-        t1_choice = np.zeros(1 << log1, np.uint8)
-        t2_keys = np.full(1 << log2s, EMPTY, np.uint64)
-        t2_choice = np.zeros(1 << log2s, np.uint8)
-        slots2 = np.zeros((1 << log2s, 2), np.uint64)
-        stash_k = np.zeros(64, np.uint64)
-        stash_l = np.zeros(64, np.uint64)
-        stash_r = np.zeros(64, np.uint64)
-        rc = lib.qpmap_build(
-            _ptr(solid), solid.size, k, _ptr(repeat), repeat.size, log1, log2s,
-            _ptr(t1_keys), _ptr(t1_vals), _ptr(t1_choice), _ptr(t2_keys), _ptr(t2_choice),
-            _ptr(slots2), _ptr(stash_k), _ptr(stash_l), _ptr(stash_r), 64,
-        )
-        if rc >= 0:
-            sk, sl, sr = _sorted_stash(stash_k, stash_l, stash_r, n=int(rc))
-            return QMapP(slots2, log2s, k, sk, sl, sr)
-        if rc == -1:
-            log1 += 1
+    with span("place"):
+        for attempt in range(1, 6):
+            t1_keys = np.full(1 << log1, EMPTY, np.uint64)
+            t1_vals = np.zeros(1 << log1, np.uint16)
+            t1_choice = np.zeros(1 << log1, np.uint8)
+            t2_keys = np.full(1 << log2s, EMPTY, np.uint64)
+            t2_choice = np.zeros(1 << log2s, np.uint8)
+            slots2 = np.zeros((1 << log2s, 2), np.uint64)
+            stash_k = np.zeros(64, np.uint64)
+            stash_l = np.zeros(64, np.uint64)
+            stash_r = np.zeros(64, np.uint64)
+            rc = lib.qpmap_build(
+                _ptr(solid), solid.size, k, _ptr(repeat), repeat.size, log1, log2s,
+                _ptr(t1_keys), _ptr(t1_vals), _ptr(t1_choice), _ptr(t2_keys), _ptr(t2_choice),
+                _ptr(slots2), _ptr(stash_k), _ptr(stash_l), _ptr(stash_r), 64,
+            )
+            if rc >= 0:
+                sk, sl, sr = _sorted_stash(stash_k, stash_l, stash_r, n=int(rc))
+                break
+            if rc == -1:
+                log1 += 1
+            else:
+                log2s += 1
         else:
-            log2s += 1
-    raise RuntimeError("pair map build: placement failed at every table size")
+            raise RuntimeError("pair map build: placement failed at every table size")
+    count("placement attempts", attempt)
+    return QMapP(slots2, log2s, k, sk, sl, sr)
 
 
 def qp_probe(qp: QMapP, keys: torch.Tensor, choice: int):
@@ -690,7 +695,6 @@ def build_fused_span(solid_rows: np.ndarray, k: int, repeat_rows: np.ndarray,
     set (rows of ceil(k/32) words) plus the repeat bit from the (k-1)-mer
     repeat rows, quotient-encoded with satellite word planes."""
     from .span import Span
-    from .span_device import digest64
 
     sp = Span(k)
     spm1 = Span(k - 1)
@@ -698,6 +702,21 @@ def build_fused_span(solid_rows: np.ndarray, k: int, repeat_rows: np.ndarray,
     solid_rows = np.asarray(solid_rows, np.uint64).reshape(-1, sp.W)
     repeat_rows = np.asarray(repeat_rows, np.uint64).reshape(-1, wq)
 
+    with span("keys"):
+        rows, vals, dig_s, salt, redraws = _span_keys(sp, spm1, solid_rows, k, repeat_rows)
+    count("placement attempts", 1 + redraws)
+    with span("place"):
+        return _span_place(rows, vals, dig_s, salt, wq, load_factor)
+
+
+def _span_keys(sp, spm1, solid_rows: np.ndarray, k: int, repeat_rows: np.ndarray):
+    """build_fused_span's keys: the (k-1)-mer edge rows of both strands and
+    the repeat rows, deduplicated by void keys with their payload bits ORed,
+    and their salted digests. Returns (rows, payloads, salted digests,
+    salt, salt redraws)."""
+    from .span_device import digest64
+
+    wq = spm1.W
     rows_parts, bits_parts = [], []
     fwd = solid_rows
     orientations = (fwd, sp.revcomp(fwd)) if fwd.size else (fwd,)
@@ -749,13 +768,23 @@ def build_fused_span(solid_rows: np.ndarray, k: int, repeat_rows: np.ndarray,
         rows = rows_all
         vals = bits_all
 
+    count("rows before dedup", rows_all.shape[0])
+    count("rows after dedup", rows.shape[0])
     dig = digest64(rows.T) if rows.shape[0] else np.zeros(0, np.uint64)
     salt = np.uint64(0)
+    redraws = 0
     rng = np.random.default_rng(0xD1CE)
     while rows.shape[0] and bool(((dig ^ salt) == EMPTY).any()):
         salt = np.uint64(rng.integers(0, 1 << 63, dtype=np.uint64))
-    dig_s = dig ^ salt
+        redraws += 1
+    return rows, vals, dig ^ salt, salt, redraws
 
+
+def _span_place(rows: np.ndarray, vals: np.ndarray, dig_s: np.ndarray, salt, wq: int,
+                load_factor: float) -> QMapSpan:
+    """build_fused_span's table: the salted digests placed (_place), the
+    slots quotient-encoded with each row's payload, the satellite word
+    planes and the stash."""
     em = _place(dig_s, np.arange(max(rows.shape[0], 1), dtype=np.uint32)[: rows.shape[0]]
                 if rows.shape[0] else np.zeros(0, np.uint32),
                 load_factor, min_log=12)

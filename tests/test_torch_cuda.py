@@ -826,3 +826,41 @@ def test_mesh_paths_across_cards(cuda, tmp_path, monkeypatch):
         drop = ("##filedate", "##REF")
         tn, td = ([line for line in open(f"{p}.{ext}") if not line.startswith(drop)] for p in ("tn", "td"))
         assert tn and tn == td, ext
+
+
+def test_profile_trace_spans_hold_their_device_work(cuda, tmp_path, monkeypatch):
+    """A `find -in -count-engine device -profile-trace` run on the card:
+    the run's largest host-to-device copy, the scan map's, lies inside the
+    range "scan engine setup / upload", and the i-th K3 (kmer_keys_kernel,
+    one a flush, in launch order on one stream) starts after the start of
+    the i-th "graph build / flush" range."""
+    import json
+
+    import chip_smoke as CS
+    from mindthegap_tpu_torch.find.runner import run_find
+    from mindthegap_tpu_torch.ops.counting_device import DeviceStreamingCounter
+
+    ref, donor, _ = CS.make_case(40_000, n_ins=3, n_snp=1, n_del=1, seed=23)
+    monkeypatch.chdir(tmp_path)
+    CS.write_fasta("ref.fa", CS.CHROM, ref)
+    reads = CS.write_reads(str(tmp_path / "reads"), donor, 30.0, seed=24)
+    # staging buffers of 2^18 bases: several flushes
+    monkeypatch.setattr(DeviceStreamingCounter.__init__, "__defaults__", (1 << 18, 1 << 20))
+    run_find({"in": reads, "ref": "ref.fa", "out": "t", "count-engine": "device", "verbose": "0",
+              "profile-trace": str(tmp_path / "trace")}, out=io.StringIO())
+    events = [e for e in json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+
+    def spans(name, cat="user_annotation"):
+        return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                      if e.get("cat") == cat and e["name"] == name)
+
+    (up_s, up_e), = spans("scan engine setup / upload")
+    htod = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    big = max(htod, key=lambda e: (e.get("args", {}).get("bytes", 0), e["dur"]))
+    assert up_s <= float(big["ts"]) and float(big["ts"]) + float(big["dur"]) <= up_e
+    flushes = spans("graph build / flush")
+    k3 = sorted(float(e["ts"]) for e in events if e.get("cat") == "kernel" and "kmer_keys_kernel" in e["name"])
+    assert len(flushes) > 1 and len(k3) == len(flushes)
+    for (f_s, _f_e), t in zip(flushes, k3):
+        assert t >= f_s

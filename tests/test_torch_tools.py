@@ -142,8 +142,183 @@ def test_profile_phase_names_match_jax(case, tmp_path, which):
         run(opts, out=out)
         reports[name, profile] = out.getvalue()
     assert "Per-phase timings" not in reports["port", False]
-    names = _phase_names(reports["port", True])
+    # the JAX run has no nested spans: its names are the port's top-level ones
+    names = [name for name in _phase_names(reports["port", True]) if " / " not in name]
     assert names and names == _phase_names(reports["jax", True])
+
+
+def _sections(report: str):
+    """The "Per-phase timings" ({path: seconds}, in order) and "Per-phase
+    counts" ({key: n}) of a report, and whether the counts follow the
+    timings at once."""
+    lines = report.splitlines()
+    head = next(i for i, line in enumerate(lines) if line.strip() == "Per-phase timings")
+    timings = {}
+    i = head + 1
+    while m := re.match(r"^ {8}(\S.*?)\s*: ([\d.]+) s$", lines[i]):
+        timings[m.group(1)] = float(m.group(2))
+        i += 1
+    follows = lines[i].strip() == "Per-phase counts"
+    counts = {}
+    for line in lines[i + 1:]:
+        m = re.match(r"^ {8}(\S.*?)\s*: (\d+)$", line)
+        if not m:
+            break
+        counts[m.group(1)] = int(m.group(2))
+    return timings, counts, follows
+
+
+SPAN_ROWS = {  # k -> the span table's rows that a `find -in -count-engine device` run passes through
+    31: ("graph build / parse", "graph build / flush", "graph build / flush / wait", "graph build / readback",
+         "graph build / solid filter", "graph build / branching", "graph build / save",
+         "scan engine setup / map build", "scan engine setup / map build / place", "scan engine setup / upload",
+         "scan+replay (fused)"),
+    # above k = 32 the reads are counted on the host: no flush, no readback
+    45: ("graph build / parse", "graph build / solid filter", "graph build / branching", "graph build / save",
+         "scan engine setup / map build", "scan engine setup / map build / keys",
+         "scan engine setup / map build / place", "scan engine setup / upload", "scan+replay (fused)"),
+}
+
+
+@pytest.mark.parametrize("k", [31, 45])
+def test_profile_span_tree(case, tmp_path, monkeypatch, k):
+    """`find -in -count-engine device -profile`: every span the run passes
+    through is in "Per-phase timings", each parent before its children and
+    each child's seconds at most its parent's; "Per-phase counts" follows,
+    each count under a span of the report (distinct k-mers >= solid ones).
+    With no profiler running no record_function range is entered."""
+    import torch
+
+    from mindthegap_tpu_torch.ops.counting_device import DeviceStreamingCounter
+
+    root, reads = case
+    # small staging buffers and accumulator: several flushes and a regrowth
+    monkeypatch.setattr(DeviceStreamingCounter.__init__, "__defaults__", (1 << 18, 1 << 14))
+    entered = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: entered.append(name))
+    out = io.StringIO()
+    port_find({"in": reads, "ref": str(root / "ref.fa"), "out": str(tmp_path / "t"), "kmer-size": str(k),
+               "count-engine": "device", "device": "cpu", "verbose": "0", "profile": True}, out=out)
+    assert entered == []
+    timings, counts, follows = _sections(out.getvalue())
+    assert follows
+    paths = list(timings)
+    for row in SPAN_ROWS[k]:
+        assert row in timings, row
+    for i, path in enumerate(paths):
+        if " / " in path:
+            parent = path.rsplit(" / ", 1)[0]
+            assert parent in paths[:i], path
+            assert timings[path] <= timings[parent], path
+    for key in counts:
+        assert key.rsplit(" / ", 1)[0] in timings, key
+    assert counts["graph build / parse / bases"] > 0
+    assert counts["scan engine setup / upload / bytes uploaded"] > 0
+    assert counts["scan+replay (fused) / windows"] >= 1
+    if k == 31:
+        assert counts["graph build / flush / flushes"] > 1
+        assert counts["graph build / flush / merge regrowths"] >= 1
+        assert counts["graph build / readback / distinct k-mers"] >= counts["graph build / solid filter / solid k-mers"]
+    else:
+        assert counts["scan engine setup / map build / keys / rows before dedup"] >= \
+            counts["scan engine setup / map build / keys / rows after dedup"]
+
+
+def test_phase_timer_nests_spans_and_counts():
+    """PhaseTimer: a span is the child of the innermost open one, its path
+    registered at first entry and its seconds summed over entries; each
+    pass is a record on perf_counter's clock, inside its parent's; a count
+    belongs to the innermost open span; span() and count() do nothing
+    without a current timer."""
+    from mindthegap_tpu_torch.utils import phases as P
+    from mindthegap_tpu_torch.utils.properties import Properties
+
+    with P.span("x"):
+        P.count("n", 5)
+    timer = P.PhaseTimer()
+    with timer.active():
+        with timer.phase("a"):
+            for _ in range(2):
+                with P.span("b"):
+                    P.count("n", 3)
+                    with P.span("c"):
+                        pass
+            P.count("m", 1)
+        with timer.phase("d"):
+            pass
+    assert P._CURRENT.get() is None
+    assert list(timer._acc) == ["a", "a / b", "a / b / c", "d"]
+    assert timer._counts == {"a / b / n": 6, "a / m": 1}
+    recs = {}
+    for r in timer.records:
+        recs.setdefault(r.path, []).append(r)
+    assert [len(recs[p]) for p in timer._acc] == [1, 2, 2, 1]
+    for r in timer.records:
+        assert r.start <= r.end
+        if r.parent is not None:
+            assert r.path == r.parent + " / " + r.path.rsplit(" / ", 1)[1]
+            assert any(p.start <= r.start and r.end <= p.end for p in recs[r.parent])
+    assert timer._acc["a / b"] == pytest.approx(sum(r.end - r.start for r in recs["a / b"]))
+    info = Properties()
+    timer.add_to_info(info, 1)
+    lines = info.dump().splitlines()
+    assert [line.strip().split(" :")[0].strip() for line in lines] == [
+        "Per-phase timings", "a", "a / b", "a / b / c", "d", "Per-phase counts", "a / b / n", "a / m"]
+    assert lines[-2].endswith(": 6") and re.search(r": \d+\.\d{3} s$", lines[1])
+
+
+def test_failed_job_leaves_no_timer_or_profiler(case, tmp_path, monkeypatch):
+    """A job that raises inside a nested span, under -profile-trace, leaves
+    no current timer and no running profiler; the next job's spans nest
+    under its own phases only."""
+    import torch
+
+    from mindthegap_tpu_torch.ops import extmap
+    from mindthegap_tpu_torch.utils import phases
+
+    root, _ = case
+    opts = {"graph": str(root / "jax" / "t.h5"), "ref": str(root / "ref.fa"), "device": "cpu", "verbose": "0",
+            "profile": True}
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("placement broke")
+
+    with monkeypatch.context() as m:
+        m.setattr(extmap, "_sorted_stash", broken)
+        with pytest.raises(RuntimeError, match="placement broke"):
+            port_find(dict(opts, out=str(tmp_path / "bad"), **{"profile-trace": str(tmp_path / "trace")}),
+                      out=io.StringIO())
+    assert phases._CURRENT.get() is None
+    assert not torch.autograd._profiler_enabled()
+    out = io.StringIO()
+    port_find(dict(opts, out=str(tmp_path / "good")), out=out)
+    timings, _counts, _ = _sections(out.getvalue())
+    assert [p for p in timings if " / " not in p] == ["graph load", "reference repeat set", "scan engine setup",
+                                                      "scan+replay (fused)"]
+    assert "scan engine setup / map build / place" in timings
+
+
+def test_profile_trace_holds_the_spans(case, tmp_path):
+    """Under -profile-trace each span path of the report is a
+    user_annotation range of the Chrome trace, and each child's range lies
+    inside one of its parent's."""
+    root, reads = case
+    out = io.StringIO()
+    port_find({"in": reads, "ref": str(root / "ref.fa"), "out": str(tmp_path / "t"), "count-engine": "device",
+               "device": "cpu", "verbose": "0", "profile": True, "profile-trace": str(tmp_path / "trace")}, out=out)
+    timings, _counts, _ = _sections(out.getvalue())
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    ranges = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    assert set(timings) <= set(ranges)
+    for path in timings:
+        if " / " not in path:
+            continue
+        parents = ranges[path.rsplit(" / ", 1)[0]]
+        for s, e in ranges[path]:
+            assert any(ps <= s and e <= pe for ps, pe in parents), path
 
 
 def _graphs(tmp_path):
