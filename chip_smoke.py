@@ -12,7 +12,7 @@ Phases, each of which must pass (any failure exits non-zero):
      K8, K9 and K15 (csrc/scan_planes.cu), K11 (csrc/sharded_count.cu),
      K12 and K13 (csrc/sharded_member.cu), K14 (csrc/scan_sorted.cu), the
      bucket index build of K13 and K14 (csrc/sorted_index.cu), K16
-     (csrc/scan_planes_span.cu);
+     (csrc/scan_planes_span.cu), K17 (csrc/branching.cu);
   3. hold each kernel against its plain PyTorch version on the card, exactly,
      at the main path's shapes, and time both sides: K1 (the whole
      scan_cls_qp, its exception compaction included) on a full 2^22-base
@@ -66,13 +66,19 @@ Phases, each of which must pass (any failure exits non-zero):
      the shards and the edge sets (its own too), with the solid set's
      build and the first and the last (SENTINEL-tailed) shard's by launch,
      beside torch.searchsorted of the bucket numbers; the sharded counter on 4 logical shards with
-     its capacity forced to overflow, against the host counter. The edge cases
+     its capacity forced to overflow, against the host counter; K17 (the
+     branching count) on the solid set, through its bucket index at about
+     1, 2 and 4 keys a bucket, against its plain version and the host
+     function Graph.nb_branching (timed: the path it replaces), by launch,
+     beside a torch.searchsorted route, and on its edge sets
+     (branching_edge_sets). The edge cases
      come from tests/torch_tables.py (scan_edge_windows, key_edge_batches,
      merge_edge_cases, edge_walk_case, span_edge_windows,
      edge_walk_span_case, plane_edge_windows, plane_pipeline_case,
      swizzle_edge_chunks, member_edge_cases, route_edge_cases,
      scatter_edge_cases, sorted_edge_windows, pair_pipeline_case,
-     index_edge_sets, pair_tile_case, span_tile_case), the generators the CUDA tests use, so the smoke and
+     index_edge_sets, pair_tile_case, span_tile_case,
+     branching_edge_sets), the generators the CUDA tests use, so the smoke and
      tests/test_torch_cuda.py check the same inputs; the script needs the
      checkout's tests/ directory for them.
      Each kernel's bound is the
@@ -985,6 +991,7 @@ def _reset_launches():
     """Set every kernel's launch count to 0; returns a reader of the counts."""
     from mindthegap_tpu_torch.fill import walk_device as W
     from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.ops import branching_device as BR
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
     from mindthegap_tpu_torch.ops import sorted_index as SI
@@ -999,7 +1006,8 @@ def _reset_launches():
                 "swizzle_keys": SC.swizzle_keys_cuda, "member_route": SM.member_route_cuda,
                 "member_probe": SM.member_probe_cuda, "member_scatter": SM.member_scatter_cuda,
                 "scan_planes_sorted": S.scan_planes_sorted_cuda, "sorted_index": SI.build_cuda,
-                "scan_planes_qp": S.scan_planes_qp_cuda, "scan_planes_q_span": S.scan_planes_q_span_cuda}
+                "scan_planes_qp": S.scan_planes_qp_cuda, "scan_planes_q_span": S.scan_planes_q_span_cuda,
+                "branching": BR.branching_cuda}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
@@ -1045,7 +1053,7 @@ def main_path(work: str, insertions, reads: str) -> dict:
     k2, plain = ND.nw_matches_cuda(seq.cuda(), off.cuda()), ND._nw_matches_plain(seq.cuda(), off.cuda())
     if not torch.equal(k2, plain):
         raise AssertionError(f"K2 {k2.tolist()} != plain {plain.tolist()} on the nwalign pair")
-    for name in ("scan_cls_qp", "nw_matches"):
+    for name in ("scan_cls_qp", "nw_matches", "branching"):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     cpu_s = _run([sys.executable, "-m", "mindthegap_tpu_torch", "find", "-graph", "t.h5",
@@ -1789,6 +1797,67 @@ def check_mesh_kernels(ref: np.ndarray, solid: np.ndarray, reads: str, k: int, s
     return out
 
 
+def check_branching_kernel(solid: np.ndarray, k: int) -> dict:
+    """K17 on the solid set (the find -in cell's shape), through its bucket
+    index at about 1, 2 and 4 keys a bucket, against its plain version and
+    the host function Graph.nb_branching (the path it replaces, timed once),
+    and on its edge sets; its time by CUDA events around the wrapper and by
+    launch, beside a torch.searchsorted route and the device path from the
+    numpy keys (upload, index build, K17, the scalar back)."""
+    import torch
+
+    from mindthegap_tpu_torch.bounds import branching_bytes
+    from mindthegap_tpu_torch.device import stage_ms
+    from mindthegap_tpu_torch.graph import dbg
+    from mindthegap_tpu_torch.kernel_bench import branching_library
+    from mindthegap_tpu_torch.ops import branching_device as BR
+    from mindthegap_tpu_torch.ops import kmers as K
+    from mindthegap_tpu_torch.ops import sorted_index as SI
+    from torch_tables import branching_edge_sets
+
+    t0 = time.perf_counter()
+    want = dbg.Graph(dbg.SolidSet(solid, k)).nb_branching()
+    host_s = time.perf_counter() - t0
+    keys = torch.from_numpy(K.as_i64(solid)).cuda()
+    log_b = SI.log_buckets(keys.numel())
+    errs = []
+    for halve in (0, 1, 2):
+        index = SI.build_cuda(keys, log_b - halve)
+        got, plain = int(BR.branching_cuda(keys, index, k)), int(BR._count_plain(keys, index, k))
+        errs += [abs(got - plain), abs(got - want)]
+    for ekeys, ek in branching_edge_sets().values():
+        et = torch.from_numpy(K.as_i64(ekeys)).cuda()
+        ewant = dbg.Graph(dbg.SolidSet(ekeys, ek)).nb_branching()
+        errs.append(abs(int(BR.branching_cuda(et, SI.build_cuda(et, SI.log_buckets(et.numel())), ek)) - ewant))
+    index = SI.build_cuda(keys, log_b)
+    nbytes, apart, distinct = branching_bytes(keys, index, k)
+    stages = stage_ms(lambda: BR.nb_branching(keys, k), iters=10)
+    path_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        BR.nb_branching(torch.from_numpy(K.as_i64(solid)).cuda(), k)
+        path_s.append(time.perf_counter() - t0)
+    out = {"max_abs_err": max(errs), "ms": _cuda_ms(lambda: BR.branching_cuda(keys, index, k), iters=20, warmup=2),
+           "plain_ms": _cuda_ms(lambda: BR._count_plain(keys, index, k), iters=3),
+           **_bytes_bound_ms(nbytes),
+           "library_ms": _cuda_ms(lambda: branching_library(keys, k), iters=3),
+           "launch_ms": stages, "host_s": host_s, "device_path_s": path_s,
+           "ms_covers": "CUDA events around the wrapper (the zeroed output and K17), the index passed in; "
+                        "launch_ms the index build and K17 by launch (torch.profiler); host_s the host function "
+                        "Graph.nb_branching; device_path_s the upload, index build, K17 and readback by the host's "
+                        "clock; library_ms the neighbours, torch.searchsorted, gather, compare and degrees"}
+    print(f"K17 branching: {keys.numel()} keys at k = {k}, {want} branching; max_abs_err {out['max_abs_err']} "
+          f"(plain, host function, 1-4 keys a bucket, tests/torch_tables.py branching_edge_sets; tolerance 0), "
+          f"kernel {out['ms']:.4f} ms, by launch (ms a call) "
+          + ", ".join(f"{name} {t:.4f}" for name, t in stages.items())
+          + f", plain {out['plain_ms']:.4f} ms, torch.searchsorted route {out['library_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms (bytes: the keys and the index once; the lookups' sectors, {apart} each apart, "
+          f"{distinct} a warp's once, {apart / stages['branching_kernel'] / 1e6:.1f} G/s each apart by launch); "
+          f"host function {host_s:.2f} s; device path from numpy " + ", ".join(f"{t:.4f}" for t in path_s) + " s")
+    return out
+
+
 def mesh_path(work: str, reads: str) -> dict:
     """The device mesh of the process, in-process: on the card's one-device
     mesh `find -graph -scan-engine sharded` over the whole reference (K10
@@ -2012,6 +2081,7 @@ def build_kernels():
 
     from mindthegap_tpu_torch.fill import walk_device as W
     from mindthegap_tpu_torch.find import scan_device as S
+    from mindthegap_tpu_torch.ops import branching_device as BR
     from mindthegap_tpu_torch.ops import counting_device as C
     from mindthegap_tpu_torch.ops import nw_device as ND
     from mindthegap_tpu_torch.ops import sorted_index as SI
@@ -2019,7 +2089,7 @@ def build_kernels():
     from mindthegap_tpu_torch.parallel import sharded_membership as SM
 
     loaders = (S._cls_lib, ND._nw_lib, C._keys_lib, C._merge_lib, W._walk_lib, S._span_scan_lib, W._walk_span_lib,
-               S._planes_lib, SC._lib, SM._lib, S._sorted_lib, SI._lib, S._planes_span_lib)
+               S._planes_lib, SC._lib, SM._lib, S._sorted_lib, SI._lib, S._planes_span_lib, BR._lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
@@ -2078,13 +2148,14 @@ def main() -> int:
         k7 = check_span_walk_kernel(span_fwd, qms, SPAN_K, seed)
         del span_fwd, span_rows, qms
         mesh = check_mesh_kernels(ref, solid, reads, k, seed)
+        k17 = check_branching_kernel(solid, k)
         for name, r in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4), ("K5", k5), ("K6", k6), ("K7", k7),
                         ("K8", planes["scan_planes_q"]), ("K9", planes["scan_planes_qb"]),
                         ("K10", planes["scan_pay_qp"]), ("K11", mesh["swizzle_keys"]),
                         ("K12", mesh["member_route"]), ("K13", mesh["member_probe"]),
                         ("K13", mesh["member_scatter"]), ("K14", mesh["scan_planes_sorted"]),
                         ("the bucket index build", mesh["sorted_index"]), ("K15", planes["scan_planes_qp"]),
-                        ("K16", k16)):
+                        ("K16", k16), ("K17", k17)):
             if r["max_abs_err"]:
                 raise AssertionError(f"{name} disagrees with its plain version: {r}")
         run = main_path(work, insertions, reads)
@@ -2157,6 +2228,8 @@ def main() -> int:
         {"name": "scan_planes_q_span", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/scan_planes_span.cu",
          "replaces": "mindthegap_tpu/find/scan_device.py:201",
          "launches": run6["launches"]["scan_planes_q_span"], **k16},
+        {"name": "branching", "route": "cuda", "source": "mindthegap_tpu_torch/csrc/branching.cu",
+         "replaces": None, "launches": run["launches"]["branching"], **k17},
     ]
     for rec in kernels:  # the records that time otherwise say how
         rec.setdefault("ms_covers", "CUDA events around the wrapper, the mean of its calls")

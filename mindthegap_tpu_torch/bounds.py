@@ -186,6 +186,47 @@ def sorted_lookup_sectors(keys: torch.Tensor, index: SI.SortedIndex, queries: to
     return sectors + int((more & (a < end)).sum())
 
 
+def branching_bytes(keys: torch.Tensor, index: SI.SortedIndex, k: int, warp: int = 32,
+                    chunk: int = 1 << 20) -> tuple[int, int, int]:
+    """(the bytes K17 must move, the sectors its lookups read each apart,
+    the same with a warp's counted once) on a sorted set, keys and index as
+    branching_cuda takes them (k <= 32). The bytes: the keys, the index's
+    starts and head read once, the count written once. The lookups' sectors
+    are not in the bound: the set is about the L2's size (54 MB for 4.7 M
+    keys at k = 31, against 50 MB), and on an H100 K17 ran in less time than
+    its memory rate gives for them, counted either way (PERF.md §6). The
+    sectors: sorted_lookup_sectors' of the 8 neighbour lookups a key; a
+    warp's (its `warp` consecutive keys) the distinct starts' and keys'
+    sectors of its first two steps, plus the bisection steps of long
+    buckets, each apart. chunk, a multiple of warp, bounds the memory."""
+    from .ops import branching_device as BD
+
+    n = keys.shape[0]
+    lo, hi, shift, _real = index.head
+    key_tag = 1 << 30  # a start's sector id and a key's apart (both below 2^30)
+    distinct = apart = 0
+    for a in range(0, n, chunk):
+        x = keys[a:a + chunk]
+        q = BD.neighbours(x, k).reshape(-1)
+        w = (torch.arange(x.shape[0], device=keys.device) // warp).repeat_interleave(8)
+        inside = ~(K.ult(q, lo) | K.ult(hi, q))
+        q, w = q[inside], w[inside]
+        j = K.shr(q - lo, int(shift))
+        begin, end = index.start[j].long(), index.start[j + 1].long()
+        last = begin + (end - begin).clamp(max=LOOKUP_KEYS) - 1
+        some = last >= begin
+        # the ids of each lookup's sectors: its two starts', its first and last key's
+        ids = torch.stack([(4 * j) // SECTOR_BYTES, (4 * j + 4) // SECTOR_BYTES,
+                           torch.where(some, key_tag + (8 * begin) // SECTOR_BYTES, -1),
+                           torch.where(some, key_tag + (8 * last) // SECTOR_BYTES, -1)], dim=1)
+        two_steps = q.shape[0] + int((j % 8 == 7).sum()) + int(((8 * last) // SECTOR_BYTES
+                                                                  - (8 * begin) // SECTOR_BYTES + 1)[some].sum())
+        lookups = sorted_lookup_sectors(keys, index, q)
+        distinct += torch.unique(((w[:, None] << 31) | ids)[ids >= 0]).numel() + lookups - two_steps
+        apart += lookups
+    return 8 * n + 4 * index.start.numel() + 8 * index.head.numel() + 8, apart, distinct
+
+
 def scatter_bytes(send_lane: torch.Tensor, lanes: int, back_ptr: int = 0) -> int:
     """The bytes K13's scatter must move (send_lane as member_scatter takes
     it, its verdicts at address back_ptr): every slot's lane, 4 bytes; the

@@ -307,7 +307,9 @@ def build_graph(
     reference's -max-memory contract, src/Finder.cpp:103-105), or
     "sharded" (k <= 32: the mesh of `device`'s run, parallel/mesh.py, or
     in a run across processes the global mesh, counting with the k-mers
-    routed to owner shards, parallel/sharded_count.py)."""
+    routed to owner shards, parallel/sharded_count.py). Whatever the
+    engine, a given `device` also counts the branching nodes at k <= 32
+    (_nb_branching)."""
     from ..io.bank import iter_codes
 
     auto = isinstance(abundance_min, str) and abundance_min == "auto"
@@ -367,8 +369,29 @@ def build_graph(
         info["cutoffs_auto.values"] = f"{cutoff} "
     g = Graph(solid, info)
     with span("branching"):
-        g.info["nb_branching"] = g.nb_branching()
+        g.info["nb_branching"] = _nb_branching(g, device)
     return g
+
+
+def _nb_branching(g: Graph, device) -> int:
+    """Graph.nb_branching, on `device` where build_graph was given one, k <=
+    32 and the set fits there (ops/branching_device.py: the keys uploaded
+    once, K17 on a card, its plain version on the CPU); else the host
+    function. The count "keys probed on device" is the keys counted there,
+    0 on the host path."""
+    if device is not None and g.k <= 32:
+        import torch
+
+        from ..ops import branching_device as BD
+
+        dev = torch.device(device)
+        n = len(g.solid)
+        if BD.fits(n, dev):
+            keys = torch.from_numpy(g.solid.keys.view(np.int64)).to(dev)
+            count("keys probed on device", n)
+            return BD.nb_branching(keys, g.k)
+    count("keys probed on device", 0)
+    return g.nb_branching()
 
 
 def build_repeat_set(ref_uri: str, k_minus_1: int, min_occ: int) -> SolidSet:

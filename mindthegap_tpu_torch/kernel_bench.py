@@ -82,7 +82,12 @@ torch.searchsorted of the bucket numbers 0..B (the plain build's core)
 by launch. The planes stage also times the earlier checkout's K10 in
 turns. `--only` names the stages to run
 (comma-separated keys of the JSON record: span_scan, span_walk, nw, scan,
-keys, walk, merge, planes, mesh, sorted, plane_passes; default all). The
+keys, walk, merge, planes, mesh, sorted, plane_passes, branching; default
+all). The branching stage times K17 (`branching_cuda`, no earlier version)
+on the k = 31 set, with its index at about 1, 2 and 4 keys a bucket, beside
+its plain version, a torch.searchsorted route and the host function it
+replaces in build_graph, and the whole device path from the numpy keys
+(bench_branching). The
 plane_passes stage times K15 and K16 (scan_planes_qp_cuda on the planes
 stage's window, scan_planes_q_span_cuda on K6's k = 45 window) in turns
 with the earlier checkout's, with their plain versions and with the
@@ -109,12 +114,13 @@ import torch
 
 from ._build import ptxas_usage
 from .bounds import (NW_OPS_PER_CELL, NW_OPS_PER_CELL_12, PLANE_BYTES_PER_POSITION, SECTOR_BYTES, bloom_probe_loads,
-                     bytes_ms, nw_bound_ms, plane_pass_bound_ms, plane_scan_sectors, scan_probe_sectors,
-                     scan_sorted_sectors, scatter_bytes, sorted_lookup_sectors, span_scan_sectors, walk_bound_ms,
-                     walk_span_bound_ms)
+                     branching_bytes, bytes_ms, nw_bound_ms, plane_pass_bound_ms, plane_scan_sectors,
+                     scan_probe_sectors, scan_sorted_sectors, scatter_bytes, sorted_lookup_sectors, span_scan_sectors,
+                     walk_bound_ms, walk_span_bound_ms)
 from .device import cuda_ms, launch_means, stage_ms
 from .fill import walk_device as W
 from .find import scan_device as S
+from .ops import branching_device as BR
 from .ops import counting_device as C
 from .ops import extmap as X
 from .ops import kmers as K
@@ -801,6 +807,81 @@ def bench_index(solid, prev_si, seed: int) -> dict:
     return out
 
 
+def branching_library(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """One PyTorch route of K17's function: the neighbours, torch.searchsorted
+    over the whole set (the sign bit flipped: unsigned order), the gather,
+    the compare and the degrees."""
+    flipped = keys ^ K.SIGN_BIT
+    q = BR.neighbours(keys, k).reshape(-1)
+    pos = torch.searchsorted(flipped, q ^ K.SIGN_BIT).clamp_(max=keys.numel() - 1)
+    hit = (keys[pos] == q).reshape(-1, 8)
+    return ((hit[:, :4].sum(1) != 1) | (hit[:, 4:].sum(1) != 1)).sum()
+
+
+def bench_branching(solid, k: int) -> dict:
+    """K17 on the solid set (the cell's shape: a bacterial genome's
+    canonical k-mers): registers and spills; equal to its plain version, to
+    the library route and to the host function (timed once: the path it
+    replaces); in turns by CUDA events around the wrapper, the index passed
+    in at about 1, 2 and 4 keys a bucket; by launch (torch.profiler); the
+    plain version and the library route; the whole device path as
+    build_graph runs it (the upload from numpy, the index build, K17, the
+    scalar back) by the host's clock; the bound and the lookups' sectors
+    (bounds.py branching_bytes), their time at the memory rate and their
+    rate."""
+    import time
+
+    from .graph import dbg
+
+    registers = {name: {"registers": regs, "spill_bytes": spill} for name, regs, spill in ptxas_usage("branching.cu")}
+    print("K17 registers (spill bytes): " + ", ".join(f"{key} {v['registers']} ({v['spill_bytes']})"
+                                                       for key, v in registers.items()))
+    t0 = time.perf_counter()
+    want = dbg.Graph(dbg.SolidSet(solid, k)).nb_branching()
+    host_s = time.perf_counter() - t0
+    keys = torch.from_numpy(K.as_i64(solid)).cuda()
+    log_b = SI.log_buckets(keys.numel())
+    indexes = {f"2^{log_b - h} buckets": SI.build_cuda(keys, log_b - h) for h in (0, 1, 2)}
+    index = indexes[f"2^{log_b} buckets"]
+    for name, ix in indexes.items():
+        if not int(BR.branching_cuda(keys, ix, k)) == int(BR._count_plain(keys, ix, k)) == want:
+            raise AssertionError(f"K17 or its plain version differs from the host function ({name})")
+    if int(branching_library(keys, k)) != want:
+        raise AssertionError("the library route differs from the host function")
+    fns = {name: (lambda ix=ix: BR.branching_cuda(keys, ix, k)) for name, ix in indexes.items()}
+
+    def device_path():
+        return BR.nb_branching(torch.from_numpy(K.as_i64(solid)).cuda(), k)
+
+    path_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        device_path()
+        path_s.append(time.perf_counter() - t0)
+    nbytes, apart, distinct = branching_bytes(keys, index, k)
+    out = {"keys": keys.numel(), "k": k, "branching": want, "registers": registers, "host_s": host_s,
+           "ms": _turns(fns, 20, 2), "launch_ms": {name: by_launch(f, 20) for name, f in fns.items()},
+           "index_launch_ms": by_launch(lambda: SI.build_cuda(keys, log_b), 20),
+           "plain_ms": cuda_ms(lambda: BR._count_plain(keys, index, k), 3),
+           "library_ms": cuda_ms(lambda: branching_library(keys, k), 3),
+           "library_launch_ms": by_launch(lambda: branching_library(keys, k), 3),
+           "device_path_s": path_s, "bound_bytes": nbytes, "bound_ms": bytes_ms(nbytes), "lookup_sectors": apart,
+           "warp_sectors": distinct, "lookup_sectors_ms": bytes_ms(8 * keys.numel() + SECTOR_BYTES * apart),
+           "warp_sectors_ms": bytes_ms(8 * keys.numel() + SECTOR_BYTES * distinct)}
+    kernel_ms = out["launch_ms"][f"2^{log_b} buckets"]["branching_kernel"]
+    out["g_sectors_per_s"] = apart / kernel_ms / 1e6
+    print(f"K17 branching on {out['keys']} keys at k = {k} ({want} branching): in turns (CUDA events around the "
+          f"wrapper, ms) {out['ms']}; by launch (torch.profiler) {out['launch_ms']}; the index build by launch "
+          f"{out['index_launch_ms']}; plain {out['plain_ms']:.4f} ms; torch.searchsorted route "
+          f"{out['library_ms']:.4f} ms (by launch {out['library_launch_ms']}); the host function {host_s:.3f} s; "
+          f"the device path from numpy (upload, index, K17, the scalar back) {['%.4f' % t for t in path_s]} s; "
+          f"bound {out['bound_ms']:.4f} ms ({nbytes} bytes: the keys, starts and head once); the lookups' sectors "
+          f"at the memory rate: {apart} each apart {out['lookup_sectors_ms']:.4f} ms, {distinct} a warp's once "
+          f"{out['warp_sectors_ms']:.4f} ms; {out['g_sectors_per_s']:.1f} G sectors/s (each apart, by launch)")
+    return out
+
+
 def span_registers() -> dict:
     """Registers and spill bytes of every K6 and K7 instantiation."""
     out = {}
@@ -825,7 +906,7 @@ def main(argv=None) -> int:
         print("kernel_bench: no CUDA device is available", file=sys.stderr)
         return 2
     stages = ("span_scan", "span_walk", "nw", "scan", "keys", "walk", "merge", "planes", "mesh", "sorted",
-              "plane_passes")
+              "plane_passes", "branching")
     only = set(args.only.split(",")) if args.only else set(stages)
     if only - set(stages):
         ap.error(f"unknown stages {sorted(only - set(stages))} (choose from {', '.join(stages)})")
@@ -874,6 +955,8 @@ def main(argv=None) -> int:
             solid, importlib.import_module("prev_mindthegap_tpu_torch.ops.sorted_index"), args.seed + 5)
     if "plane_passes" in only:
         record["plane_passes"] = bench_plane_passes(genome, solid, k, args.seed + 2, prev_s)
+    if "branching" in only:
+        record["branching"] = bench_branching(solid, k)
     line = json.dumps(record)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -16,13 +16,14 @@ from mindthegap_tpu_torch.ops import nw_device as ND
 from mindthegap_tpu_torch.ops import sorted_index as SI
 from mindthegap_tpu_torch.parallel import sharded_count as PSC
 from mindthegap_tpu_torch.parallel import sharded_membership as PSM
-from torch_tables import (HALO_STATES, INDEX_EDGE_NAMES, MEMBER_EDGE_NAMES, PAIR_PIPELINE_NAMES, PAIR_TILE_KS,
-                          PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES, SCATTER_EDGE_NAMES,
-                          SORTED_EDGE_NAMES, SPAN_EDGE_NAMES, SPAN_TILE_CASES, SWIZZLE_EDGE_NAMES, edge_walk_case,
-                          edge_walk_span_case, index_edge_sets, key_edge_batches, member_edge_cases, merge_edge_cases,
-                          move_to_stash, pair_pipeline_case, pair_tile_case, plane_edge_windows, plane_pipeline_case,
-                          route_edge_cases, scan_edge_windows, scatter_edge_cases, sorted_edge_windows,
-                          span_edge_windows, span_tile_case, swizzle_edge_chunks)
+from torch_tables import (BRANCHING_EDGE_NAMES, HALO_STATES, INDEX_EDGE_NAMES, MEMBER_EDGE_NAMES, PAIR_PIPELINE_NAMES,
+                          PAIR_TILE_KS, PLANE_EDGE_NAMES, PLANE_PIPELINE_NAMES, ROUTE_EDGE_NAMES, SCAN_EDGE_NAMES,
+                          SCATTER_EDGE_NAMES, SORTED_EDGE_NAMES, SPAN_EDGE_NAMES, SPAN_TILE_CASES, SWIZZLE_EDGE_NAMES,
+                          branching_edge_sets, edge_walk_case, edge_walk_span_case, index_edge_sets, key_edge_batches,
+                          member_edge_cases, merge_edge_cases, move_to_stash, pair_pipeline_case, pair_tile_case,
+                          plane_edge_windows, plane_pipeline_case, route_edge_cases, scan_edge_windows,
+                          scatter_edge_cases, sorted_edge_windows, span_edge_windows, span_tile_case,
+                          swizzle_edge_chunks)
 
 pytestmark = pytest.mark.cuda
 
@@ -864,3 +865,67 @@ def test_profile_trace_spans_hold_their_device_work(cuda, tmp_path, monkeypatch)
     assert len(flushes) > 1 and len(k3) == len(flushes)
     for (f_s, _f_e), t in zip(flushes, k3):
         assert t >= f_s
+
+
+def _branching_case(name, tmp_path):
+    """(sorted u64 keys, k) of K17's cases: branching_edge_sets, a random
+    set of a few million keys (a 3 Mbp genome's canonical 31-mers and 10^5
+    random words), and the graph of 40 kb of test reads (a reference and
+    its donor, both read, so that every variant branches)."""
+    import chip_smoke as CS
+    from mindthegap_tpu_torch.graph import dbg
+
+    if name in BRANCHING_EDGE_NAMES:
+        return branching_edge_sets()[name]
+    rng = np.random.default_rng(17)
+    if name == "random-3m":
+        fwd, _ = K.kmers_from_codes(rng.integers(0, 4, 3_000_000, dtype=np.uint8), 31)
+        words = rng.integers(0, 1 << 62, 100_000, dtype=np.uint64)
+        return np.unique(np.concatenate([K.canonical_u64(fwd, 31), words])), 31
+    ref, donor, _ = CS.make_case(40_000, n_ins=3, n_snp=2, n_del=2, seed=41)
+    reads = CS.write_reads(str(tmp_path / "ref"), ref, 15.0, seed=42) + "," + \
+        CS.write_reads(str(tmp_path / "donor"), donor, 15.0, seed=43)
+    return dbg.build_graph(reads, 31, 3).solid.keys, 31
+
+
+@pytest.mark.parametrize("name", BRANCHING_EDGE_NAMES + ("random-3m", "reads-graph"))
+def test_branching_kernel_matches_plain(cuda, name, tmp_path):
+    """K17 equals its plain version (on the card) and the host function
+    Graph.nb_branching, through the index at 1, 2 and 4 keys a bucket; its
+    launch counter rises by one a call."""
+    from mindthegap_tpu_torch.graph import dbg
+    from mindthegap_tpu_torch.ops import branching_device as BD
+
+    keys, k = _branching_case(name, tmp_path)
+    want = dbg.Graph(dbg.SolidSet(keys, k)).nb_branching()
+    t = torch.from_numpy(K.as_i64(keys)).to(cuda)
+    for halve in (0, 1, 2):
+        index = SI.build_cuda(t, max(1, SI.log_buckets(t.shape[0]) - halve))
+        before = BD.branching_cuda.launches
+        got = BD.branching_cuda(t, index, k)
+        assert BD.branching_cuda.launches == before + 1
+        assert got.is_cuda and got.dtype == torch.int64
+        assert int(got) == int(BD._count_plain(t, index, k)) == want
+    assert BD.nb_branching(t, k) == want
+
+
+def test_build_graph_counts_branching_on_the_card(cuda, tmp_path):
+    """build_graph with the card: K17 counts the branching nodes once (the
+    info equals the host path's), "keys probed on device" is the solid
+    count."""
+    import chip_smoke as CS
+    from mindthegap_tpu_torch.graph import dbg
+    from mindthegap_tpu_torch.ops import branching_device as BD
+    from mindthegap_tpu_torch.utils.phases import PhaseTimer
+
+    ref, donor, _ = CS.make_case(40_000, n_ins=3, n_snp=2, n_del=2, seed=41)
+    reads = CS.write_reads(str(tmp_path / "ref"), ref, 15.0, seed=42) + "," + \
+        CS.write_reads(str(tmp_path / "donor"), donor, 15.0, seed=43)
+    host = dbg.build_graph(reads, 31, 3)
+    before = BD.branching_cuda.launches
+    timer = PhaseTimer()
+    with timer.active():
+        dev = dbg.build_graph(reads, 31, 3, count_engine="device", device=cuda)
+    assert BD.branching_cuda.launches == before + 1
+    assert dev.info == host.info
+    assert timer._counts["branching / keys probed on device"] == dev.info["kmers_nb_solid"] > 0

@@ -185,7 +185,8 @@ def test_profile_span_tree(case, tmp_path, monkeypatch, k):
     """`find -in -count-engine device -profile`: every span the run passes
     through is in "Per-phase timings", each parent before its children and
     each child's seconds at most its parent's; "Per-phase counts" follows,
-    each count under a span of the report (distinct k-mers >= solid ones).
+    each count under a span of the report (distinct k-mers >= solid ones;
+    keys probed on device: the solid ones at k = 31, none at k = 45).
     With no profiler running no record_function range is entered."""
     import torch
 
@@ -215,6 +216,9 @@ def test_profile_span_tree(case, tmp_path, monkeypatch, k):
     assert counts["graph build / parse / bases"] > 0
     assert counts["scan engine setup / upload / bytes uploaded"] > 0
     assert counts["scan+replay (fused) / windows"] >= 1
+    # the branching count runs on the device at k <= 32, on the host above
+    probed = counts["graph build / solid filter / solid k-mers"] if k == 31 else 0
+    assert counts["graph build / branching / keys probed on device"] == probed
     if k == 31:
         assert counts["graph build / flush / flushes"] > 1
         assert counts["graph build / flush / merge regrowths"] >= 1

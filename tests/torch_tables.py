@@ -986,6 +986,81 @@ def index_edge_sets(seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# the branching count's sets (ops/branching_device.py, csrc/branching.cu)
+
+BRANCHING_EDGE_NAMES = ("random-k5", "random-k15", "random-k31", "random-k32", "empty", "one-key", "dense-k1",
+                        "dense-k3", "dense-k4", "all-words-k4", "near-0-k32", "near-top-k32", "palindromes-k2",
+                        "palindromes-k6", "palindromes-k10")
+
+
+def _canonical_kmers(genome: np.ndarray, k: int) -> np.ndarray:
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    fwd, _ = K.kmers_from_codes(genome, k)
+    return np.unique(K.canonical_u64(fwd, k))
+
+
+def _palindromes(k: int, n: int, rng) -> np.ndarray:
+    """n palindromic k-mers (k even: a half, then its reverse complement),
+    with the canonical k-mers of a 30-base genome around each, so that
+    some have one neighbour on a side and some more."""
+    from mindthegap_tpu_torch.ops import kmers as K
+
+    half = k // 2
+    heads = rng.integers(0, 1 << (2 * half), n, dtype=np.uint64)
+    pal = (heads << np.uint64(2 * half)) | K.revcomp_u64(heads, half)
+    assert np.array_equal(K.revcomp_u64(pal, k), pal)
+    around = [_canonical_kmers(np.concatenate([rng.integers(0, 4, 10, dtype=np.uint8),
+                                               np.array([(int(p) >> (2 * (k - 1 - j))) & 3 for j in range(k)],
+                                                        np.uint8),
+                                               rng.integers(0, 4, 10, dtype=np.uint8)]), k) for p in pal[: n // 2]]
+    return np.unique(np.concatenate([pal, *around]))
+
+
+def branching_edge_sets(seed: int = 0):
+    """{name: (sorted u64 keys, k)} for the branching count: the canonical
+    k-mers of a random genome with random words below 4^k added, at k = 5,
+    15, 31 and 32; no key; one key; every canonical k-mer at k = 1, 3 and 4
+    (each neighbour in the set: every key branches) and every 4-mer; at
+    k = 32 keys next to 0 and next to 2^64 - 1 (2^64 - 1 itself among
+    them: unsigned order, and the index's SENTINEL tail, which K17 still
+    counts); palindromes at even k (a k-mer its own reverse complement)."""
+    rng = np.random.default_rng(seed)
+
+    def genome_set(k, bases, extra):
+        words = rng.integers(0, 1 << (2 * k) if k < 32 else 1 << 64, extra, dtype=np.uint64)
+        return np.unique(np.concatenate([_canonical_kmers(rng.integers(0, 4, bases, dtype=np.uint8), k), words]))
+
+    def every_canonical(k):
+        from mindthegap_tpu_torch.ops import kmers as K
+
+        words = np.arange(1 << (2 * k), dtype=np.uint64)
+        return np.unique(K.canonical_u64(words, k))
+
+    near_0 = np.concatenate([np.arange(0, 2000, dtype=np.uint64), rng.integers(0, 1 << 24, 3000, dtype=np.uint64)])
+    top = _SENT - rng.integers(0, 1 << 24, 3000, dtype=np.uint64)
+    cases = {
+        "random-k5": (genome_set(5, 400, 50), 5),
+        "random-k15": (genome_set(15, 20_000, 2000), 15),
+        "random-k31": (genome_set(31, 30_000, 2000), 31),
+        "random-k32": (genome_set(32, 30_000, 2000), 32),
+        "empty": (np.zeros(0, np.uint64), 31),
+        "one-key": (np.array([0x1234567], np.uint64), 31),
+        "dense-k1": (every_canonical(1), 1),
+        "dense-k3": (every_canonical(3), 3),
+        "dense-k4": (every_canonical(4), 4),
+        "all-words-k4": (np.arange(256, dtype=np.uint64), 4),
+        "near-0-k32": (np.unique(near_0), 32),
+        "near-top-k32": (np.unique(np.concatenate([near_0[:500], top, _SENT - np.arange(1000, dtype=np.uint64)])), 32),
+        "palindromes-k2": (_palindromes(2, 4, rng), 2),
+        "palindromes-k6": (_palindromes(6, 40, rng), 6),
+        "palindromes-k10": (_palindromes(10, 400, rng), 10),
+    }
+    assert tuple(cases) == BRANCHING_EDGE_NAMES
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # the analysis scripts' case (mindthegap_tpu_torch/scripts/context_genome_wg.py)
 
 SCRIPT_CHROMS = (("ref", 12_000), ("chr2", 6_000))
